@@ -1,0 +1,8 @@
+"""Numerics constants (mmvae_tpu/core/constants.py)."""
+
+import math
+
+# Small epsilon added to every std parameterization (reference: utils.py:17).
+ETA = 1e-6
+
+LOG2PI = math.log(2.0 * math.pi)

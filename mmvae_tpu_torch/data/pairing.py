@@ -1,0 +1,40 @@
+"""Index pairing (own copy of mmvae_tpu/data/pairing.py, numpy only).
+
+The reference's pairing artifacts are index arrays into the base datasets
+(dataloaders.py:268-275); here pairing is a pure function labels -> index
+arrays and the gather happens in the input pipeline.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+
+def rand_match_on_idx(
+    labels: Sequence[np.ndarray],
+    max_d: int = 10000,
+    dm: int = 5,
+    seed: int = 0,
+) -> Tuple[np.ndarray, ...]:
+    """Class-matched random index pairing for N modalities
+    (bin/make-mnist-svhn-idx.py:4-18).
+
+    labels: per-modality integer label arrays. For each class, takes the
+    first min(count_m, max_d) examples per modality and emits dm random
+    permutations of matched rows.
+    """
+    rng = np.random.default_rng(seed)
+    n_mod = len(labels)
+    sorted_idx = [np.argsort(l, kind="stable") for l in labels]
+    sorted_lab = [l[si] for l, si in zip(labels, sorted_idx)]
+    out: List[List[np.ndarray]] = [[] for _ in range(n_mod)]
+    for c in np.unique(sorted_lab[0]):
+        per_mod = [si[sl == c] for si, sl in zip(sorted_idx, sorted_lab)]
+        n = min(min(len(p) for p in per_mod), max_d)
+        per_mod = [p[:n] for p in per_mod]
+        for _ in range(dm):
+            for m in range(n_mod):
+                out[m].append(per_mod[m][rng.permutation(n)])
+    return tuple(np.concatenate(o) for o in out)

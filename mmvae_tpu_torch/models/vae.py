@@ -1,0 +1,80 @@
+"""Unimodal VAE with an optional posterior flow (mmvae_tpu/models/vae.py).
+
+`flow=None` is the plain VAE; `flow=MAF(...)/IAF(...)` the flow-augmented
+sampling path (reference vae_iaf_model_adapted.py:60-103). Sampling takes
+the standard-normal noise `eps` explicitly, or draws it from `generator`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core import distributions as D
+from ..core.distributions import LocScale
+
+
+class UnimodalVAE(nn.Module):
+    def __init__(self, encoder: nn.Module, decoder: nn.Module, latent_dim: int,
+                 flow: Optional[nn.Module] = None, posterior: str = "normal",
+                 model_name: str = "vae"):
+        super().__init__()
+        if posterior != "normal":
+            raise NotImplementedError(f"{posterior} posterior not yet ported")
+        self.encoder = encoder
+        self.decoder = decoder
+        self.flow = flow
+        self.latent_dim = latent_dim
+        self.posterior = posterior
+        self.model_name = model_name
+
+    def posterior_std(self, log_var):
+        return D.std_from_logvar(log_var)
+
+    def encode(self, x):
+        """-> (mu, log_var)."""
+        return self.encoder(x)
+
+    def decode(self, z):
+        return self.decoder(z)
+
+    def flow_forward(self, z):
+        """Density direction z -> z0 with log|det J|."""
+        if self.flow is None:
+            return z, z.new_zeros(z.shape[:-1])
+        return self.flow(z)
+
+    def flow_inverse(self, z0):
+        """Sampling direction z0 -> z with log|det J|."""
+        if self.flow is None:
+            return z0, z0.new_zeros(z0.shape[:-1])
+        return self.flow.inverse(z0)
+
+    def encode_and_sample(self, x, K: int = 1, eps=None, generator=None):
+        """Posterior params + K samples (leading axis K)."""
+        mu, log_var = self.encode(x)
+        std = self.posterior_std(log_var)
+        z0 = D.sample(self.posterior, LocScale(mu, std), (K,), eps=eps, generator=generator)
+        z, ldj = self.flow_inverse(z0)
+        return (mu, std), z, ldj
+
+    def forward(self, x, K: int = 1, eps=None, generator=None):
+        """Full forward pass. Encoding runs once; the leading sample axis K
+        is present only when K > 1. Returns recon, mu, log_var, std, z0, z,
+        log_abs_det_jac."""
+        mu, log_var = self.encode(x)
+        std = self.posterior_std(log_var)
+        shape = (K,) if K > 1 else ()
+        z0 = D.sample(self.posterior, LocScale(mu, std), shape, eps=eps, generator=generator)
+        z, ldj = self.flow_inverse(z0)
+        return {
+            "recon": self.decode(z),
+            "mu": mu,
+            "log_var": log_var,
+            "std": std,
+            "z0": z0,
+            "z": z,
+            "log_abs_det_jac": ldj,
+        }

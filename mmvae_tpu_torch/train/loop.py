@@ -1,0 +1,235 @@
+"""Training driver (mmvae_tpu/train/loop.py; reference main.py:147-277):
+AMSGrad + ReduceLROnPlateau, warmup phases with optimizer reset and
+parameter freezing, early stopping with warmup shortening, best-val
+checkpointing.
+
+The JAX package dispatches epochs in lax.scan chunks of `steps_per_dispatch`
+steps; chunking computes the same math, so the port accepts the key and runs
+step by step. Per-step noise comes from a `torch.Generator` on the training
+device seeded from `cfg.seed`; validation re-seeds its own generator every
+epoch, so the val loss of fixed parameters is the same each epoch, as in the
+JAX package (one fixed val key).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import defaultdict
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from ..core.config import ExperimentConfig
+from ..nets.conv import init_parameters
+from ..objectives import objectives as obj_mod
+from . import checkpoints, freezing
+from .optim import Adam
+from .schedule import BetaKlSchedule, ReduceLROnPlateau
+
+_VAL_SEED_OFFSET = 0x7FFFFFFF
+
+
+class Trainer:
+    def __init__(self, model, spec, cfg: ExperimentConfig, run_path: Optional[str] = None,
+                 multimodal: bool = True, log_fn: Callable[[str], None] = print,
+                 device="cuda"):
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.spec = spec
+        self.cfg = cfg
+        self.run_path = run_path
+        self.log = log_fn
+        self.obj_name, self.obj_fn = obj_mod.resolve(cfg.obj, multimodal, cfg.looser)
+        self.guard = bool(cfg.nan_guard)
+        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.opt: Optional[Adam] = None
+        self._history: Dict[str, List[float]] = {}
+
+    # ------------------------------------------------------------------
+    # setup
+    # ------------------------------------------------------------------
+
+    def init_parameters(self, seed: Optional[int] = None) -> None:
+        """Draw every parameter from a CPU generator seeded with `seed`
+        (default cfg.seed): the same weights on any device."""
+        seed = self.cfg.seed if seed is None else seed
+        init_parameters(self.model, torch.Generator().manual_seed(seed))
+
+    def init_opt_state(self, past_warmup: bool = False, amsgrad: bool = True) -> None:
+        frozen = freezing.frozen_prefixes_for_phase(
+            self.obj_name, past_warmup, self.cfg.fix_jencoder, self.cfg.fix_decoders)
+        params = freezing.trainable_parameters(self.model, frozen)
+        self._trainable = set(params)
+        self.opt = Adam(params.values(), amsgrad=amsgrad,
+                        clip_grad_norm=float(self.cfg.clip_grad_norm or 0.0))
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _obj_kwargs(self, beta_kl: float, epoch: int):
+        cfg = self.cfg
+        return dict(K=cfg.K, warmup=cfg.warmup, beta_prior=cfg.beta_prior, beta=cfg.beta,
+                    beta_kl=beta_kl, epoch=epoch, past_warmup=epoch >= cfg.warmup)
+
+    def train_step(self, xs, lr: float, beta_kl: float = 1.0, epoch: int = 1, eps=None):
+        """One optimizer step on batch `xs`. Returns (loss, details) as
+        device tensors; details["nan_skipped"] is 1 when nan_guard skipped
+        the step."""
+        self.model.train()
+        obj, details = self.obj_fn(self.model, xs, self.spec, eps=eps, generator=self.gen,
+                                   **self._obj_kwargs(beta_kl, epoch))
+        loss = -obj
+        named = list(self.model.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+        finite = None
+        if self.guard:
+            # a non-finite step (MAF exp overflow, ...) must not reach the
+            # params or the moments; all grads count, frozen ones included
+            finite = torch.isfinite(loss.detach())
+            for g in grads:
+                finite = finite & torch.isfinite(g).all()
+            details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
+        self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr, finite)
+        return loss.detach(), details
+
+    @torch.no_grad()
+    def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, eps=None, generator=None):
+        self.model.eval()
+        obj, details = self.obj_fn(self.model, xs, self.spec, eps=eps, generator=generator,
+                                   **self._obj_kwargs(beta_kl, epoch))
+        return -obj, details
+
+    # ------------------------------------------------------------------
+    # epochs
+    # ------------------------------------------------------------------
+
+    def _run(self, batches: Iterable, n_norm: int, step) -> Tuple[float, Dict[str, float]]:
+        """Sum loss and details over `batches` on the device; one host read
+        at the end. Returns (total / n_norm, {k: sum / n_norm})."""
+        total, acc = None, {}
+        for xs in batches:
+            loss, details = step(xs)
+            total = loss if total is None else total + loss
+            for k, v in details.items():
+                acc[k] = v if k not in acc else acc[k] + v
+        if total is None:
+            return 0.0, {}
+        return float(total) / n_norm, {k: float(v) / n_norm for k, v in acc.items()}
+
+    def _host_batches(self, loader):
+        for xs, _ in loader:
+            yield [torch.as_tensor(x).to(self.device, torch.float32) for x in xs]
+
+    def _device_batches(self, pipeline):
+        for rows in pipeline.epoch_index_batches():
+            yield pipeline.gather(torch.from_numpy(rows).to(self.device))
+
+    def run_epoch_device(self, pipeline, lr, beta_kl, epoch: int = 1):
+        """Train epoch over a device pipeline; normalized by all pairs, as
+        the JAX package does."""
+        return self._run(self._device_batches(pipeline), pipeline.num_examples,
+                         lambda xs: self.train_step(xs, lr, beta_kl, epoch))
+
+    def _val_generator(self):
+        return torch.Generator(device=self.device).manual_seed(self.cfg.seed + _VAL_SEED_OFFSET)
+
+    def run_epoch_device_eval(self, pipeline, beta_kl, epoch: int = 1):
+        """Val epoch over a device pipeline; the ragged tail batch is dropped
+        and the loss normalized by the rows scored."""
+        gen = self._val_generator()
+        n = len(pipeline) * pipeline.batch_size
+        return self._run(self._device_batches(pipeline), n,
+                         lambda xs: self.eval_step(xs, beta_kl, epoch, generator=gen))
+
+    def run_epoch(self, loader, lr, beta_kl, train: bool = True, epoch: int = 1):
+        """Epoch over a host ArrayLoader, normalized by its examples."""
+        if train:
+            step = lambda xs: self.train_step(xs, lr, beta_kl, epoch)  # noqa: E731
+        else:
+            gen = self._val_generator()
+            step = lambda xs: self.eval_step(xs, beta_kl, epoch, generator=gen)  # noqa: E731
+        return self._run(self._host_batches(loader), loader.num_examples, step)
+
+    def make_device_pipeline(self, loader):
+        from ..data.device_pipeline import from_array_loader
+
+        return from_array_loader(loader, device=self.device)
+
+    def fit(self, train_loader, val_loader, callbacks: Optional[List[Callable]] = None,
+            min_epoch: int = 1, use_device_pipeline: bool = True):
+        """Full training run (main.py:234-277). Returns the last epoch + 1."""
+        cfg = self.cfg
+        self.init_parameters()
+        self.init_opt_state(past_warmup=min_epoch >= cfg.warmup, amsgrad=True)
+
+        plateau = ReduceLROnPlateau(lr=cfg.learning_rate)
+        beta_sched = BetaKlSchedule(cfg.beta_kl, cfg.decrease_beta_kl, cfg.warmup)
+        best_loss = math.inf
+        bad_epochs = 0
+        warmup = cfg.warmup
+        hist = defaultdict(list)
+        pipeline = self.make_device_pipeline(train_loader) if use_device_pipeline else None
+        val_pipeline = None
+        if use_device_pipeline and val_loader.num_examples >= val_loader.batch_size:
+            val_pipeline = self.make_device_pipeline(val_loader)
+
+        epoch = min_epoch
+        while epoch <= cfg.epochs:
+            if epoch == warmup and cfg.fix_jencoder and epoch != min_epoch:
+                # optimizer reset at warmup end (main.py:241-245)
+                self.log(f"====> Epoch {epoch}: optimizer reset (post-warmup)")
+                self.init_opt_state(past_warmup=True, amsgrad=False)
+                plateau.reset(cfg.learning_rate)
+                best_loss = math.inf
+
+            t0 = time.time()
+            if pipeline is not None:
+                tr_loss, tr_details = self.run_epoch_device(pipeline, plateau.lr,
+                                                            beta_sched.value, epoch)
+            else:
+                tr_loss, tr_details = self.run_epoch(train_loader, plateau.lr,
+                                                     beta_sched.value, True, epoch)
+            beta_sched.step(epoch)
+            if val_pipeline is not None:
+                va_loss, va_details = self.run_epoch_device_eval(val_pipeline,
+                                                                 beta_sched.value, epoch)
+            else:
+                va_loss, va_details = self.run_epoch(val_loader, plateau.lr,
+                                                     beta_sched.value, False, epoch)
+            hist["train_loss"].append(tr_loss)
+            hist["test_loss"].append(va_loss)
+            self.log(f"====> Epoch {epoch:03d} train {tr_loss:.4f} val {va_loss:.4f} "
+                     f"({time.time() - t0:.1f}s, lr {plateau.lr:g})")
+            skipped = tr_details.get("nan_skipped", 0.0)
+            if skipped > 0:
+                self.log(f"====> Epoch {epoch:03d} WARNING: nan_guard skipped "
+                         f"{skipped:.1%} of train steps")
+            for cb in callbacks or []:
+                cb(self, epoch, tr_details, va_details,
+                   tr_loss=tr_loss, va_loss=va_loss, lr=plateau.lr)
+
+            if va_loss < best_loss:
+                bad_epochs = 0
+                if self.run_path is not None:
+                    checkpoints.save_model(self.model, self.run_path)
+                best_loss = va_loss
+            else:
+                bad_epochs += 1
+
+            plateau.step(va_loss)
+            if bad_epochs == 20:
+                if epoch >= warmup:
+                    break  # early stop (main.py:267-270)
+                # end warmup early (main.py:271-277)
+                warmup = epoch + 1
+                self.cfg.warmup = warmup
+                bad_epochs = 0
+                best_loss = math.inf
+                self.log(f"====> ending warmup early at epoch {epoch}")
+            epoch += 1
+
+        self._history = dict(hist)
+        return epoch

@@ -7,17 +7,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA, no run.
 2. build: nvcc builds every kernel of the port from csrc/.
-3. ar_solve: the Hopper kernel against its plain PyTorch version at the
-   main path's shape (N=128) and a larger one (N=3840), D=20, H=128,
-   3 hidden layers, real MADE masks, sign +-1, s_bound 0 and 8, TF32 off.
-   Kernel and plain times (CUDA events around 10 back-to-back calls,
-   median of 20 runs), the bound, and one forward+backward through the
-   autograd Function.
+3. ar_solve: the Hopper kernels against their plain PyTorch versions at
+   the main path's shape (N=128) and others, D=20, H=128, 3 hidden layers,
+   real MADE masks, sign +-1, s_bound 0 and 8, TF32 off. The forward
+   kernel against `unrolled_solve` at N=128 and 3840; the backward kernel
+   (with the wrapper's reduction) against autograd through `unrolled_solve`
+   at N=128, 37 and 3840, for x, every weight and every bias. Kernel times
+   are device times (CUDA events around 20 back-to-back launches queued
+   behind a device-side wait, median of 9 runs); the backward's time is the
+   backward as the Function runs it, the kernel and the wrapper's reduction,
+   with the kernel alone beside it. Plain times, and the kernels' call
+   times with the wrapper's host work, are events around 10 back-to-back
+   calls (median of 20 runs). Then the bounds, and forward+backward
+   through the autograd Function.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
    CLI (`mmvae_tpu_torch.cli.train.main`, device cuda): 68 train steps and
    7 val batches at B=128, latent 20, 2 MADE blocks of 3x128. Checks the
-   kernel launch count (4 per train step and per val batch), the
-   parameters' device and finite losses; then times steady-state steps.
+   launch counts (forward kernel 4 per train step and per val batch,
+   backward kernel 4 per train step and none per val batch), the
+   parameters' device and finite losses; then times steady-state steps and
+   traces a few with torch.profiler.
 5. parity: one float32 training step on cuda against the same step on the
    CPU in float64 (the reference; the CPU float32 step is reported beside
    it), same weights and noise, TF32 off.
@@ -80,6 +89,30 @@ def cuda_time_ms(fn, reps=10, rounds=20, warmup=3):
     return statistics.median(times)
 
 
+def device_time_ms(fn, reps=20, rounds=9, warmup=3):
+    """Device time of one call: as `cuda_time_ms`, but the device first
+    spins for a while (torch.cuda._sleep), so that the host has enqueued all
+    `reps` calls before the first one starts and its own time per call is
+    not in the reading."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def phase_build():
     from mmvae_tpu_torch.ops import build
 
@@ -94,35 +127,87 @@ def phase_build():
 
 
 def solve_flops(n, d, h, n_hidden):
-    """Flops one ar_solve call needs: at each of the D steps the hidden
-    layers of the masked MLP and the two head columns (mu_i, s_i) that the
-    step uses, 2*n*d*(d*h + (L-1)*h*h + 2*h). This is the bound's count. The
-    TPU kernel computed the full 2D-wide head; that larger count,
-    2*n*d*(d*h + (L-1)*h*h + 2*d*h), is reported beside it."""
-    two_cols = 2 * n * d * (d * h + (n_hidden - 1) * h * h + 2 * h)
-    full_head = 2 * n * d * (d * h + (n_hidden - 1) * h * h + h * 2 * d)
-    return two_cols, full_head
+    """Flops of the forward solve: at each of the D steps one rank-1 term of
+    the first layer (y gained one feature), the other hidden layers and the
+    two head columns (mu_i, s_i) that the step uses,
+    2*n*d*(h + (L-1)*h*h + 2*h). The reverse chain does the same products
+    transposed: y's gradient at feature i is W0[i, :] . dsum, an O(h) term."""
+    return 2 * n * d * (h + (n_hidden - 1) * h * h + 2 * h)
 
 
-def phase_ar_solve():
+def vjp_flops(n, d, h, n_hidden):
+    """Flops of the whole backward: the reverse chain, then the weight
+    gradients, sums over rows and steps of outer products of each step's
+    layer inputs and deltas: the hidden layers in full, the head's two
+    nonzero delta columns per step, the first layer's i nonzero inputs at
+    step i (n*h*d*(d-1) in all); and the bias sums."""
+    weights = 2 * n * d * ((n_hidden - 1) * h * h + 2 * h) + n * h * d * (d - 1)
+    return solve_flops(n, d, h, n_hidden) + weights + n * d * (n_hidden * h + 2)
+
+
+def bound(flops, n_bytes):
+    """(bound ms, what bounds it): the larger of the flops at the f32 peak
+    and the bytes at the memory rate."""
+    by = "operations" if flops / PEAK_F32_FLOPS >= n_bytes / PEAK_BYTES else "bytes"
+    return max(flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES) * 1e3, by
+
+
+def _made_params(d, h, n_hidden, gen):
     import torch
 
     from mmvae_tpu_torch.flows import MADE
     from mmvae_tpu_torch.nets import init_parameters
-    from mmvae_tpu_torch.ops import ar_flow
 
-    d, h, n_hidden = 20, 128, 3
-    gen = torch.Generator().manual_seed(0)
     made = MADE(d, (h,) * n_hidden)
     init_parameters(made, gen)
     with torch.no_grad():
         for layer in [*made.hidden, made.out]:
             layer.bias.copy_(torch.empty(layer.bias.shape).uniform_(-0.1, 0.1, generator=gen))
-    made = made.cuda()
-    with torch.no_grad():
-        ws, bs = made.masked_layer_params()
-        ws = [w.contiguous() for w in ws]
-    results, max_err = {}, 0.0
+        ws, bs = made.cuda().masked_layer_params()
+    return [w.contiguous() for w in ws], [b.contiguous() for b in bs]
+
+
+def _check_close(what, pairs):
+    """Largest abs error over (got, want) pairs; raises past rtol/atol."""
+    import torch
+
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    ref = max(b.abs().max().item() for _, b in pairs)
+    ok = all(torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL) for a, b in pairs)
+    emit({"phase": "ar_solve_check", **what, "max_abs_err": err,
+          "max_rel_err": err / max(ref, 1e-30), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"ar_solve kernel disagrees at {what}: max abs err {err}")
+    return err
+
+
+def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
+    """Autograd through `unrolled_solve`: the backward kernel's plain version.
+    Records the graph once and returns a function that runs its backward
+    (gradients for x, every weight and every bias), as often as called."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    inputs = [t.detach().clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    with torch.enable_grad():
+        outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
+                                      sign, s_bound)
+    return lambda: torch.autograd.grad(outs, inputs, (gy, gld), retain_graph=True)
+
+
+def phase_ar_solve():
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    d, h, n_hidden = 20, 128, 3
+    gen = torch.Generator().manual_seed(0)
+    ws, bs = _made_params(d, h, n_hidden, gen)
+    fwd_err = bwd_err = 0.0
+
+    # forward kernel against the plain version
     for n in (128, 3840):
         x = torch.randn(n, d, generator=gen).cuda()
         for sign in (1, -1):
@@ -131,45 +216,101 @@ def phase_ar_solve():
                     y_k, ld_k = ar_flow.kernel_forward(x, ws, bs, sign, s_bound)
                     y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
                 torch.cuda.synchronize()
-                err = max((y_k - y_p).abs().max().item(), (ld_k - ld_p).abs().max().item())
-                ref = max(y_p.abs().max().item(), ld_p.abs().max().item())
-                ok = (torch.allclose(y_k, y_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-                      and torch.allclose(ld_k, ld_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL))
-                emit({"phase": "ar_solve_check", "n": n, "sign": sign, "s_bound": s_bound,
-                      "max_abs_err": err, "max_rel_err": err / max(ref, 1e-30),
-                      "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok})
-                if not ok:
-                    raise AssertionError(f"ar_solve kernel disagrees at n={n} sign={sign} "
-                                         f"s_bound={s_bound}: max abs err {err}")
+                err = _check_close(dict(kernel="forward", n=n, sign=sign, s_bound=s_bound),
+                                   [(y_k, y_p), (ld_k, ld_p)])
                 if n == 128:
-                    max_err = max(max_err, err)
+                    fwd_err = max(fwd_err, err)
+
+    # backward kernel and the wrapper's reduction against autograd through
+    # the plain version, for x, every weight and every bias
+    for n in (128, 37, 3840):
+        x = torch.randn(n, d, generator=gen).cuda()
+        gy = torch.randn(n, d, generator=gen).cuda()
+        gld = torch.randn(n, generator=gen).cuda()
+        for sign in (1, -1):
+            for s_bound in (0.0, 8.0):
+                tape = ar_flow.new_tape(x, ws)
+                y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+                gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+                gws, gbs = ar_flow.reduce_grads(tape, deltas)
+                want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+                torch.cuda.synchronize()
+                err = _check_close(dict(kernel="backward", n=n, sign=sign, s_bound=s_bound),
+                                   list(zip([gx, *gws, *gbs], want)))
+                if n == 128:
+                    bwd_err = max(bwd_err, err)
+
+    n_w = sum(w.numel() for w in ws)
+    n_b = sum(b.numel() for b in bs)
+    results = {}
+    for n in (128, 3840):
+        x = torch.randn(n, d, generator=gen).cuda()
         with torch.no_grad():
-            k_ms = cuda_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
+            k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
+            call_ms = cuda_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
             p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0))
-        flops, flops_full_head = solve_flops(n, d, h, n_hidden)
+        flops = solve_flops(n, d, h, n_hidden)
         # each input read once (x, masked weights, biases), each output
         # written once (y, logdet)
-        n_bytes = 4 * (2 * n * d + n + sum(w.numel() for w in ws) + sum(b.numel() for b in bs))
-        bound_by = "operations" if flops / PEAK_F32_FLOPS >= n_bytes / PEAK_BYTES else "bytes"
-        bound_ms = max(flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES) * 1e3
+        n_bytes = 4 * (2 * n * d + n + n_w + n_b)
+        bound_ms, bound_by = bound(flops, n_bytes)
         results[n] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "ar_solve_time", "n": n, "kernel_ms": k_ms, "plain_ms": p_ms,
-              "flops": flops, "flops_full_head": flops_full_head, "bytes": n_bytes,
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "achieved_tflops": flops / (k_ms * 1e-3) / 1e12,
+        emit({"phase": "ar_solve_time", "kernel": "forward", "n": n, "kernel_ms": k_ms,
+              "call_ms": call_ms, "plain_ms": p_ms, "flops": flops,
+              "bytes": n_bytes, "bound_ms": bound_ms,
+              "bound_by": bound_by, "achieved_tflops": flops / (k_ms * 1e-3) / 1e12,
               "roofline_share": bound_ms / k_ms})
 
-    # one forward + backward through the autograd Function at N=128
-    x = torch.randn(128, d, generator=gen).cuda().requires_grad_(True)
+    # at N=128: the recording forward, the backward kernel alone, its plain
+    # version, the backward with the reduction, and forward+backward
+    # through the Function
+    n = 128
+    x = torch.randn(n, d, generator=gen).cuda()
+    gy = torch.randn(n, d, generator=gen).cuda()
+    gld = torch.randn(n, generator=gen).cuda()
+    tape = ar_flow.new_tape(x, ws)
+    rec_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape))
+    y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
+    b_ms = device_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+    b_call_ms = cuda_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+
+    def bwd_reduce():
+        _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
+        ar_flow.reduce_grads(tape, deltas)
+
+    br_ms = device_time_ms(bwd_reduce)
+    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld))
+    # the function is the whole VJP, as its plain version computes it: read
+    # once x, y, gy, gld, the weights and biases; written once gx and every
+    # weight and bias gradient. The tape and the per-step deltas are scratch
+    # of this design, not counted.
+    b_flops = vjp_flops(n, d, h, n_hidden)
+    b_bytes = 4 * (4 * n * d + n + 2 * (n_w + n_b))
+    b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
+    results["backward"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms, bound_ms=b_bound_ms,
+                               bound_by=b_bound_by)
+    emit({"phase": "ar_solve_time", "kernel": "backward", "n": n, "ms": br_ms,
+          "kernel_ms": b_ms, "kernel_call_ms": b_call_ms, "plain_ms": pb_ms,
+          "recording_forward_ms": rec_ms, "flops": b_flops, "bytes": b_bytes,
+          "bound_ms": b_bound_ms, "bound_by": b_bound_by, "roofline_share": b_bound_ms / br_ms})
+
+    xg = x.clone().requires_grad_(True)
     params = [p.detach().clone().requires_grad_(True) for p in (*ws, *bs)]
 
     def fwd_bwd():
-        y, ld = ar_flow.ar_solve(x, params[:len(ws)], params[len(ws):], 1, 0.0)
+        y, ld = ar_flow.ar_solve(xg, params[:len(ws)], params[len(ws):], 1, 0.0)
         (y.sum() + ld.sum()).backward()
 
+    before = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    fwd_bwd()
+    after = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        raise AssertionError(f"one forward+backward through the Function launched "
+                             f"{after[0] - before[0]} forward and {after[1] - before[1]} "
+                             f"backward kernels (expected 1 and 1)")
     fb_ms = cuda_time_ms(fwd_bwd)
     emit({"phase": "ar_solve_fwd_bwd", "n": 128, "ms": fb_ms})
-    return dict(results=results, max_err=max_err, fwd_bwd_ms=fb_ms)
+    return dict(results=results, fwd_err=fwd_err, bwd_err=bwd_err, fwd_bwd_ms=fb_ms)
 
 
 def _slice_config(tmp):
@@ -205,13 +346,14 @@ def phase_slice(tmp):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar_flow.ar_solve.launches = 0
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
     t0 = time.perf_counter()
     run_path = train_main(["--config-path", cfg_path, "--experiments-dir",
                            os.path.join(tmp, "experiments"), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ar_flow.ar_solve.launches
+    bwd_launches = ar_flow.ar_solve.backward_launches
     peak = torch.cuda.max_memory_allocated()
 
     state = torch.load(os.path.join(run_path, "model.pt"), weights_only=True)
@@ -223,17 +365,19 @@ def phase_slice(tmp):
     finite = all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
     # the trainer normalizes nan_skipped by all pairs, as the JAX package does
     skipped_steps = metrics[-1].get("train_nan_skipped", 0.0) * train_loader.num_examples
-    expected = 4 * (steps + val_batches)
+    expected, bwd_expected = 4 * (steps + val_batches), 4 * steps
     emit({"phase": "slice", "run_path": run_path, "train_pairs": train_loader.num_examples,
           "val_pairs": val_loader.num_examples, "train_steps": steps,
           "val_batches": val_batches, "ar_solve_launches": launches,
-          "expected_launches": expected, "params_on_cuda": on_cuda,
+          "expected_launches": expected, "ar_solve_backward_launches": bwd_launches,
+          "expected_backward_launches": bwd_expected, "params_on_cuda": on_cuda,
           "train_loss": losses["train_loss"], "val_loss": losses["test_loss"],
           "losses_finite": finite, "nan_skipped_fraction": skipped_steps / steps,
           "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak})
-    if launches != expected or (steps, val_batches) != (68, 7):
-        raise AssertionError(f"ar_solve launched {launches} times for {steps} train steps and "
-                             f"{val_batches} val batches (expected {expected}, 68+7)")
+    if (launches, bwd_launches) != (expected, bwd_expected) or (steps, val_batches) != (68, 7):
+        raise AssertionError(f"ar_solve launched {launches} forward and {bwd_launches} backward "
+                             f"kernels for {steps} train steps and {val_batches} val batches "
+                             f"(expected {expected} and {bwd_expected}, 68+7)")
     if not on_cuda or not finite:
         raise AssertionError(f"params on cuda: {on_cuda}, finite losses: {finite}")
 
@@ -258,7 +402,8 @@ def phase_slice(tmp):
     prof = profile_steps(trainer, batches[5:10], cfg.learning_rate)
     emit({"phase": "slice_time", "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
           "eval_batch_ms": eval_ms, **prof})
-    return dict(launches=launches, steps_per_s=1.0 / step_s, peak=peak)
+    return dict(launches=launches, bwd_launches=bwd_launches, steps_per_s=1.0 / step_s,
+                peak=peak)
 
 
 def profile_steps(trainer, batches, lr):
@@ -295,11 +440,15 @@ def profile_steps(trainer, batches, lr):
     if busy_us <= 0:
         return {"profile": "not measured"}
     top = sorted(events, key=dev_us, reverse=True)[:10]
-    solve = [e for e in events if "ar_solve_kernel" in e.key]
+
+    def per_launch(name):
+        hits = [e for e in events if name in e.key]
+        return sum(dev_us(e) for e in hits) / max(1, sum(e.count for e in hits))
+
     return {"profiled_steps": len(batches), "device_busy_share": busy_us / wall_us,
             "device_us_per_step": busy_us / len(batches),
-            "ar_solve_device_us_per_launch":
-                sum(dev_us(e) for e in solve) / max(1, sum(e.count for e in solve)),
+            "ar_solve_forward_device_us_per_launch": per_launch("ar_solve_forward_kernel"),
+            "ar_solve_backward_device_us_per_launch": per_launch("ar_solve_backward_kernel"),
             "kernel_launches_per_step": sum(e.count for e in events) / len(batches),
             "top_kernels": [[e.key[:80], dev_us(e) / len(batches), e.count] for e in top]}
 
@@ -400,20 +549,23 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    main_path = solve["results"][128]
-    emit({"kernels": [{
-        "name": "ar_solve",
-        "route": "cuda",
-        "source": "mmvae_tpu_torch/csrc/ar_flow.cu",
-        "replaces": "mmvae_tpu/ops/ar_flow.py:96",
-        "launches": sl["launches"],
-        "max_abs_err": solve["max_err"],
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
-        "library_ms": None,
-    }]})
+    def entry(name, key, replaces, launches, err, **extra):
+        r = solve["results"][key]
+        return {"name": name, "route": "cuda", "source": "mmvae_tpu_torch/csrc/ar_flow.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                **extra}
+
+    # the TPU kernel's pallas_call, and its custom_vjp backward (jax.vjp of
+    # the unrolled solve), which the backward kernel and the wrapper's
+    # reduction replace: its `ms` is both, the kernel alone beside it
+    emit({"kernels": [
+        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", sl["launches"],
+              solve["fwd_err"]),
+        entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156",
+              sl["bwd_launches"], solve["bwd_err"],
+              kernel_ms=solve["results"]["backward"]["kernel_ms"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -89,7 +89,39 @@ def test_gradients_match_jax(sign, s_bound):
         np.testing.assert_allclose(ours.grad.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("bad", ["1d", "d1", "head", "chain", "dtype"])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_plain_reverse_chain_matches_jax(sign, s_bound):
+    """The backward kernel's algorithm on the CPU: the recording forward,
+    the reverse chain and the reduction give JAX's values and its gradients
+    for x, every weight and every bias; leading dims (K, B, D) flattened to
+    rows as `ar_solve` does."""
+    ws, bs = _weights(8)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 3, D)).astype(np.float32)
+    ry = rng.standard_normal((2, 3, D)).astype(np.float32)
+    rld = rng.standard_normal((2, 3)).astype(np.float32)
+
+    def loss(x_, ws_, bs_):
+        y, ld = jax_ar.ar_solve(x_, list(ws_), list(bs_), sign, s_bound)
+        return jnp.sum(y * ry) + jnp.sum(ld * rld)
+
+    y_ref, ld_ref = jax_ar.unrolled_solve(jnp.asarray(x), ws, bs, sign, s_bound)
+    gx_ref, gw_ref, gb_ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), ws, bs)
+
+    x2 = torch.tensor(x).reshape(-1, D)
+    y, ld, tape = ar_flow.plain_tape(x2, _t(ws), _t(bs), sign, s_bound)
+    np.testing.assert_allclose(y.reshape(2, 3, D).numpy(), np.asarray(y_ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ld.reshape(2, 3).numpy(), np.asarray(ld_ref), rtol=1e-5, atol=1e-5)
+    gx, deltas = ar_flow.plain_backward(x2, y, torch.tensor(ry).reshape(-1, D),
+                                        torch.tensor(rld).reshape(-1), tape, _t(ws), sign,
+                                        s_bound)
+    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    for ours, theirs in zip([gx.reshape(2, 3, D), *gws, *gbs], [gx_ref, *gw_ref, *gb_ref]):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["1d", "d1", "head", "chain", "dtype", "hidden"])
 def test_kernel_input_checks(bad):
     ws, bs = _weights(4)
     x = torch.zeros(4, D)
@@ -102,9 +134,9 @@ def test_kernel_input_checks(bad):
         wt[-1], bt[-1] = wt[-1][:, :-1], bt[-1][:-1]
     elif bad == "chain":
         wt[1] = torch.zeros(H + 1, H)
-    else:
+    elif bad == "dtype":
         x = x.double()
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="width 128" if bad == "hidden" else None):
         ar_flow._check(x, wt, bt)
 
 
@@ -112,9 +144,13 @@ def test_cpu_tensors_never_launch_the_kernel():
     ws, bs = _weights(6)
     x = torch.tensor(np.random.default_rng(7).standard_normal((4, D)).astype(np.float32),
                      requires_grad=True)
-    before = ar_flow.ar_solve.launches
+    before = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
     y, ld = ar_flow.ar_solve(x, _t(ws), _t(bs), 1, 0.0)
     (y.sum() + ld.sum()).backward()
-    assert ar_flow.ar_solve.launches == before
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         ar_flow.kernel_forward(x.detach(), _t(ws), _t(bs), 1)
+    xd = x.detach()
+    tape = ar_flow.new_tape(xd, _t(ws))
+    with pytest.raises(ValueError, match="CUDA"):
+        ar_flow.kernel_backward(xd, xd, xd, xd[:, 0], tape, _t(ws), 1)

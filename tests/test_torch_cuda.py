@@ -4,10 +4,12 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The Hopper ar_solve kernel is held against the plain PyTorch version on the
-card at the main path's widths (D=20, three hidden layers of 128, real MADE
-masks), float32 with TF32 off: the same arithmetic in another summation
-order, so rtol/atol 1e-4.
+The Hopper ar_solve kernels are held against the plain PyTorch versions on
+the card at the main path's widths (D=20, three hidden layers of 128, real
+MADE masks), float32 with TF32 off: the forward against `unrolled_solve`,
+the backward (with the wrapper's reduction) against autograd through
+`unrolled_solve`. The same arithmetic in another summation order, so
+rtol/atol 1e-4.
 """
 
 import json
@@ -63,10 +65,56 @@ def test_kernel_matches_plain(card, n, sign, s_bound):
 
 
 @pytest.mark.cuda
-def test_function_on_card_grads_match_plain(card):
-    """The autograd Function launches the kernel forward once and its
-    backward (autograd through the plain solve) gives the plain version's
-    gradients for x, every weight and every bias; leading dims (K, B, D)."""
+@pytest.mark.parametrize("n", [128, 37])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_backward_kernel_matches_autograd(card, n, sign, s_bound):
+    """One backward launch and the wrapper's reduction give autograd's
+    gradients through the plain solve, for x, every weight and every bias."""
+    ws, bs = _weights(card, seed=10)
+    gen = torch.Generator().manual_seed(11)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((n, D), (n, D), (n,)))
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+    before = ar_flow.ar_solve.backward_launches
+    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    assert ar_flow.ar_solve.backward_launches == before + 1
+    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
+                                  sign, s_bound)
+    want = torch.autograd.grad(outs, inputs, (gy, gld))
+    for got, ref in zip([gx, *gws, *gbs], want):
+        torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_hidden", [1, 2])
+def test_kernels_at_other_depths(card, n_hidden):
+    """Both kernels at one and two hidden layers (the main path has three)."""
+    ws, bs = _weights(card, seed=12, n_hidden=n_hidden)
+    gen = torch.Generator().manual_seed(13)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((37, D), (37, D), (37,)))
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.kernel_forward(x, ws, bs, 1, 8.0, tape=tape)
+    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 8.0)
+    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):], 1, 8.0)
+    want = torch.autograd.grad(outs, inputs, (gy, gld))
+    for got, ref in zip([y, ld, gx, *gws, *gbs], [*outs, *want]):
+        torch.testing.assert_close(got, ref.detach(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_function_on_card_grads_match_plain(card, sign):
+    """The autograd Function launches the forward kernel once and the
+    backward kernel once per backward call, and gives the plain version's
+    values and gradients for x, every weight and every bias; leading dims
+    (K, B, D)."""
     ws, bs = _weights(card, seed=7)
     x = torch.randn(2, 64, D, generator=torch.Generator().manual_seed(8)).to(card)
     runs = {}
@@ -74,10 +122,11 @@ def test_function_on_card_grads_match_plain(card):
         xi = x.clone().requires_grad_(True)
         params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
         solve = ar_flow.ar_solve if name == "fused" else ar_flow.unrolled_solve
-        before = ar_flow.ar_solve.launches
-        y, ld = solve(xi, params[:len(ws)], params[len(ws):], 1, 0.0)
-        assert ar_flow.ar_solve.launches == before + (name == "fused")
+        before = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+        y, ld = solve(xi, params[:len(ws)], params[len(ws):], sign, 0.0)
+        assert ar_flow.ar_solve.launches == before[0] + (name == "fused")
         (y.square().sum() + ld.sum()).backward()
+        assert ar_flow.ar_solve.backward_launches == before[1] + (name == "fused")
         runs[name] = [y, ld, xi.grad, *(p.grad for p in params)]
     for a, b in zip(runs["fused"], runs["plain"]):
         torch.testing.assert_close(a, b, **TOL)
@@ -106,9 +155,12 @@ def test_kernel_refuses_what_it_cannot_take(card):
         ar_flow.kernel_forward(x.double(), ws, bs, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ar_flow.kernel_forward(torch.randn(D, 16, device=card).t(), ws, bs, 1)
-    big_ws, big_bs = _weights(card, h=512, n_hidden=2)  # 512x512 weights overflow shared memory
+    wide_ws, wide_bs = _weights(card, h=256)  # the kernels take hidden layers of 128 only
+    with pytest.raises(ValueError, match="width 128"):
+        ar_flow.kernel_forward(x, wide_ws, wide_bs, 1)
+    big_ws, big_bs = _weights(card, d=128)  # a 128x256 head overflows shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        ar_flow.kernel_forward(x, big_ws, big_bs, 1)
+        ar_flow.kernel_forward(torch.randn(16, 128, device=card), big_ws, big_bs, 1)
     with pytest.raises(ValueError, match="CUDA"):
         ar_flow.kernel_forward(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs], 1)
 
@@ -116,9 +168,9 @@ def test_kernel_refuses_what_it_cannot_take(card):
 @pytest.mark.cuda
 def test_cli_epoch_on_card(card, tmp_path):
     """One small MMVAE-NF epoch through the CLI on cuda: TF32 is switched
-    off for matmuls and cuDNN, every parameter lies on the card, and the
-    kernel runs 4 times (2 modalities x 2 MAF blocks) per train step and
-    per val batch."""
+    off for matmuls and cuDNN, every parameter lies on the card, the
+    forward kernel runs 4 times (2 modalities x 2 MAF blocks) per train step
+    and per val batch, and the backward kernel 4 times per train step."""
     with open("configs/mnist_svhn/mmvae_nf_synth.json") as f:
         raw = json.load(f)
     # an empty data dir inside tmp_path: the synthetic stand-in, nothing read outside
@@ -129,11 +181,12 @@ def test_cli_epoch_on_card(card, tmp_path):
     train, _, val = get_dataloaders("mnist_svhn", batch_size=16, synthetic_n=64,
                                     data_path=raw["data_path"])
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    ar_flow.ar_solve.launches = 0
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
     run_path = cli_train.main(["--config-path", str(cfg_path), "--experiments-dir",
                                str(tmp_path / "exp"), "--device", "cuda"])
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     assert ar_flow.ar_solve.launches == 4 * (train.num_examples // 16 + val.num_examples // 16)
+    assert ar_flow.ar_solve.backward_launches == 4 * (train.num_examples // 16)
     state = torch.load(os.path.join(run_path, "model.pt"), weights_only=True)
     assert all(t.is_cuda for t in state.values())
     with open(os.path.join(run_path, "losses.json")) as f:

@@ -30,7 +30,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. parity: one float32 training step on cuda against the same step on the
    CPU in float64 (the reference; the CPU float32 step is reported beside
    it), same weights and noise, TF32 off.
-6. The kernels line, and last the contract line
+6. mmvae_slice: one full-width epoch of the flagship MMVAE-DReG
+   (`configs/mnist_svhn/mmvae_synth.json`: Laplace posteriors, DReG-looser,
+   K=30, B=128, latent 20) through the same CLI, cut to the same data scale
+   and one epoch. No ar_solve kernel is on this path: the script checks
+   that neither launched, and that no step was skipped.
+7. mmvae_slice_time: the flagship's steady train step (float32, TF32 off),
+   then the same under its bf16 twin `mmvae_synth_bf16.json`: ms per step,
+   pairs/s, eval batch ms, the step's flops counted from the layer shapes,
+   and a torch.profiler trace.
+8. mmvae_parity: one DReG-looser step on cuda (float32) against the same
+   step on the CPU in float64 at B=32, K=30, same weights and uniform noise;
+   then the bf16 step against the float32 step on cuda.
+9. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -48,11 +60,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_nf_synth.json")
+FLAGSHIP = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth.json")
+FLAGSHIP_BF16 = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth_bf16.json")
 
 # Published peaks of an H100 SXM (dense, no sparsity) at 700 W: float32 on
 # the CUDA cores and HBM3 bandwidth. A card set to a lower power limit may
 # run below them; the limit is printed beside every number.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12
 
 # Tolerances, TF32 off. Kernel vs plain version, both float32: the same
@@ -63,6 +78,15 @@ PEAK_BYTES = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 STEP_OBJ_RTOL = 1e-5
 STEP_GRAD_TOL = 1e-4  # max |g_cuda - g_ref| / max |g_ref| per parameter
+# The flagship's DReG step: its weights are softmaxes over log-weights near
+# -6,000 per pair, so float32 round-off in a log-weight (an ulp there is
+# 4.9e-4) moves a weight by a relative 1e-3 or so, and a gradient with it
+# (tests/test_torch_mmvae.py holds float32 DReG gradients to JAX's at
+# 5e-3). bf16 against float32: the rtol of the JAX package's own bf16
+# tests.
+MMVAE_PARITY_B = 32
+MMVAE_GRAD_TOL = 2e-3
+BF16_LOSS_RTOL = 0.05
 
 
 def emit(obj):
@@ -313,31 +337,32 @@ def phase_ar_solve():
     return dict(results=results, fwd_err=fwd_err, bwd_err=bwd_err, fwd_bwd_ms=fb_ms)
 
 
-def _slice_config(tmp):
-    with open(CONFIG) as f:
+def _slice_config(tmp, config=CONFIG, **overrides):
+    with open(config) as f:
         raw = json.load(f)
     # an empty data directory of the run's own: the loaders take the
     # synthetic stand-in and read nothing outside the run
     data_dir = os.path.join(tmp, "data")
     os.makedirs(data_dir, exist_ok=True)
-    raw.update(synthetic_n=2048, epochs=1, no_analytics=True, data_path=data_dir)
-    path = os.path.join(tmp, "mmvae_nf_smoke.json")
+    raw.update(synthetic_n=2048, epochs=1, no_analytics=True, data_path=data_dir, **overrides)
+    path = os.path.join(tmp, "smoke_" + os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)
     return path, raw
 
 
-def phase_slice(tmp):
+def _cli_epoch(tmp, config):
+    """One epoch of `config`, cut as _slice_config cuts it, through the
+    port's CLI on cuda, with the ar_solve counts set to 0 just before and
+    read just after."""
     import torch
 
     from mmvae_tpu_torch.cli.train import main as train_main
     from mmvae_tpu_torch.core.config import ExperimentConfig
     from mmvae_tpu_torch.data import get_dataloaders
-    from mmvae_tpu_torch.models import registry
     from mmvae_tpu_torch.ops import ar_flow
-    from mmvae_tpu_torch.train import Trainer
 
-    cfg_path, raw = _slice_config(tmp)
+    cfg_path, raw = _slice_config(tmp, config)
     cfg = ExperimentConfig.from_json(cfg_path)
     bsz = cfg.batch_size
     data_kw = dict(batch_size=bsz, data_path=cfg.data_path, synthetic_n=raw["synthetic_n"])
@@ -365,45 +390,148 @@ def phase_slice(tmp):
     finite = all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
     # the trainer normalizes nan_skipped by all pairs, as the JAX package does
     skipped_steps = metrics[-1].get("train_nan_skipped", 0.0) * train_loader.num_examples
-    expected, bwd_expected = 4 * (steps + val_batches), 4 * steps
-    emit({"phase": "slice", "run_path": run_path, "train_pairs": train_loader.num_examples,
-          "val_pairs": val_loader.num_examples, "train_steps": steps,
-          "val_batches": val_batches, "ar_solve_launches": launches,
-          "expected_launches": expected, "ar_solve_backward_launches": bwd_launches,
-          "expected_backward_launches": bwd_expected, "params_on_cuda": on_cuda,
-          "train_loss": losses["train_loss"], "val_loss": losses["test_loss"],
-          "losses_finite": finite, "nan_skipped_fraction": skipped_steps / steps,
-          "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak})
-    if (launches, bwd_launches) != (expected, bwd_expected) or (steps, val_batches) != (68, 7):
-        raise AssertionError(f"ar_solve launched {launches} forward and {bwd_launches} backward "
-                             f"kernels for {steps} train steps and {val_batches} val batches "
-                             f"(expected {expected} and {bwd_expected}, 68+7)")
-    if not on_cuda or not finite:
-        raise AssertionError(f"params on cuda: {on_cuda}, finite losses: {finite}")
+    info = {"run_path": run_path, "train_pairs": train_loader.num_examples,
+            "val_pairs": val_loader.num_examples, "train_steps": steps,
+            "val_batches": val_batches, "ar_solve_launches": launches,
+            "ar_solve_backward_launches": bwd_launches, "params_on_cuda": on_cuda,
+            "train_loss": losses["train_loss"], "val_loss": losses["test_loss"],
+            "losses_finite": finite, "nan_skipped_fraction": skipped_steps / steps,
+            "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak}
+    return cfg, train_loader, info
 
-    # steady-state step time at the same shapes, outside the counted run
+
+def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20):
+    """Steady-state train step and eval batch at the epoch's shapes,
+    outside the counted run: host clock over `n_timed` steps after
+    `n_warm`, then a torch.profiler trace of 5 steps."""
+    import torch
+
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer
+
     bundle = registry.build(cfg)
     trainer = Trainer(bundle.model, bundle.spec, cfg, device="cuda")
     trainer.init_parameters()
     trainer.init_opt_state()
     pipeline = trainer.make_device_pipeline(train_loader)
     batches = [pipeline.gather(torch.from_numpy(r).cuda())
-               for r in list(pipeline.epoch_index_batches())[:25]]
-    for xs in batches[:5]:
+               for r in list(pipeline.epoch_index_batches())[:n_warm + n_timed]]
+    for xs in batches[:n_warm]:
         trainer.train_step(xs, cfg.learning_rate)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for xs in batches[5:]:
+    for xs in batches[n_warm:]:
         trainer.train_step(xs, cfg.learning_rate)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (len(batches) - 5)
+    step_s = (time.perf_counter() - t0) / n_timed
     gen = torch.Generator(device="cuda").manual_seed(0)
     eval_ms = cuda_time_ms(lambda: trainer.eval_step(batches[0], generator=gen))
-    prof = profile_steps(trainer, batches[5:10], cfg.learning_rate)
+    prof = profile_steps(trainer, batches[n_warm:n_warm + 5], cfg.learning_rate)
+    if "device_us_per_step" in prof:
+        # the profiler's own busy share is over a window its tracing slows;
+        # this one is over the untraced step
+        prof["device_share_of_timed_step"] = prof["device_us_per_step"] / (step_s * 1e6)
+    return trainer, batches, step_s, eval_ms, prof
+
+
+def phase_slice(tmp):
+    cfg, train_loader, info = _cli_epoch(tmp, CONFIG)
+    steps, val_batches = info["train_steps"], info["val_batches"]
+    launches, bwd_launches = info["ar_solve_launches"], info["ar_solve_backward_launches"]
+    expected, bwd_expected = 4 * (steps + val_batches), 4 * steps
+    emit({"phase": "slice", **info, "expected_launches": expected,
+          "expected_backward_launches": bwd_expected})
+    if (launches, bwd_launches) != (expected, bwd_expected) or (steps, val_batches) != (68, 7):
+        raise AssertionError(f"ar_solve launched {launches} forward and {bwd_launches} backward "
+                             f"kernels for {steps} train steps and {val_batches} val batches "
+                             f"(expected {expected} and {bwd_expected}, 68+7)")
+    if not info["params_on_cuda"] or not info["losses_finite"]:
+        raise AssertionError(f"params on cuda: {info['params_on_cuda']}, "
+                             f"finite losses: {info['losses_finite']}")
+
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader)
     emit({"phase": "slice_time", "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
           "eval_batch_ms": eval_ms, **prof})
     return dict(launches=launches, bwd_launches=bwd_launches, steps_per_s=1.0 / step_s,
-                peak=peak)
+                peak=info["peak_mem_bytes"])
+
+
+def phase_mmvae_slice(tmp):
+    """The flagship's epoch: no ar_solve launch, no skipped step."""
+    cfg, train_loader, info = _cli_epoch(tmp, FLAGSHIP)
+    emit({"phase": "mmvae_slice", "model": cfg.model, "objective": "m_dreg_looser", "K": cfg.K,
+          **info})
+    launches = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    if launches != (0, 0) or (info["train_steps"], info["val_batches"]) != (68, 7):
+        raise AssertionError(f"flagship epoch: {info['train_steps']} train steps and "
+                             f"{info['val_batches']} val batches (expected 68+7); ar_solve "
+                             f"launched {launches} (expected none)")
+    if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
+        raise AssertionError(f"flagship epoch: params on cuda {info['params_on_cuda']}, finite "
+                             f"losses {info['losses_finite']}, skipped "
+                             f"{info['nan_skipped_fraction']:.1%} of steps")
+    return train_loader
+
+
+def step_flops(trainer, xs):
+    """Flops of one train step and of one eval batch, counted from the
+    shapes of every Linear, Conv2d and ConvTranspose2d call of the
+    objective's forward: 2 * multiply-adds forward; the backward adds a
+    weight gradient for every call and an input gradient where the input
+    needs one (not for the data). Elementwise work is not counted."""
+    import torch
+
+    from mmvae_tpu_torch.core import precision
+    from mmvae_tpu_torch.nets import Conv2d, ConvTranspose2d, Linear
+
+    counts = {"forward": 0, "train": 0}
+
+    def hook(m, inputs, out):
+        x = inputs[0]
+        if isinstance(m, Linear):
+            f = 2 * x.numel() * m.weight.shape[0]
+        elif isinstance(m, Conv2d):
+            f = 2 * out.numel() * m.weight[0].numel()
+        else:  # ConvTranspose2d: every input element meets out_ch * kh * kw weights
+            f = 2 * x.numel() * m.weight[0].numel()
+        counts["forward"] += f
+        counts["train"] += f * (2 + x.requires_grad)
+
+    layers = [m for m in trainer.model.modules() if isinstance(m, (Linear, Conv2d, ConvTranspose2d))]
+    handles = [m.register_forward_hook(hook) for m in layers]
+    try:
+        with precision.use(trainer.compute_dtype, trainer.activation_dtype):
+            trainer.obj_fn(trainer.model, xs, trainer.spec, K=trainer.cfg.K,
+                           generator=torch.Generator(device=trainer.device).manual_seed(0))
+    finally:
+        for h in handles:
+            h.remove()
+    return counts["train"], counts["forward"]
+
+
+def phase_mmvae_time(tmp, config, train_loader):
+    """The flagship's steady train step at full width under `config`'s
+    precision policy."""
+    import torch
+
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_json(_slice_config(tmp, config)[0])
+    dtype = cfg.extra.get("compute_dtype") or "float32"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, batches, step_s, eval_ms, prof = _steady_steps(cfg, train_loader)
+    train_flops, eval_flops = step_flops(trainer, batches[0])
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    achieved = train_flops / step_s
+    emit({"phase": "mmvae_slice_time", "compute_dtype": dtype, "batch": cfg.batch_size,
+          "K": cfg.K, "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
+          "pairs_per_s": cfg.batch_size / step_s, "eval_batch_ms": eval_ms,
+          "train_step_flops": train_flops, "eval_batch_flops": eval_flops,
+          "achieved_tflops": achieved / 1e12, "peak_tflops": peak / 1e12,
+          "flops_share_of_peak": achieved / peak,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **prof})
+    return step_s
 
 
 def profile_steps(trainer, batches, lr):
@@ -441,9 +569,9 @@ def profile_steps(trainer, batches, lr):
         return {"profile": "not measured"}
     top = sorted(events, key=dev_us, reverse=True)[:10]
 
-    def per_launch(name):
+    def per_launch(name):  # None where the kernel did not run
         hits = [e for e in events if name in e.key]
-        return sum(dev_us(e) for e in hits) / max(1, sum(e.count for e in hits))
+        return sum(dev_us(e) for e in hits) / sum(e.count for e in hits) if hits else None
 
     return {"profiled_steps": len(batches), "device_busy_share": busy_us / wall_us,
             "device_us_per_step": busy_us / len(batches),
@@ -490,9 +618,9 @@ def phase_parity(tmp):
         trainer.init_opt_state()
         xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
         eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
-        obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, eps=eps)
+        obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps)
         grads = torch.autograd.grad(obj, list(trainer.model.parameters()))
-        loss, details = trainer.train_step(xs, cfg.learning_rate, eps=eps)
+        loss, details = trainer.train_step(xs, cfg.learning_rate, noise=eps)
         out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
                         loss=loss.item(), skipped=details["nan_skipped"].item(),
                         stepped=trainer.opt.count.item())
@@ -517,6 +645,99 @@ def phase_parity(tmp):
           "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
     if not ok:
         raise AssertionError("the cuda training step disagrees with the float64 cpu step")
+
+
+def phase_mmvae_parity(tmp):
+    """One DReG-looser training step of the flagship on cuda (float32)
+    against the same step on the CPU in float64 (the reference; the CPU
+    float32 step beside it), at B=32 with K=30 kept, from the same bridged
+    weights and uniform noise, TF32 off. Then the bf16 step on cuda
+    against the float32 one: the loss within BF16_LOSS_RTOL, every
+    gradient finite and float32, the parameters float32 after the step."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
+    from mmvae_tpu_torch.core import distributions as D
+    from mmvae_tpu_torch.core import precision
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.data import get_dataloaders
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer
+
+    cfg_path, raw = _slice_config(tmp, FLAGSHIP, batch_size=MMVAE_PARITY_B)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
+                                         data_path=cfg.data_path,
+                                         synthetic_n=raw["synthetic_n"])
+    xs_np, _ = next(iter(train_loader))
+    rng = np.random.default_rng(0)
+    us_np = [rng.uniform(D.LAPLACE_U_MIN, D.LAPLACE_U_MAX,
+                         (cfg.K, cfg.batch_size, cfg.latent_dim)).astype(np.float32)
+             for _ in xs_np]
+
+    out, weights, names = {}, None, None
+    for run, dev, dtype, policy in (("cpu_f64", "cpu", torch.float64, None),
+                                    ("cpu_f32", "cpu", torch.float32, None),
+                                    ("cuda_f32", "cuda", torch.float32, None),
+                                    ("cuda_bf16", "cuda", torch.float32, "bfloat16")):
+        cfg.extra = {**cfg.extra, "compute_dtype": policy}
+        bundle = registry.build(cfg)
+        trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
+        if weights is None:
+            trainer.init_parameters()
+            weights = export_jax_params(trainer.model)
+            names = [n for n, _ in trainer.model.named_parameters()]
+        else:
+            load_jax_params(trainer.model, weights)
+        trainer.init_opt_state()
+        xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
+        us = [torch.tensor(u).to(dev, dtype) for u in us_np]
+        t0 = time.perf_counter()
+        with precision.use(policy):
+            obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, K=cfg.K, noise=us)
+            grads = torch.autograd.grad(obj, list(trainer.model.parameters()))
+        loss, details = trainer.train_step(xs, cfg.learning_rate, noise=us)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
+                        grads_f32=all(g.dtype == torch.float32 for g in grads),
+                        grads_finite=all(bool(torch.isfinite(g).all()) for g in grads),
+                        params_f32=all(p.dtype == torch.float32 for p in trainer.model.parameters()),
+                        loss=loss.item(), skipped=details["nan_skipped"].item(),
+                        stepped=trainer.opt.count.item(), seconds=time.perf_counter() - t0)
+
+    def errors(run, ref):
+        r, ref = out[run], out[ref]
+        leaf = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(r["grads"], ref["grads"])]
+        worst = max(range(len(leaf)), key=leaf.__getitem__)
+        return {"objective_rel_err": abs(r["obj"] - ref["obj"]) / abs(ref["obj"]),
+                "loss_rel_err": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                "grad_max_rel_err": leaf[worst], "worst_leaf": names[worst]}
+
+    cuda, cpu32, bf16 = (errors("cuda_f32", "cpu_f64"), errors("cpu_f32", "cpu_f64"),
+                         errors("cuda_bf16", "cuda_f32"))
+    bf = out["cuda_bf16"]
+    ok_f32 = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
+              and cuda["grad_max_rel_err"] <= MMVAE_GRAD_TOL)
+    ok_bf16 = (bf16["loss_rel_err"] <= BF16_LOSS_RTOL and bf["grads_f32"] and bf["grads_finite"]
+               and bf["params_f32"] and bf["obj"] != out["cuda_f32"]["obj"])
+    stepped = all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values())
+    emit({"phase": "mmvae_parity", "objective": "m_dreg_looser", "batch": cfg.batch_size,
+          "K": cfg.K, "reference": "cpu float64", "objective_ref": out["cpu_f64"]["obj"],
+          "objective_cuda": out["cuda_f32"]["obj"], "objective_cuda_bf16": bf["obj"],
+          "cuda_f32": cuda, "cpu_f32": cpu32, "cuda_bf16_vs_cuda_f32": bf16,
+          "bf16_grads_f32_and_finite": bf["grads_f32"] and bf["grads_finite"],
+          "bf16_params_f32": bf["params_f32"],
+          "seconds": {k: r["seconds"] for k, r in out.items()},
+          "objective_rtol": STEP_OBJ_RTOL, "grad_tol": MMVAE_GRAD_TOL,
+          "bf16_loss_rtol": BF16_LOSS_RTOL, "ok": ok_f32 and ok_bf16 and stepped})
+    if not ok_f32:
+        raise AssertionError("the flagship's cuda step disagrees with the float64 cpu step")
+    if not (ok_bf16 and stepped):
+        raise AssertionError("the flagship's bf16 step is off the float32 step, or a step "
+                             "was skipped")
 
 
 def main():
@@ -546,6 +767,10 @@ def main():
     try:
         sl = phase_slice(tmp)
         phase_parity(tmp)
+        train_loader = phase_mmvae_slice(tmp)
+        for config in (FLAGSHIP, FLAGSHIP_BF16):
+            phase_mmvae_time(tmp, config, train_loader)
+        phase_mmvae_parity(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

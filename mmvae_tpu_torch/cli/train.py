@@ -7,8 +7,10 @@ Takes the same JSON configs and writes the same run-dir layout:
 <experiments-dir>/<experiment>/<date>/<runId>/ with args.json, metrics.jsonl,
 losses.json and the best-val checkpoint (model.pt here).
 
-Precision is float32 throughout: on CUDA, TF32 is switched off for both
-matrix products and cuDNN convolutions (cuDNN's default is on).
+Float32 by default: on CUDA, TF32 is switched off for both matrix products
+and cuDNN convolutions (cuDNN's default is on). The config keys
+"compute_dtype" and "activation_dtype" select the JAX package's
+mixed-precision policy (core/precision.py); the startup line prints it.
 """
 
 from __future__ import annotations
@@ -33,8 +35,6 @@ def _not_yet_ported(cfg):
     for key in ("use_pretrain", "skip_warmup", "use_gen", "dcca"):
         if getattr(cfg, key):
             return f"{key} not yet ported"
-    if cfg.extra.get("compute_dtype") or cfg.extra.get("activation_dtype"):
-        return "reduced-precision compute_dtype/activation_dtype not yet ported"
     if cfg.mesh_data not in (None, 1) or cfg.mesh_k != 1:
         return "multi-device meshes not yet ported"
     return None
@@ -88,9 +88,11 @@ def main(argv=None):
           f"Val: {val_loader.num_examples}")
 
     trainer = Trainer(bundle.model, bundle.spec, cfg, run_path=run_path, device=device)
-    print(f"objective: {trainer.obj_name} on {device}"
-          + (f" (TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-             f"cuDNN {torch.backends.cudnn.allow_tf32})" if device.type == "cuda" else ""))
+    compute = str(trainer.compute_dtype or torch.float32).removeprefix("torch.")
+    stored = str(trainer.activation_dtype or "as computed").removeprefix("torch.")
+    print(f"objective: {trainer.obj_name} on {device} (compute {compute}, activations {stored}"
+          + (f"; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+             f"cuDNN {torch.backends.cudnn.allow_tf32}" if device.type == "cuda" else "") + ")")
 
     metrics_path = os.path.join(run_path, "metrics.jsonl")
 

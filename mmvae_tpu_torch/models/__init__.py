@@ -1,2 +1,3 @@
+from .mmvae import MMVAE  # noqa: F401
 from .mmvae_nf import MMVAE_NF  # noqa: F401
 from .vae import UnimodalVAE  # noqa: F401

@@ -27,15 +27,15 @@ class MMVAE_NF(nn.Module):
     def n_mod(self):
         return len(self.vaes)
 
-    def forward(self, x, K: int = 1, eps: Optional[Sequence] = None, generator=None):
+    def forward(self, x, K: int = 1, noise: Optional[Sequence] = None, generator=None):
         """Returns dict(ln_qz_xs, zs, recons), recons[e][d] the cross matrix.
         Each VAE runs at K=1, as in the reference: K does not reach it.
-        eps: optional per-modality standard-normal noise, (B, latent) each."""
+        noise: optional per-modality standard-normal noise, (B, latent) each."""
         n = self.n_mod
         recons = [[None] * n for _ in range(n)]
         zs, ln_qz_xs = [], []
         for m, vae in enumerate(self.vaes):
-            o = vae(x[m], eps=None if eps is None else eps[m], generator=generator)
+            o = vae(x[m], noise=None if noise is None else noise[m], generator=generator)
             recons[m][m] = o["recon"]
             zs.append(o["z"])
             ln_qz_xs.append(

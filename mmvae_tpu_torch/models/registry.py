@@ -1,6 +1,7 @@
 """Model registry: config -> built model + spec + dataset wiring
-(mmvae_tpu/models/registry.py). Only MMVAE-NF on MNIST-SVHN is ported so
-far; every other model name of the JAX registry raises NotImplementedError.
+(mmvae_tpu/models/registry.py). MMVAE and MMVAE-NF on MNIST-SVHN are
+ported so far; every other model name of the JAX registry raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from ..core.config import ExperimentConfig
 from ..flows import IAF, MAF
 from ..nets import DecoderSVHN, EncoderSVHN, MLPDecoder, MLPEncoder
 from ..objectives import ModelSpec
+from .mmvae import MMVAE
 from .mmvae_nf import MMVAE_NF
 from .vae import UnimodalVAE
 
@@ -51,6 +53,21 @@ def _ms_lik_scaling(cfg) -> Tuple[float, float]:
     return ((3 * 32 * 32) / (1 * 28 * 28), 1.0) if cfg.llik_scaling == 0 else (cfg.llik_scaling, 1.0)
 
 
+def mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on MNIST-SVHN (mmvae/mmvae_mnist_svhn.py:31-63): MLP enc/dec for
+    MNIST, conv enc/dec for SVHN, Laplace or Normal posteriors."""
+    vaes = [
+        _vae(cfg, MLPEncoder(latent_dim=cfg.latent_dim, in_features=1 * 28 * 28),
+             MLPDecoder(latent_dim=cfg.latent_dim, output_shape=(1, 28, 28)), "mnist"),
+        _vae(cfg, EncoderSVHN(latent_dim=cfg.latent_dim),
+             DecoderSVHN(latent_dim=cfg.latent_dim), "svhn"),
+    ]
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=tuple(cfg.recon_losses),
+                     lik_scaling=_ms_lik_scaling(cfg))
+    return ModelBundle(MMVAE(vaes, posterior=cfg.dist), spec, "mnist_svhn", "mmvae_mnist_svhn")
+
+
 def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
     """MMVAE-NF (mmvae_nf/mnist_svhn.py): flow VAEs, normal posteriors."""
     vaes = [
@@ -68,6 +85,7 @@ def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
 
 
 REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
+    "mnist_svhn": mnist_svhn,
     "mmvae_nf_mnist_svhn": mmvae_nf_mnist_svhn,
 }
 

@@ -1,8 +1,11 @@
 """Unimodal VAE with an optional posterior flow (mmvae_tpu/models/vae.py).
 
 `flow=None` is the plain VAE; `flow=MAF(...)/IAF(...)` the flow-augmented
-sampling path (reference vae_iaf_model_adapted.py:60-103). Sampling takes
-the standard-normal noise `eps` explicitly, or draws it from `generator`.
+sampling path (reference vae_iaf_model_adapted.py:60-103);
+`posterior="laplace"` the softmax-std Laplace posterior (laplace_vae.py:69).
+Sampling takes the posterior family's noise explicitly (`noise`: standard
+normal for "normal", uniform in (-1 + 1e-7, 1) for "laplace"; see
+core/distributions.py), or draws it from `generator`.
 """
 
 from __future__ import annotations
@@ -21,8 +24,6 @@ class UnimodalVAE(nn.Module):
                  flow: Optional[nn.Module] = None, posterior: str = "normal",
                  model_name: str = "vae"):
         super().__init__()
-        if posterior != "normal":
-            raise NotImplementedError(f"{posterior} posterior not yet ported")
         self.encoder = encoder
         self.decoder = decoder
         self.flow = flow
@@ -31,6 +32,8 @@ class UnimodalVAE(nn.Module):
         self.model_name = model_name
 
     def posterior_std(self, log_var):
+        if self.posterior == "laplace":
+            return D.std_softmax_trick(log_var)
         return D.std_from_logvar(log_var)
 
     def encode(self, x):
@@ -52,22 +55,22 @@ class UnimodalVAE(nn.Module):
             return z0, z0.new_zeros(z0.shape[:-1])
         return self.flow.inverse(z0)
 
-    def encode_and_sample(self, x, K: int = 1, eps=None, generator=None):
+    def encode_and_sample(self, x, K: int = 1, noise=None, generator=None):
         """Posterior params + K samples (leading axis K)."""
         mu, log_var = self.encode(x)
         std = self.posterior_std(log_var)
-        z0 = D.sample(self.posterior, LocScale(mu, std), (K,), eps=eps, generator=generator)
+        z0 = D.sample(self.posterior, LocScale(mu, std), (K,), noise=noise, generator=generator)
         z, ldj = self.flow_inverse(z0)
         return (mu, std), z, ldj
 
-    def forward(self, x, K: int = 1, eps=None, generator=None):
+    def forward(self, x, K: int = 1, noise=None, generator=None):
         """Full forward pass. Encoding runs once; the leading sample axis K
         is present only when K > 1. Returns recon, mu, log_var, std, z0, z,
         log_abs_det_jac."""
         mu, log_var = self.encode(x)
         std = self.posterior_std(log_var)
         shape = (K,) if K > 1 else ()
-        z0 = D.sample(self.posterior, LocScale(mu, std), shape, eps=eps, generator=generator)
+        z0 = D.sample(self.posterior, LocScale(mu, std), shape, noise=noise, generator=generator)
         z, ldj = self.flow_inverse(z0)
         return {
             "recon": self.decode(z),

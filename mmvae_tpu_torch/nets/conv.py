@@ -7,6 +7,11 @@ ConvTranspose2d (in, out, kh, kw); bridge.py converts from and to the JAX
 trees. Every module here re-draws its parameters from an explicit
 `torch.Generator` in `reset_parameters`, so the draws do not depend on the
 device the module lives on.
+
+Every forward goes through core/precision.py, which casts the operands
+under a reduced-precision policy and is a no-op under the default one.
+`head=True` convs (distribution parameters) keep their output out of the
+activation-storage downcast.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core import precision
 
 
 @torch.no_grad()
@@ -46,20 +53,21 @@ class Linear(_Kaiming):
         super().__init__((features, in_features), in_features, features, use_bias)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return precision.linear(x, self.weight, self.bias)
 
 
 class Conv2d(_Kaiming):
     """Cross-correlation, NCHW."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, use_bias: bool = True):
+                 padding: int = 0, use_bias: bool = True, head: bool = False):
         k = kernel_size
         super().__init__((features, in_channels, k, k), in_channels * k * k, features, use_bias)
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.head = stride, padding, head
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return precision.conv(F.conv2d, x, self.weight, self.bias, self.head,
+                              stride=self.stride, padding=self.padding)
 
 
 class ConvTranspose2d(_Kaiming):
@@ -69,15 +77,18 @@ class ConvTranspose2d(_Kaiming):
     array unflipped (tests/test_torch_modules.py holds the two together)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, output_padding: int = 0, use_bias: bool = True):
+                 padding: int = 0, output_padding: int = 0, use_bias: bool = True,
+                 head: bool = False):
         k = kernel_size
         # weight (in, out, kh, kw): fan_in = out * kh * kw, as torch and JAX
         super().__init__((in_channels, features, k, k), features * k * k, features, use_bias)
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
+        self.head = head
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
-                                  self.output_padding)
+        return precision.conv(F.conv_transpose2d, x, self.weight, self.bias, self.head,
+                              stride=self.stride, padding=self.padding,
+                              output_padding=self.output_padding)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:

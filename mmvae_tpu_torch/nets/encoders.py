@@ -56,8 +56,9 @@ class EncoderSVHN(nn.Module):
         self.Conv2d_0 = Conv2d(n_channels, f, 4, 2, padding=1)   # 16x16
         self.Conv2d_1 = Conv2d(f, f * 2, 4, 2, padding=1)        # 8x8
         self.Conv2d_2 = Conv2d(f * 2, f * 4, 4, 2, padding=1)    # 4x4
-        self.c1 = Conv2d(f * 4, latent_dim, 4, 2, padding=0)
-        self.c2 = Conv2d(f * 4, latent_dim, 4, 2, padding=0)
+        # heads: the posterior's parameters stay out of the activation downcast
+        self.c1 = Conv2d(f * 4, latent_dim, 4, 2, padding=0, head=True)
+        self.c2 = Conv2d(f * 4, latent_dim, 4, 2, padding=0, head=True)
 
     def forward(self, x):
         h = torch.relu(self.Conv2d_0(x))
@@ -76,7 +77,8 @@ class DecoderSVHN(nn.Module):
         self.ConvTranspose2d_0 = ConvTranspose2d(latent_dim, f * 4, 4, 1, padding=0)  # 4x4
         self.ConvTranspose2d_1 = ConvTranspose2d(f * 4, f * 2, 4, 2, padding=1)       # 8x8
         self.ConvTranspose2d_2 = ConvTranspose2d(f * 2, f, 4, 2, padding=1)           # 16x16
-        self.ConvTranspose2d_3 = ConvTranspose2d(f, n_channels, 4, 2, padding=1)      # 32x32
+        # head: the sigmoid output is the likelihood's parameter
+        self.ConvTranspose2d_3 = ConvTranspose2d(f, n_channels, 4, 2, padding=1, head=True)  # 32x32
 
     def forward(self, z):
         lead = z.shape[:-1]

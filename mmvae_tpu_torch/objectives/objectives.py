@@ -1,9 +1,19 @@
 """Training objectives (mmvae_tpu/objectives/objectives.py).
 
 An objective is a plain function
-    (model, x, spec, K=..., eps=..., generator=..., **cfg) -> (objective, details)
+    (model, x, spec, K=..., noise=..., generator=..., **cfg) -> (objective, details)
 returning the MAXIMIZATION objective (the train loop negates) and a dict of
-scalar terms. Only the MMVAE-NF ELBO is ported so far.
+scalar terms. `noise` is one tensor per modality of the posterior family's
+kind, or None to draw from `generator`.
+
+The DReG estimators replace the JAX package's two-stage VJP with a tensor
+hook on the stacked samples `zss`: the gradient that reaches `zss` is
+multiplied by the stop-grad importance weights before it flows back into
+the encoders, the reference's hook (objectives.py:398-401, 434-437). With
+the posterior parameters detached inside the log-weights, the one backward
+pass gives JAX's gp1 + gp2. Under `no_grad` (the eval step) no hook is
+registered and the objective returns the surrogate's value, as JAX's eval
+step does.
 """
 
 from __future__ import annotations
@@ -12,6 +22,10 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from ..core import distributions as D
+from ..core.distributions import LocScale
+from ..core.math import log_mean_exp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,11 +43,144 @@ class ModelSpec:
     llik_scaling: float = 1.0
 
 
-def m_elbo_nf(model, x, spec: ModelSpec, K=1, eps=None, generator=None, **kw):
+def prior(spec: ModelSpec, like: torch.Tensor) -> LocScale:
+    """The standard prior, (1, latent), on `like`'s device and dtype."""
+    zeros = like.new_zeros((1, spec.latent_dim))
+    return LocScale(zeros, torch.ones_like(zeros))
+
+
+def recon_log_prob(dist_name: str, recon, x, lead_ndim: int):
+    """ln p(x|z) with unit scale, summed over the event dims
+    (px_z wrapping at mmvae.py:54-76)."""
+    lp = D.log_prob(dist_name, LocScale(recon, torch.ones_like(recon)), x)
+    return lp.reshape(*lp.shape[:lead_ndim], -1).sum(-1)
+
+
+# ===========================================================================
+# Multimodal ELBOs (objectives.py:73-111)
+# ===========================================================================
+
+def m_elbo_naive(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Naive multimodal ELBO (objectives.py:73-84)."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    qz_params, recons = out["qz_params"], out["recons"]
+    n = len(qz_params)
+    lpx_zs, klds = [], []
+    for r in range(n):
+        qz = LocScale(*qz_params[r])
+        klds.append(torch.sum(D.kl(spec.posterior, qz, prior(spec, qz.loc)), dim=-1))
+        for d in range(n):
+            lp = recon_log_prob(spec.recon_dists[d], recons[r][d], x[d], 2)
+            lpx_zs.append(lp * spec.lik_scaling[d])
+    obj = (1.0 / n) * (sum(lpx_zs) - sum(klds))
+    return torch.sum(torch.mean(obj, dim=0)), {}
+
+
+def m_elbo(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Importance-weighted multimodal ELBO with stop-grad cross weights
+    (objectives.py:87-111)."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    qz_params, recons, zss = out["qz_params"], out["recons"], out["zss"]
+    n = len(qz_params)
+    lpx_zs, klds = [], []
+    details = {}
+    for r in range(n):
+        qz_r = LocScale(*qz_params[r])
+        klds.append(torch.sum(D.kl(spec.posterior, qz_r, prior(spec, qz_r.loc)), dim=-1))
+        for d in range(n):
+            lp = recon_log_prob(spec.recon_dists[d], recons[d][d], x[d], 2)
+            lp = lp * spec.lik_scaling[d]
+            if d == r:
+                lwt = lp.new_zeros(())
+            else:
+                zs = zss[d].detach()
+                qz_d = LocScale(*qz_params[d])
+                lwt = torch.sum(D.log_prob(spec.posterior, qz_r, zs)
+                                - D.log_prob(spec.posterior, qz_d, zs).detach(), dim=-1)
+            lpx_zs.append(torch.exp(lwt) * lp)
+            details[f"lpx_zs{r}{d}"] = torch.sum(lpx_zs[-1]).detach()
+    obj = (1.0 / n) * (sum(lpx_zs) - sum(klds))
+    return torch.sum(torch.mean(obj, dim=0)), details
+
+
+# ===========================================================================
+# Multimodal IWAE / DReG (objectives.py:117-131, 333-438)
+# ===========================================================================
+
+def _m_lws(x, spec: ModelSpec, qz_params, zss, recons, detach_post: bool):
+    """Per-expert log-weights lw_r = lpz + sum_d lpx - lqz_moe
+    (objectives.py:117-131 / 372-388), (M, K, B). lpx is scaled by
+    spec.lik_scaling for both IWAE and DReG, as in the JAX package."""
+    n = len(qz_params)
+    if detach_post:
+        qz_params = [(mu.detach(), std.detach()) for mu, std in qz_params]
+    lws = []
+    for r in range(n):
+        pz = prior(spec, zss)
+        lpz = torch.sum(D.log_prob(spec.posterior, pz, zss[r]), dim=-1)
+        lqz = log_mean_exp(torch.stack([
+            torch.sum(D.log_prob(spec.posterior, LocScale(*qz_params[m]), zss[r]), dim=-1)
+            for m in range(n)
+        ]))
+        lpx = sum(recon_log_prob(spec.recon_dists[d], recons[r][d], x[d], 2) * spec.lik_scaling[d]
+                  for d in range(n))
+        lws.append(lpz + lpx - lqz)
+    return torch.stack(lws)
+
+
+def m_iwae(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Multimodal IWAE, tight bound: log-mean over M*K (objectives.py:333-340)."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    lws = _m_lws(x, spec, out["qz_params"], out["zss"], out["recons"], False)
+    m, k, b = lws.shape
+    return torch.sum(log_mean_exp(lws.reshape(m * k, b), dim=0)), {}
+
+
+def m_iwae_looser(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Looser bound: modality average outside the log (objectives.py:343-369)."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    lws = _m_lws(x, spec, out["qz_params"], out["zss"], out["recons"], False)
+    return torch.sum(torch.mean(log_mean_exp(lws, dim=1), dim=0)), {}
+
+
+def _m_dreg(model, x, spec: ModelSpec, K, looser: bool, noise, generator):
+    """Shared DReG machinery (objectives.py:372-438)."""
+    qz_params, zss = model.encode_and_sample(x, K=K, noise=noise, generator=generator)
+    recons = model.decode_cross(zss)
+    lws = _m_lws(x, spec, qz_params, zss, recons, detach_post=True)
+    with torch.no_grad():
+        if looser:
+            # softmax over K per (modality, batch) (objectives.py:435)
+            w = torch.softmax(lws, dim=1)
+        else:
+            # softmax over the joint (M*K) axis (objectives.py:399)
+            m, k, b = lws.shape
+            w = torch.softmax(lws.reshape(m * k, b), dim=0).reshape(m, k, b)
+    if zss.requires_grad:
+        # the z-gradient additionally scaled by w (objectives.py:401, 437)
+        zss.register_hook(lambda g: g * w[..., None])
+    if looser:
+        return torch.sum(torch.mean(w * lws, dim=0)), {}
+    return torch.sum(w * lws), {}
+
+
+def m_dreg(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    return _m_dreg(model, x, spec, K, False, noise, generator)
+
+
+def m_dreg_looser(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    return _m_dreg(model, x, spec, K, True, noise, generator)
+
+
+# ===========================================================================
+# MMVAE-NF (objectives.py:463-479)
+# ===========================================================================
+
+def m_elbo_nf(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
     """Flow-posterior ELBO with unit-gaussian decoder (reference
     objectives.py:463-479), summed over the batch. K is not used: MMVAE_NF
     runs each VAE at K=1."""
-    out = model(x, eps=eps, generator=generator)
+    out = model(x, noise=noise, generator=generator)
     ln_qz_xs, zs, recons = out["ln_qz_xs"], out["zs"], out["recons"]
     n = len(zs)
     obj = 0.0
@@ -47,6 +194,12 @@ def m_elbo_nf(model, x, spec: ModelSpec, K=1, eps=None, generator=None, **kw):
 
 
 OBJECTIVES = {
+    "m_elbo_naive": m_elbo_naive,
+    "m_elbo": m_elbo,
+    "m_iwae": m_iwae,
+    "m_iwae_looser": m_iwae_looser,
+    "m_dreg": m_dreg,
+    "m_dreg_looser": m_dreg_looser,
     "m_elbo_nf": m_elbo_nf,
 }
 

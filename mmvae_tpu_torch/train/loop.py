@@ -9,6 +9,10 @@ step by step. Per-step noise comes from a `torch.Generator` on the training
 device seeded from `cfg.seed`; validation re-seeds its own generator every
 epoch, so the val loss of fixed parameters is the same each epoch, as in the
 JAX package (one fixed val key).
+
+Both steps run under the config's precision policy (core/precision.py:
+"compute_dtype", "activation_dtype"); parameters and optimizer state stay
+float32.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..core import precision
 from ..core.config import ExperimentConfig
 from ..nets.conv import init_parameters
 from ..objectives import objectives as obj_mod
@@ -42,6 +47,8 @@ class Trainer:
         self.log = log_fn
         self.obj_name, self.obj_fn = obj_mod.resolve(cfg.obj, multimodal, cfg.looser)
         self.guard = bool(cfg.nan_guard)
+        self.compute_dtype = precision.parse(cfg.extra.get("compute_dtype"))
+        self.activation_dtype = precision.parse(cfg.extra.get("activation_dtype"))
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.opt: Optional[Adam] = None
         self._history: Dict[str, List[float]] = {}
@@ -73,16 +80,21 @@ class Trainer:
         return dict(K=cfg.K, warmup=cfg.warmup, beta_prior=cfg.beta_prior, beta=cfg.beta,
                     beta_kl=beta_kl, epoch=epoch, past_warmup=epoch >= cfg.warmup)
 
-    def train_step(self, xs, lr: float, beta_kl: float = 1.0, epoch: int = 1, eps=None):
+    def _policy(self):
+        return precision.use(self.compute_dtype, self.activation_dtype)
+
+    def train_step(self, xs, lr: float, beta_kl: float = 1.0, epoch: int = 1, noise=None):
         """One optimizer step on batch `xs`. Returns (loss, details) as
         device tensors; details["nan_skipped"] is 1 when nan_guard skipped
-        the step."""
+        the step. `noise`: the sampler's noise per modality, or None to
+        draw it from the trainer's generator."""
         self.model.train()
-        obj, details = self.obj_fn(self.model, xs, self.spec, eps=eps, generator=self.gen,
-                                   **self._obj_kwargs(beta_kl, epoch))
-        loss = -obj
         named = list(self.model.named_parameters())
-        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        with self._policy():
+            obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
+                                       generator=self.gen, **self._obj_kwargs(beta_kl, epoch))
+            loss = -obj
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
         finite = None
         if self.guard:
@@ -96,10 +108,13 @@ class Trainer:
         return loss.detach(), details
 
     @torch.no_grad()
-    def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, eps=None, generator=None):
+    def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None, generator=None):
+        """The objective's value only: no gradient is recorded, so the DReG
+        objectives return their surrogate's value and register no hook."""
         self.model.eval()
-        obj, details = self.obj_fn(self.model, xs, self.spec, eps=eps, generator=generator,
-                                   **self._obj_kwargs(beta_kl, epoch))
+        with self._policy():
+            obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
+                                       generator=generator, **self._obj_kwargs(beta_kl, epoch))
         return -obj, details
 
     # ------------------------------------------------------------------

@@ -10,8 +10,14 @@ MADE masks), float32 with TF32 off: the forward against `unrolled_solve`,
 the backward (with the wrapper's reduction) against autograd through
 `unrolled_solve`. The same arithmetic in another summation order, so
 rtol/atol 1e-4.
+
+The flagship MMVAE-DReG path, which launches no kernel of the port: a
+DReG-looser step on the card against the float64 CPU step, the bf16
+policy's CUDA forms of Linear and the convs against their CPU forms, and
+one small epoch of the flagship through the CLI.
 """
 
+import copy
 import json
 import math
 import os
@@ -20,9 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
 from mmvae_tpu_torch.cli import train as cli_train
+from mmvae_tpu_torch.core import distributions as Dist
+from mmvae_tpu_torch.core import precision
+from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.data import get_dataloaders
 from mmvae_tpu_torch.flows import MAF, build_masks
+from mmvae_tpu_torch.models import registry
+from mmvae_tpu_torch.nets import Conv2d, ConvTranspose2d, Linear
+from mmvae_tpu_torch.objectives import m_dreg_looser
 from mmvae_tpu_torch.ops import ar_flow
 
 D, H, N_HIDDEN = 20, 128, 3
@@ -192,3 +205,107 @@ def test_cli_epoch_on_card(card, tmp_path):
     with open(os.path.join(run_path, "losses.json")) as f:
         losses = json.load(f)
     assert all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
+
+
+FLAGSHIP = "configs/mnist_svhn/mmvae_synth.json"
+FLAGSHIP_BF16 = "configs/mnist_svhn/mmvae_synth_bf16.json"
+
+
+@pytest.mark.cuda
+def test_dreg_looser_step_on_card_matches_f64_cpu(card):
+    """The flagship's DReG-looser objective and every gradient on cuda in
+    float32 against the CPU in float64, same weights and uniform noise
+    (B=8, K=5, latent 20, full-width nets). Objective rtol 1e-5; each
+    gradient leaf to 2e-3 of its largest entry: the importance weights are
+    softmaxes over log-weights near -6,000, where a float32 ulp is 5e-4."""
+    cfg = ExperimentConfig.from_json(FLAGSHIP)
+    cfg.K, b = 5, 8
+    rng = np.random.default_rng(14)
+    xs = [rng.uniform(size=(b, 1, 28, 28)), rng.uniform(size=(b, 3, 32, 32))]
+    us = [rng.uniform(Dist.LAPLACE_U_MIN, Dist.LAPLACE_U_MAX, size=(cfg.K, b, cfg.latent_dim))
+          for _ in range(2)]
+    runs, weights = {}, None
+    for dev, dtype in (("cpu", torch.float64), (card, torch.float32)):
+        bundle = registry.build(cfg)
+        model = bundle.model.to(dev, dtype)
+        if weights is None:
+            weights = export_jax_params(model)
+        else:
+            load_jax_params(model, weights)
+        obj, _ = m_dreg_looser(model, [torch.tensor(x, dtype=dtype, device=dev) for x in xs],
+                               bundle.spec, K=cfg.K,
+                               noise=[torch.tensor(u, dtype=dtype, device=dev) for u in us])
+        grads = torch.autograd.grad(obj, list(model.parameters()))
+        runs[str(dev)] = (obj.item(), [g.double().cpu() for g in grads])
+    (ref, ref_g), (got, got_g) = runs["cpu"], runs[str(card)]
+    assert abs(got - ref) <= 1e-5 * abs(ref)
+    for g, r in zip(got_g, ref_g):
+        assert (g - r).abs().max() <= 2e-3 * r.abs().max()
+
+
+def _bf16_layer(kind):
+    if kind == "linear":
+        return Linear(40, 24), (16, 40)
+    if kind == "conv":
+        return Conv2d(3, 8, 4, 2, padding=1), (4, 3, 16, 16)
+    return ConvTranspose2d(16, 8, 4, 2, padding=1), (4, 16, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "conv", "conv_transpose"])
+def test_bf16_layer_on_card_matches_cpu_form(card, kind):
+    """Under the bf16 policy each layer's CUDA form (torch.mm with float32
+    output for Linear, cuDNN's bf16 conv) against its CPU form (float32
+    products of the bf16-rounded operands; a conv rounded once): Linear to
+    float32 round-off (rtol 1e-5), a conv to one bf16 ulp of its value
+    before the bias; the output float32. The gradients of the input, the
+    weight and the bias, rounded to bf16 at other points on the two
+    devices, to four bf16 ulps (2^-6) of each one's largest entry."""
+    layer, shape = _bf16_layer(kind)
+    layer.reset_parameters(torch.Generator().manual_seed(15))
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(shape, generator=gen)
+    runs = {}
+    for dev in ("cpu", card):
+        mod = copy.deepcopy(layer).to(dev)
+        xi = x.to(dev, copy=True).requires_grad_(True)
+        with precision.use("bfloat16"):
+            y = mod(xi)
+        r = torch.randn(y.shape, generator=torch.Generator().manual_seed(17)).to(dev)
+        (y * r).sum().backward()
+        runs[str(dev)] = [t.detach().cpu() for t in (y, xi.grad, mod.weight.grad, mod.bias.grad)]
+        assert y.dtype == torch.float32
+    (y_ref, *g_ref), (y, *g) = runs["cpu"], runs[str(card)]
+    if kind == "linear":
+        torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-6)
+    else:
+        pre = y_ref - layer.bias.detach()[None, :, None, None]
+        assert ((y - y_ref).abs() <= 2 ** -8 * pre.abs() + 1e-6).all()
+    for a, b in zip(g, g_ref):
+        assert (a - b).abs().max() <= 2 ** -6 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [FLAGSHIP, FLAGSHIP_BF16])
+def test_flagship_cli_epoch_on_card(card, tmp_path, config):
+    """One small epoch of the flagship (and its bf16 twin) through the CLI
+    on cuda: every parameter on the card and float32, finite losses, no
+    skipped step, and no ar_solve launch (the path has no flow)."""
+    with open(config) as f:
+        raw = json.load(f)
+    # an empty data dir inside tmp_path: the synthetic stand-in, nothing read outside
+    raw.update(synthetic_n=64, batch_size=16, K=3, epochs=1, no_analytics=True,
+               data_path=str(tmp_path / "data"))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(raw))
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    run_path = cli_train.main(["--config-path", str(cfg_path), "--experiments-dir",
+                               str(tmp_path / "exp"), "--device", "cuda"])
+    assert ar_flow.ar_solve.launches == ar_flow.ar_solve.backward_launches == 0
+    state = torch.load(os.path.join(run_path, "model.pt"), weights_only=True)
+    assert all(t.is_cuda and t.dtype == torch.float32 for t in state.values())
+    with open(os.path.join(run_path, "losses.json")) as f:
+        losses = json.load(f)
+    assert all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
+    with open(os.path.join(run_path, "metrics.jsonl")) as f:
+        assert json.loads(f.readline())["train_nan_skipped"] == 0.0

@@ -139,11 +139,11 @@ def test_normal_distribution_matches_jax():
     p = D.LocScale(torch.tensor(loc), D.std_from_logvar(torch.tensor(log_var)))
     _close(p.scale, jp.scale, 1e-6)
     _close(D.normal_log_prob(p, torch.tensor(x)), JD.log_prob("normal", jp, jnp.asarray(x)), 1e-6)
-    _close(D.sample("normal", p, (2,), eps=torch.tensor(eps)), jp.loc + jnp.asarray(eps) * jp.scale,
+    _close(D.sample("normal", p, (2,), noise=torch.tensor(eps)), jp.loc + jnp.asarray(eps) * jp.scale,
            1e-6)
     assert D.sample("normal", p, (4,), generator=torch.Generator().manual_seed(0)).shape == (4, 3, 5)
     with pytest.raises(ValueError):
-        D.sample("normal", p, (3,), eps=torch.tensor(eps))
+        D.sample("normal", p, (3,), noise=torch.tensor(eps))
 
 
 def test_vae_matches_jax(monkeypatch):
@@ -180,8 +180,8 @@ def test_vae_matches_jax(monkeypatch):
     noise["eps"] = jnp.asarray(eps_1)
     jout = japply(jvae.UnimodalVAE.__call__, jnp.asarray(x))
     with torch.no_grad():
-        (mu, std), z, ldj = pmod.encode_and_sample(torch.tensor(x), K=3, eps=torch.tensor(eps_k))
-        out = pmod(torch.tensor(x), eps=torch.tensor(eps_1))
+        (mu, std), z, ldj = pmod.encode_and_sample(torch.tensor(x), K=3, noise=torch.tensor(eps_k))
+        out = pmod(torch.tensor(x), noise=torch.tensor(eps_1))
         z0_back, ld_fwd = pmod.flow_forward(out["z"])
     _close([mu, std, z, ldj], [jmu, jstd, jz, jldj], 1e-4)
     for key in ("recon", "mu", "log_var", "std", "z0", "z", "log_abs_det_jac"):

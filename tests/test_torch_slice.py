@@ -91,7 +91,7 @@ def test_m_elbo_nf_value_and_grads_match_jax(monkeypatch):
     load_jax_params(model, jax.tree.map(np.asarray, params))
     assert bundle.spec.lik_scaling == jb.spec.lik_scaling == (3 * 32 * 32 / 784, 1.0)
     obj, _ = m_elbo_nf(model, [torch.tensor(x) for x in xs], bundle.spec,
-                       K=30, eps=[torch.tensor(e) for e in eps])
+                       K=30, noise=[torch.tensor(e) for e in eps])
     np.testing.assert_allclose(obj.item(), float(j_obj), rtol=1e-5)
     obj.backward()
     with torch.no_grad():

@@ -42,7 +42,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. mmvae_parity: one DReG-looser step on cuda (float32) against the same
    step on the CPU in float64 at B=32, K=30, same weights and uniform noise;
    then the bf16 step against the float32 step on cuda.
-9. The kernels line, and last the contract line
+9. jnf_slice: JMVAE-NF (`configs/mnist_svhn/jmvae_nf.json`: joint encoder,
+   2 MADE blocks of 3x128 per modality, no_recon false) through the CLI
+   for 2 epochs at the same data scale, warmup 2: epoch 1 trains the joint
+   encoder and decoders and launches no ar_solve kernel; epoch 2, after the
+   optimizer reset, launches 4 forward kernels per train step and per val
+   batch and 4 backward kernels per train step, and leaves every
+   joint_encoder and decoder parameter bit-unchanged.
+10. jnf_slice_time: the steady JNF train step in each phase: host ms,
+   device time, launches, busy share, eval batch ms, peak memory, the top
+   kernels and ar_solve's share of the post-warmup device time.
+11. jnf_parity: one post-warmup JNF step (frozen joint, unimodal
+   reconstructions on) on cuda in float32 against the CPU in float64.
+12. dcca: DCCA pretraining through `mmvae_tpu_torch.cli.dcca_train` on cuda
+   (the Cholesky loss, float32) for 3 epochs at batch 800, its artifact,
+   the epoch time, and the cuda loss and its gradient against the float64
+   CPU eigh loss on one batch at the same trunk weights.
+13. jnf_dcca_slice: JMVAE-NF-DCCA (`jnf_dcca_synth.json`) for 2 epochs,
+   warmup 2, grafting that artifact: the trunks equal the artifact's after
+   both epochs, no ar_solve launch (no_recon: the flows run only their
+   parallel direction), finite losses.
+14. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -62,6 +82,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_nf_synth.json")
 FLAGSHIP = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth.json")
 FLAGSHIP_BF16 = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth_bf16.json")
+JNF = os.path.join(ROOT, "configs", "mnist_svhn", "jmvae_nf.json")
+JNF_DCCA = os.path.join(ROOT, "configs", "mnist_svhn", "jnf_dcca_synth.json")
+# JMVAE-NF runs: 2 epochs, the second past warmup
+JNF_RUN = dict(epochs=2, warmup=2, skip_warmup=False)
 
 # Published peaks of an H100 SXM (dense, no sparsity) at 700 W: float32 on
 # the CUDA cores and HBM3 bandwidth. A card set to a lower power limit may
@@ -87,6 +111,11 @@ STEP_GRAD_TOL = 1e-4  # max |g_cuda - g_ref| / max |g_ref| per parameter
 MMVAE_PARITY_B = 32
 MMVAE_GRAD_TOL = 2e-3
 BF16_LOSS_RTOL = 0.05
+# The DCCA loss on the card (Cholesky, float32) against the float64 CPU
+# eigh loss: the JAX package's own tolerances (tests/test_dcca.py:36,45).
+DCCA_VALUE_TOL = 2e-3
+DCCA_GRAD_RTOL, DCCA_GRAD_ATOL = 5e-2, 1e-4
+DCCA_EPOCHS, DCCA_BATCH = 3, 800
 
 
 def emit(obj):
@@ -344,41 +373,63 @@ def _slice_config(tmp, config=CONFIG, **overrides):
     # synthetic stand-in and read nothing outside the run
     data_dir = os.path.join(tmp, "data")
     os.makedirs(data_dir, exist_ok=True)
-    raw.update(synthetic_n=2048, epochs=1, no_analytics=True, data_path=data_dir, **overrides)
+    raw.update({"synthetic_n": 2048, "epochs": 1, "no_analytics": True, "data_path": data_dir,
+                **overrides})
     path = os.path.join(tmp, "smoke_" + os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)
     return path, raw
 
 
-def _cli_epoch(tmp, config):
-    """One epoch of `config`, cut as _slice_config cuts it, through the
-    port's CLI on cuda, with the ar_solve counts set to 0 just before and
-    read just after."""
+def _cli_epoch(tmp, config, **overrides):
+    """`config`, cut as _slice_config cuts it (one epoch unless `overrides`
+    say otherwise), through the port's CLI on cuda, with the ar_solve counts
+    set to 0 just before and read just after. The counts and the trainable
+    state are also read at the end of each epoch, by one more callback of
+    the Trainer's fit."""
     import torch
 
     from mmvae_tpu_torch.cli.train import main as train_main
     from mmvae_tpu_torch.core.config import ExperimentConfig
     from mmvae_tpu_torch.data import get_dataloaders
     from mmvae_tpu_torch.ops import ar_flow
+    from mmvae_tpu_torch.train import Trainer
 
-    cfg_path, raw = _slice_config(tmp, config)
+    cfg_path, raw = _slice_config(tmp, config, **overrides)
     cfg = ExperimentConfig.from_json(cfg_path)
     bsz = cfg.batch_size
     data_kw = dict(batch_size=bsz, data_path=cfg.data_path, synthetic_n=raw["synthetic_n"])
     train_loader, _, val_loader = get_dataloaders("mnist_svhn", **data_kw)
     steps, val_batches = train_loader.num_examples // bsz, val_loader.num_examples // bsz
 
+    epochs = []
+
+    def at_epoch_end(trainer, epoch, *args, **kwargs):
+        torch.cuda.synchronize()
+        epochs.append({"epoch": epoch, "launches": ar_flow.ar_solve.launches,
+                       "backward_launches": ar_flow.ar_solve.backward_launches,
+                       "params": {n: p.detach().clone()
+                                  for n, p in trainer.model.named_parameters()}})
+
+    fit = Trainer.fit
+
+    def fit_with_probe(self, *args, callbacks=None, **kwargs):
+        return fit(self, *args, callbacks=[*(callbacks or []), at_epoch_end], **kwargs)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
-    t0 = time.perf_counter()
-    run_path = train_main(["--config-path", cfg_path, "--experiments-dir",
-                           os.path.join(tmp, "experiments"), "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ar_flow.ar_solve.launches
-    bwd_launches = ar_flow.ar_solve.backward_launches
+    Trainer.fit = fit_with_probe
+    try:
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        t0 = time.perf_counter()
+        run_path = train_main(["--config-path", cfg_path, "--experiments-dir",
+                               os.path.join(tmp, "experiments"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ar_flow.ar_solve.launches
+        bwd_launches = ar_flow.ar_solve.backward_launches
+    finally:
+        Trainer.fit = fit
     peak = torch.cuda.max_memory_allocated()
 
     state = torch.load(os.path.join(run_path, "model.pt"), weights_only=True)
@@ -389,21 +440,24 @@ def _cli_epoch(tmp, config):
         metrics = [json.loads(line) for line in f]
     finite = all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
     # the trainer normalizes nan_skipped by all pairs, as the JAX package does
-    skipped_steps = metrics[-1].get("train_nan_skipped", 0.0) * train_loader.num_examples
+    skipped_steps = sum(m.get("train_nan_skipped", 0.0) for m in metrics) * train_loader.num_examples
     info = {"run_path": run_path, "train_pairs": train_loader.num_examples,
             "val_pairs": val_loader.num_examples, "train_steps": steps,
             "val_batches": val_batches, "ar_solve_launches": launches,
             "ar_solve_backward_launches": bwd_launches, "params_on_cuda": on_cuda,
             "train_loss": losses["train_loss"], "val_loss": losses["test_loss"],
-            "losses_finite": finite, "nan_skipped_fraction": skipped_steps / steps,
-            "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak}
-    return cfg, train_loader, info
+            "losses_finite": finite, "nan_skipped_fraction": skipped_steps / (steps * len(metrics)),
+            "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak,
+            "launches_by_epoch": [(e["launches"], e["backward_launches"]) for e in epochs]}
+    return cfg, train_loader, info, epochs
 
 
-def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20):
+def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
     """Steady-state train step and eval batch at the epoch's shapes,
     outside the counted run: host clock over `n_timed` steps after
-    `n_warm`, then a torch.profiler trace of 5 steps."""
+    `n_warm`, then a torch.profiler trace of 5 steps. `epoch` selects the
+    warmup phase (epoch < warmup) or the one after it, with the optimizer
+    the Trainer resets to there."""
     import torch
 
     from mmvae_tpu_torch.models import registry
@@ -412,21 +466,22 @@ def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20):
     bundle = registry.build(cfg)
     trainer = Trainer(bundle.model, bundle.spec, cfg, device="cuda")
     trainer.init_parameters()
-    trainer.init_opt_state()
+    past = epoch >= cfg.warmup
+    trainer.init_opt_state(past_warmup=past, amsgrad=not (past and cfg.warmup > 0))
     pipeline = trainer.make_device_pipeline(train_loader)
     batches = [pipeline.gather(torch.from_numpy(r).cuda())
                for r in list(pipeline.epoch_index_batches())[:n_warm + n_timed]]
     for xs in batches[:n_warm]:
-        trainer.train_step(xs, cfg.learning_rate)
+        trainer.train_step(xs, cfg.learning_rate, epoch=epoch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for xs in batches[n_warm:]:
-        trainer.train_step(xs, cfg.learning_rate)
+        trainer.train_step(xs, cfg.learning_rate, epoch=epoch)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n_timed
     gen = torch.Generator(device="cuda").manual_seed(0)
-    eval_ms = cuda_time_ms(lambda: trainer.eval_step(batches[0], generator=gen))
-    prof = profile_steps(trainer, batches[n_warm:n_warm + 5], cfg.learning_rate)
+    eval_ms = cuda_time_ms(lambda: trainer.eval_step(batches[0], epoch=epoch, generator=gen))
+    prof = profile_steps(trainer, batches[n_warm:n_warm + 5], cfg.learning_rate, epoch)
     if "device_us_per_step" in prof:
         # the profiler's own busy share is over a window its tracing slows;
         # this one is over the untraced step
@@ -435,7 +490,7 @@ def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20):
 
 
 def phase_slice(tmp):
-    cfg, train_loader, info = _cli_epoch(tmp, CONFIG)
+    cfg, train_loader, info, _ = _cli_epoch(tmp, CONFIG)
     steps, val_batches = info["train_steps"], info["val_batches"]
     launches, bwd_launches = info["ar_solve_launches"], info["ar_solve_backward_launches"]
     expected, bwd_expected = 4 * (steps + val_batches), 4 * steps
@@ -458,7 +513,7 @@ def phase_slice(tmp):
 
 def phase_mmvae_slice(tmp):
     """The flagship's epoch: no ar_solve launch, no skipped step."""
-    cfg, train_loader, info = _cli_epoch(tmp, FLAGSHIP)
+    cfg, train_loader, info, _ = _cli_epoch(tmp, FLAGSHIP)
     emit({"phase": "mmvae_slice", "model": cfg.model, "objective": "m_dreg_looser", "K": cfg.K,
           **info})
     launches = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
@@ -534,7 +589,7 @@ def phase_mmvae_time(tmp, config, train_loader):
     return step_s
 
 
-def profile_steps(trainer, batches, lr):
+def profile_steps(trainer, batches, lr, epoch=1):
     """Device busy time and the top kernels over a few train steps, from
     torch.profiler; "not measured" when the tracer cannot start or the trace
     holds no device time. Errors of the steps themselves propagate."""
@@ -553,7 +608,7 @@ def profile_steps(trainer, batches, lr):
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for xs in batches:
-            trainer.train_step(xs, lr)
+            trainer.train_step(xs, lr, epoch=epoch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     averages = prof.key_averages()
@@ -573,12 +628,26 @@ def profile_steps(trainer, batches, lr):
         hits = [e for e in events if name in e.key]
         return sum(dev_us(e) for e in hits) / sum(e.count for e in hits) if hits else None
 
+    ar_us = sum(dev_us(e) for e in events if "ar_solve" in e.key)
     return {"profiled_steps": len(batches), "device_busy_share": busy_us / wall_us,
             "device_us_per_step": busy_us / len(batches),
+            "ar_solve_share_of_device_time": ar_us / busy_us,
             "ar_solve_forward_device_us_per_launch": per_launch("ar_solve_forward_kernel"),
             "ar_solve_backward_device_us_per_launch": per_launch("ar_solve_backward_kernel"),
             "kernel_launches_per_step": sum(e.count for e in events) / len(batches),
             "top_kernels": [[e.key[:80], dev_us(e) / len(batches), e.count] for e in top]}
+
+
+def _step_errors(run, ref, names):
+    """`run` against `ref` (dicts with obj, loss and grads): the relative
+    errors of the objective and the loss, and each gradient leaf's largest
+    error over its largest entry, the worst of them named."""
+    leaf = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(run["grads"], ref["grads"])]
+    worst = max(range(len(leaf)), key=leaf.__getitem__)
+    return {"objective_rel_err": abs(run["obj"] - ref["obj"]) / abs(ref["obj"]),
+            "loss_rel_err": abs(run["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_max_rel_err": leaf[worst], "worst_leaf": names[worst]}
 
 
 def phase_parity(tmp):
@@ -626,17 +695,7 @@ def phase_parity(tmp):
                         stepped=trainer.opt.count.item())
 
     ref = out["cpu_f64"]
-
-    def errors(run):
-        r = out[run]
-        leaf = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for a, b in zip(r["grads"], ref["grads"])]
-        worst = max(range(len(leaf)), key=leaf.__getitem__)
-        return {"objective_rel_err": abs(r["obj"] - ref["obj"]) / abs(ref["obj"]),
-                "loss_rel_err": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
-                "grad_max_rel_err": leaf[worst], "worst_leaf": names[worst]}
-
-    cuda, cpu32 = errors("cuda_f32"), errors("cpu_f32")
+    cuda, cpu32 = (_step_errors(out[run], ref, names) for run in ("cuda_f32", "cpu_f32"))
     ok = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
           and cuda["grad_max_rel_err"] <= STEP_GRAD_TOL
           and all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values()))
@@ -707,17 +766,9 @@ def phase_mmvae_parity(tmp):
                         loss=loss.item(), skipped=details["nan_skipped"].item(),
                         stepped=trainer.opt.count.item(), seconds=time.perf_counter() - t0)
 
-    def errors(run, ref):
-        r, ref = out[run], out[ref]
-        leaf = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for a, b in zip(r["grads"], ref["grads"])]
-        worst = max(range(len(leaf)), key=leaf.__getitem__)
-        return {"objective_rel_err": abs(r["obj"] - ref["obj"]) / abs(ref["obj"]),
-                "loss_rel_err": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
-                "grad_max_rel_err": leaf[worst], "worst_leaf": names[worst]}
-
-    cuda, cpu32, bf16 = (errors("cuda_f32", "cpu_f64"), errors("cpu_f32", "cpu_f64"),
-                         errors("cuda_bf16", "cuda_f32"))
+    cuda, cpu32, bf16 = (_step_errors(out[run], out[ref], names)
+                         for run, ref in (("cuda_f32", "cpu_f64"), ("cpu_f32", "cpu_f64"),
+                                          ("cuda_bf16", "cuda_f32")))
     bf = out["cuda_bf16"]
     ok_f32 = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
               and cuda["grad_max_rel_err"] <= MMVAE_GRAD_TOL)
@@ -738,6 +789,288 @@ def phase_mmvae_parity(tmp):
     if not (ok_bf16 and stepped):
         raise AssertionError("the flagship's bf16 step is off the float32 step, or a step "
                              "was skipped")
+
+
+def _moved(epochs, prefixes):
+    """The parameters whose names contain one of `prefixes` and that moved
+    between the last two epoch ends, and how many were compared."""
+    import torch
+
+    before, after = epochs[-2]["params"], epochs[-1]["params"]
+    names = [n for n in after if any(p in n for p in prefixes)]
+    return [n for n in names if not torch.equal(before[n], after[n])], len(names)
+
+
+def phase_jnf_slice(tmp):
+    """JMVAE-NF through the CLI for 2 epochs, warmup 2: no ar_solve launch
+    in the warmup epoch; past it 4 forward kernels per train step and per
+    val batch and 4 backward kernels per train step; the joint encoder and
+    decoders frozen bit for bit."""
+    cfg, train_loader, info, epochs = _cli_epoch(tmp, JNF, **JNF_RUN)
+    steps, val_batches = info["train_steps"], info["val_batches"]
+    (w_fwd, w_bwd), (fwd, bwd) = info["launches_by_epoch"]
+    post = (fwd - w_fwd, bwd - w_bwd)
+    expected = (4 * (steps + val_batches), 4 * steps)
+    moved, n_frozen = _moved(epochs, ("joint_encoder", "decoder"))
+    trained, _ = _moved(epochs, ("",))
+    emit({"phase": "jnf_slice", "model": cfg.model, "objective": "m_jmvae_nf",
+          **{k: v for k, v in info.items() if k != "launches_by_epoch"},
+          "warmup_epoch_launches": [w_fwd, w_bwd], "post_warmup_launches": list(post),
+          "expected_post_warmup_launches": list(expected),
+          "frozen_params_compared": n_frozen, "frozen_params_moved": moved,
+          "params_moved_in_epoch_2": len(trained)})
+    if (w_fwd, w_bwd) != (0, 0) or post != expected or (steps, val_batches) != (68, 7):
+        raise AssertionError(f"JNF: warmup epoch launched {(w_fwd, w_bwd)} ar_solve kernels "
+                             f"(expected none); epoch 2 {post} for {steps}+{val_batches} batches "
+                             f"(expected {expected}, 68+7)")
+    if moved or not n_frozen or not trained:
+        raise AssertionError(f"JNF epoch 2: frozen parameters moved: {moved[:5]}, "
+                             f"{len(trained)} parameters moved in all")
+    if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
+        raise AssertionError(f"JNF: params on cuda {info['params_on_cuda']}, finite losses "
+                             f"{info['losses_finite']}, skipped {info['nan_skipped_fraction']:.1%}")
+    return train_loader, dict(launches=post[0], bwd_launches=post[1])
+
+
+def optimizer_launches(trainer):
+    """Device kernel launches of one optimizer update, nan_guard's flag
+    included, from torch.profiler (None where it records no device event).
+    The update runs on zero gradients at lr 0; the trainer is not used
+    after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    grads = [torch.zeros_like(p) for p in trainer.opt.params]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.opt.step(grads, 0.0, finite)
+            torch.cuda.synchronize()
+    except RuntimeError:  # the tracer could not start; the step's readings stand
+        return None
+    n = sum(e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def phase_jnf_time(tmp, train_loader):
+    """The steady JNF train step in the warmup phase and past it, and how
+    many of its launches are the optimizer's."""
+    import torch
+
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_json(_slice_config(tmp, JNF, **JNF_RUN)[0])
+    out = {}
+    for phase, epoch in (("warmup", 1), ("post_warmup", 2)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader, epoch=epoch)
+        out[phase] = step_s
+        emit({"phase": "jnf_slice_time", "jnf_phase": phase, "epoch": epoch,
+              "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
+              "eval_batch_ms": eval_ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "trainable_tensors": len(trainer.opt.params),
+              "optimizer_launches_per_step": optimizer_launches(trainer), **prof})
+    return out
+
+
+def phase_jnf_parity(tmp):
+    """One post-warmup JNF step (frozen joint forward, unimodal
+    reconstructions on) on cuda in float32 against the same step on the CPU
+    in float64 (the CPU float32 step beside it), same weights and noise:
+    the objective and every trainable parameter's gradient."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.data import get_dataloaders
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer, freezing
+
+    cfg_path, raw = _slice_config(tmp, JNF, **JNF_RUN)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
+                                         data_path=cfg.data_path,
+                                         synthetic_n=raw["synthetic_n"])
+    xs_np, _ = next(iter(train_loader))
+    rng = np.random.default_rng(0)
+    # the joint forward, compute_kld's joint sample, each unimodal forward
+    eps_np = [rng.standard_normal((cfg.batch_size, cfg.latent_dim)).astype(np.float32)
+              for _ in range(4)]
+    epoch = cfg.warmup
+
+    out, weights, trainable = {}, None, None
+    for run, dev, dtype in (("cpu_f64", "cpu", torch.float64), ("cpu_f32", "cpu", torch.float32),
+                            ("cuda_f32", "cuda", torch.float32)):
+        bundle = registry.build(cfg)
+        trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
+        if weights is None:
+            trainer.init_parameters()
+            weights = export_jax_params(trainer.model)
+        else:
+            load_jax_params(trainer.model, weights)
+        trainer.init_opt_state(past_warmup=True, amsgrad=False)
+        frozen = freezing.frozen_prefixes_for_phase(trainer.obj_name, True, cfg.fix_jencoder,
+                                                    cfg.fix_decoders)
+        trainable = list(freezing.trainable_parameters(trainer.model, frozen))
+        named = dict(trainer.model.named_parameters())
+        xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
+        eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
+        obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps,
+                                **trainer._obj_kwargs(1.0, epoch))
+        grads = torch.autograd.grad(obj, [named[n] for n in trainable])
+        loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=epoch, noise=eps)
+        out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
+                        loss=loss.item(), skipped=details["nan_skipped"].item(),
+                        stepped=trainer.opt.count.item())
+
+    ref = out["cpu_f64"]
+    cuda, cpu32 = (_step_errors(out[run], ref, trainable) for run in ("cuda_f32", "cpu_f32"))
+    ok = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
+          and cuda["grad_max_rel_err"] <= STEP_GRAD_TOL
+          and all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values()))
+    emit({"phase": "jnf_parity", "objective": "m_jmvae_nf", "epoch": epoch,
+          "frozen_joint": True, "no_recon": cfg.no_recon, "trainable_leaves": len(trainable),
+          "reference": "cpu float64", "objective_ref": ref["obj"],
+          "objective_cuda": out["cuda_f32"]["obj"], "cuda_f32": cuda, "cpu_f32": cpu32,
+          "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError("the cuda JNF step disagrees with the float64 cpu step")
+
+
+def phase_dcca(tmp):
+    """DCCA pretraining through the port's CLI on cuda (Cholesky loss,
+    float32), then the epoch time of the Solver at the same size, and the
+    cuda loss with its gradient against the float64 CPU eigh loss on one
+    batch at the trained trunk weights."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.bridge import load_jax_params
+    from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
+    from mmvae_tpu_torch.data import get_dataloaders
+    from mmvae_tpu_torch.dcca import objectives as O
+    from mmvae_tpu_torch.dcca.nets import DeepCCA, dcca_encoders_mnist_svhn
+    from mmvae_tpu_torch.dcca.train import Solver, load_trunk_params
+
+    data = os.path.join(tmp, "data")
+    os.makedirs(data, exist_ok=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        path = dcca_main(["--device", "cuda", "--epochs", str(DCCA_EPOCHS), "--batch-size",
+                          str(DCCA_BATCH), "--synthetic-n", "2048", "--data-path", data,
+                          "--out", os.path.join(tmp, "dcca")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = log.getvalue().splitlines()
+    epochs = [l.split() for l in lines if l.startswith("DCCA epoch")]
+    losses = [(float(w[w.index("train") + 1]), float(w[w.index("val") + 1])) for w in epochs]
+    with np.load(path) as npz:
+        lcca = {k: npz[k] for k in ("m0", "m1", "w0", "w1", "D")}
+    trunks = load_trunk_params(path)
+
+    train_l, _, val_l = get_dataloaders("mnist_svhn", batch_size=DCCA_BATCH, synthetic_n=2048,
+                                        data_path=data)
+    fit_s = {}
+    for n in (1, DCCA_EPOCHS):
+        solver = Solver(dcca_encoders_mnist_svhn(16), 16, backend="chol", device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.fit(train_l, val_l, epochs=n, log=lambda s: None)
+        torch.cuda.synchronize()
+        fit_s[n] = time.perf_counter() - t0
+    epoch_s = (fit_s[DCCA_EPOCHS] - fit_s[1]) / (DCCA_EPOCHS - 1)
+
+    # one batch through the trained trunks, then the loss on each device
+    xs, _ = next(iter(train_l))
+    ref_model = DeepCCA(dcca_encoders_mnist_svhn(16)).double()
+    load_jax_params(ref_model, trunks)
+    with torch.no_grad():
+        hs = ref_model([torch.tensor(x, dtype=torch.float64) for x in xs])
+    h64 = [h.clone().requires_grad_(True) for h in hs]
+    v64 = O.cca_loss(h64[0], h64[1], 16)
+    g64 = torch.autograd.grad(v64, h64)
+    h32 = [h.float().cuda().requires_grad_(True) for h in hs]
+    v32 = O.cca_loss_chol(h32[0], h32[1], 16)
+    g32 = torch.autograd.grad(v32, h32)
+    torch.cuda.synchronize()
+    value_ok = math.isclose(v32.item(), v64.item(), rel_tol=DCCA_VALUE_TOL,
+                            abs_tol=DCCA_VALUE_TOL)
+    grad_ok = all(torch.allclose(a.double().cpu(), b, rtol=DCCA_GRAD_RTOL, atol=DCCA_GRAD_ATOL)
+                  for a, b in zip(g32, g64))
+    grad_err = max((a.double().cpu() - b).abs().max().item() for a, b in zip(g32, g64))
+    finite = bool(losses) and all(math.isfinite(v) for pair in losses for v in pair)
+    fitted = all(np.isfinite(v).all() for v in lcca.values()) and lcca["w0"].shape == (16, 16)
+    emit({"phase": "dcca", "epochs": len(losses), "batch": DCCA_BATCH,
+          "train_pairs": train_l.num_examples, "losses_train_val": losses,
+          "cli_wall_s_incl_setup": wall, "solver_fit_s": fit_s, "epoch_s": epoch_s,
+          "artifact": os.path.relpath(path, tmp), "lcca_correlations": lcca["D"][:9].tolist(),
+          "loss_cuda_chol_f32": v32.item(), "loss_cpu_eigh_f64": v64.item(),
+          "grad_max_abs_err": grad_err, "value_tol": DCCA_VALUE_TOL,
+          "grad_rtol": DCCA_GRAD_RTOL, "grad_atol": DCCA_GRAD_ATOL,
+          "ok": value_ok and grad_ok and finite and fitted})
+    if len(losses) != DCCA_EPOCHS or not (finite and fitted):
+        raise AssertionError(f"DCCA: {len(losses)} epochs, finite losses {finite}, "
+                             f"LCCA fitted {fitted}")
+    if not (value_ok and grad_ok):
+        raise AssertionError(f"DCCA: cuda chol loss {v32.item()} vs cpu eigh {v64.item()}, "
+                             f"gradient max abs err {grad_err}")
+    return path
+
+
+def phase_jnf_dcca_slice(tmp, dcca_path):
+    """JMVAE-NF-DCCA through the CLI for 2 epochs, warmup 2, grafting the
+    dcca phase's artifact: the trunks and their projection equal the
+    artifact's after both epochs, no ar_solve launch, finite losses."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.dcca.train import load_trunk_params
+
+    cfg, _, info, epochs = _cli_epoch(tmp, JNF_DCCA, dcca_path=dcca_path, **JNF_RUN)
+    trunks = load_trunk_params(dcca_path)
+    final = epochs[-1]["params"]
+    mismatched, compared = [], 0
+    for i in (0, 1):
+        prefix = f"vaes.{i}.encoder.first_encoder.encoder."
+        for name, p in final.items():
+            if not name.startswith(prefix):
+                continue
+            layer, kind = name[len(prefix):].split(".")
+            want = trunks[f"encoders_{i}"][layer]["kernel" if kind == "weight" else "bias"]
+            want = torch.tensor(want.T if (kind == "weight" and want.ndim == 2) else want)
+            compared += 1
+            if not torch.equal(p.cpu(), want):
+                mismatched.append(name)
+    state = torch.load(os.path.join(info["run_path"], "model.pt"), weights_only=True)
+    with np.load(dcca_path) as npz:
+        proj_ok = all(torch.equal(state[f"vaes.{i}.encoder.first_encoder.{b}"].cpu(),
+                                  torch.tensor(npz[f"{b}{i}"], dtype=torch.float32))
+                      for i in (0, 1) for b in "mw")
+    launches = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    emit({"phase": "jnf_dcca_slice", "model": cfg.model, "dcca": cfg.dcca,
+          "dim_dcca": cfg.dim_dcca, "no_recon": cfg.no_recon,
+          **{k: v for k, v in info.items() if k != "launches_by_epoch"},
+          "launches_by_epoch": info["launches_by_epoch"], "trunk_params_compared": compared,
+          "trunk_params_off_artifact": mismatched, "projection_from_artifact": proj_ok})
+    if mismatched or compared != 16 or not proj_ok:
+        raise AssertionError(f"JNF-DCCA: trunks off the artifact after training: "
+                             f"{mismatched[:5]} ({compared} compared), projection {proj_ok}")
+    if launches != (0, 0) or len(epochs) != 2:
+        raise AssertionError(f"JNF-DCCA: {len(epochs)} epochs, ar_solve launched {launches} "
+                             f"(expected none)")
+    if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
+        raise AssertionError(f"JNF-DCCA: params on cuda {info['params_on_cuda']}, finite "
+                             f"losses {info['losses_finite']}, skipped "
+                             f"{info['nan_skipped_fraction']:.1%}")
+    return launches
 
 
 def main():
@@ -771,13 +1104,25 @@ def main():
         for config in (FLAGSHIP, FLAGSHIP_BF16):
             phase_mmvae_time(tmp, config, train_loader)
         phase_mmvae_parity(tmp)
+        jnf_loader, jnf = phase_jnf_slice(tmp)
+        phase_jnf_time(tmp, jnf_loader)
+        phase_jnf_parity(tmp)
+        dcca_path = phase_dcca(tmp)
+        jnf_dcca = phase_jnf_dcca_slice(tmp, dcca_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    def entry(name, key, replaces, launches, err, **extra):
+    # each path's own launches, its counts set to 0 just before it; the
+    # flagship's are checked to be none in its phase
+    by_path = {"mmvae_nf": (sl["launches"], sl["bwd_launches"]), "flagship": (0, 0),
+               "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca}
+
+    def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
+        launches = {path: counts[which] for path, counts in by_path.items()}
         return {"name": name, "route": "cuda", "source": "mmvae_tpu_torch/csrc/ar_flow.cu",
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches,
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                 **extra}
@@ -786,10 +1131,9 @@ def main():
     # the unrolled solve), which the backward kernel and the wrapper's
     # reduction replace: its `ms` is both, the kernel alone beside it
     emit({"kernels": [
-        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", sl["launches"],
-              solve["fwd_err"]),
-        entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156",
-              sl["bwd_launches"], solve["bwd_err"],
+        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"]),
+        entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
+              solve["bwd_err"],
               kernel_ms=solve["results"]["backward"]["kernel_ms"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,13 @@ Takes the same JSON configs and writes the same run-dir layout:
 <experiments-dir>/<experiment>/<date>/<runId>/ with args.json, metrics.jsonl,
 losses.json and the best-val checkpoint (model.pt here).
 
+JMVAE-NF-DCCA configs ("dcca": true) graft the pretrained trunks of
+`python -m mmvae_tpu_torch.cli.dcca_train` from the config's "dcca_path"
+(default <experiments-dir>/dcca/<dataset>/dcca.npz); without an artifact
+the trunks stay random and frozen, with a warning, as in the JAX package.
+"skip_warmup" starts from the shared joint-encoder pool
+<experiments-dir>/joint_encoders/<experiment> that "save_joint" publishes.
+
 Float32 by default: on CUDA, TF32 is switched off for both matrix products
 and cuDNN convolutions (cuDNN's default is on). The config keys
 "compute_dtype" and "activation_dtype" select the JAX package's
@@ -17,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import inspect
 import json
 import os
@@ -32,7 +40,7 @@ def _not_yet_ported(cfg):
     """Config features of the JAX CLI this port does not run yet."""
     if not cfg.no_analytics:
         return "analytics not yet ported: set \"no_analytics\": true"
-    for key in ("use_pretrain", "skip_warmup", "use_gen", "dcca"):
+    for key in ("use_pretrain", "use_gen"):
         if getattr(cfg, key):
             return f"{key} not yet ported"
     if cfg.mesh_data not in (None, 1) or cfg.mesh_k != 1:
@@ -87,7 +95,20 @@ def main(argv=None):
     print(f"Train: {train_loader.num_examples}, Test: {test_loader.num_examples}, "
           f"Val: {val_loader.num_examples}")
 
-    trainer = Trainer(bundle.model, bundle.spec, cfg, run_path=run_path, device=device)
+    variables_hook = None
+    if cfg.dcca:
+        dcca_path = cfg.extra.get("dcca_path", os.path.join(info.experiments_dir, "dcca",
+                                                            bundle.dataset, "dcca.npz"))
+        if os.path.exists(dcca_path):
+            print(f"grafting pretrained DCCA trunks from {dcca_path}")
+            variables_hook = functools.partial(registry.graft_dcca_params,
+                                               dcca_npz_path=dcca_path)
+        else:
+            print(f"WARNING: dcca=true but no artifacts at {dcca_path}; "
+                  "trunks stay randomly initialized (frozen)")
+
+    trainer = Trainer(bundle.model, bundle.spec, cfg, run_path=run_path, device=device,
+                      experiments_dir=info.experiments_dir)
     compute = str(trainer.compute_dtype or torch.float32).removeprefix("torch.")
     stored = str(trainer.activation_dtype or "as computed").removeprefix("torch.")
     print(f"objective: {trainer.obj_name} on {device} (compute {compute}, activations {stored}"
@@ -106,7 +127,8 @@ def main(argv=None):
             f.write(json.dumps({k: float(v) for k, v in payload.items()}) + "\n")
 
     use_dp = bool(cfg.extra.get("device_pipeline", True))
-    trainer.fit(train_loader, val_loader, callbacks=[track], use_device_pipeline=use_dp)
+    trainer.fit(train_loader, val_loader, callbacks=[track], variables_hook=variables_hook,
+                use_device_pipeline=use_dp)
 
     with open(os.path.join(run_path, "losses.json"), "w") as f:
         json.dump(trainer._history, f)

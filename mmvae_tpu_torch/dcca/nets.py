@@ -1,0 +1,84 @@
+"""DCCA encoder pairs and the linear-CCA-wrapped inference encoders
+(mmvae_tpu/dcca/nets.py; reference dcca/models/*.py).
+
+A trunk pair is trained with the CCA loss (dcca/train.py), then wrapped
+with the fitted linear-CCA projection h -> ((h - m) @ w)[:, :dim] for use
+inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). Only the
+MNIST-SVHN pair is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nets import EncoderSVHN, MLPEncoder
+
+
+class LCCAWrappedEncoder(nn.Module):
+    """Frozen DCCA trunk + the fitted linear-CCA projection. Emits one
+    embedding. `m` (outdim,) and `w` (outdim, outdim) are registered
+    buffers: never trained (the reference keeps them as buffers loaded from
+    .npy), but moved and cast with the module and kept in its state dict."""
+
+    def __init__(self, encoder: nn.Module, m, w, latent_dim: int):
+        super().__init__()
+        self.encoder = encoder
+        self.latent_dim = latent_dim
+        self.register_buffer("m", torch.as_tensor(np.asarray(m), dtype=torch.float32))
+        self.register_buffer("w", torch.as_tensor(np.asarray(w), dtype=torch.float32))
+
+    def forward(self, x):
+        out = self.encoder(x)
+        h = out[0] if isinstance(out, tuple) else out
+        return ((h - self.m[None, :]) @ self.w)[:, : self.latent_dim]
+
+
+def identity_lcca(outdim: int):
+    """Untrained stand-in projection (used when no DCCA artifacts exist yet)."""
+    return np.zeros(outdim, np.float32), np.eye(outdim, dtype=np.float32)
+
+
+class DeepCCA(nn.Module):
+    """Encoders producing correlated embeddings (dcca/models/mnist_svhn.py:
+    13-35): each one's first output."""
+
+    def __init__(self, encoders: Sequence[nn.Module]):
+        super().__init__()
+        self.encoders = nn.ModuleList(encoders)
+
+    def forward(self, xs):
+        outs = []
+        for enc, x in zip(self.encoders, xs):
+            o = enc(x)
+            outs.append(o[0] if isinstance(o, tuple) else o)
+        return outs
+
+
+def dcca_encoders_mnist_svhn(outdim: int = 16):
+    """DeepCCA_MNIST_SVHN trunk pair (dcca/models/mnist_svhn.py:13-18): MLP
+    for MNIST, conv for SVHN."""
+    return [MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28),
+            EncoderSVHN(latent_dim=outdim)]
+
+
+def _later(dataset: str):
+    def build(outdim: int):
+        raise NotImplementedError(
+            f"DCCA trunks for {dataset!r} not yet ported (slice 6: the other datasets)")
+    return build
+
+
+# dataset key -> (builder, default trunk outdim), the JAX package's table
+DCCA_BUILDERS = {
+    "mnist_svhn": (dcca_encoders_mnist_svhn, 16),
+    "circles_squares": (_later("circles_squares"), 16),
+    "celeba": (_later("celeba"), 40),
+    "medmnist": (_later("medmnist"), 16),
+    "chest_svhn": (_later("chest_svhn"), 16),
+    "mnist_contour": (_later("mnist_contour"), 15),
+    "mnist_svhn_fashion": (_later("mnist_svhn_fashion"), 16),
+}

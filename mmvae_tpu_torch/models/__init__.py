@@ -1,3 +1,4 @@
+from .jmvae_nf import JMVAE_NF  # noqa: F401
 from .mmvae import MMVAE  # noqa: F401
 from .mmvae_nf import MMVAE_NF  # noqa: F401
 from .vae import UnimodalVAE  # noqa: F401

@@ -16,7 +16,15 @@ import torch
 from torch import nn
 
 from ..core import distributions as D
+from ..core.constants import LOG2PI
 from ..core.distributions import LocScale
+
+
+def gaussian_log_q_z0(mu, log_var, z0):
+    """log N(z0; mu, exp(log_var)) summed over the latent dim, with the
+    2*pi constant (JMVAE-NF, jmvae_nf.py:68; MMVAE-NF drops it, see
+    models/mmvae_nf.py)."""
+    return torch.sum(-0.5 * (log_var + LOG2PI + (z0 - mu) ** 2 / torch.exp(log_var)), dim=-1)
 
 
 class UnimodalVAE(nn.Module):

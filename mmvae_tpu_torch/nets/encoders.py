@@ -16,6 +16,19 @@ from torch import nn
 from .conv import Conv2d, ConvTranspose2d, Linear
 
 
+def hidden_stack(module: nn.Module, in_features: int, hidden_dim: int, n: int) -> None:
+    """`n` Linear layers named Linear_0..Linear_{n-1}, as flax names them."""
+    for i in range(n):
+        setattr(module, f"Linear_{i}", Linear(in_features if i == 0 else hidden_dim, hidden_dim))
+
+
+def run_hidden(module: nn.Module, h, n: int):
+    """h through the `n` layers of `hidden_stack`, each followed by a ReLU."""
+    for i in range(n):
+        h = torch.relu(getattr(module, f"Linear_{i}")(h))
+    return h
+
+
 class MLPEncoder(nn.Module):
     """pythae default Encoder_VAE_MLP: flatten -> Linear(512) ReLU -> heads."""
 
@@ -66,6 +79,33 @@ class EncoderSVHN(nn.Module):
         h = torch.relu(self.Conv2d_2(h))
         return (self.c1(h).reshape(-1, self.latent_dim),
                 self.c2(h).reshape(-1, self.latent_dim))
+
+
+class TwoStepsEncoder(nn.Module):
+    """Frozen pretrained trunk -> trainable MLP -> heads (encoders.py:163-187;
+    reference encoders.py:176-210). The trunk runs without a gradient, as
+    JAX's stop_gradient and the reference's requires_grad_(False) + no_grad;
+    its parameters are also left out of the optimizer by the freezing
+    prefix "first_encoder" (train/freezing.py). `in_features`: the trunk's
+    output width."""
+
+    def __init__(self, first_encoder: nn.Module, latent_dim: int, in_features: int,
+                 hidden_dim: int = 512, num_hidden: int = 3):
+        super().__init__()
+        self.first_encoder = first_encoder
+        self.num_hidden = num_hidden
+        hidden_stack(self, in_features, hidden_dim, num_hidden)
+        width = hidden_dim if num_hidden else in_features
+        self.embedding = Linear(width, latent_dim)
+        self.log_var = Linear(width, latent_dim)
+
+    def forward(self, x):
+        with torch.no_grad():
+            h = self.first_encoder(x)
+            if isinstance(h, tuple):
+                h = h[0]  # embedding
+        h = run_hidden(self, h, self.num_hidden)
+        return self.embedding(h), self.log_var(h)
 
 
 class DecoderSVHN(nn.Module):

@@ -19,6 +19,7 @@ step does.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Tuple
 
 import torch
@@ -54,6 +55,20 @@ def recon_log_prob(dist_name: str, recon, x, lead_ndim: int):
     (px_z wrapping at mmvae.py:54-76)."""
     lp = D.log_prob(dist_name, LocScale(recon, torch.ones_like(recon)), x)
     return lp.reshape(*lp.shape[:lead_ndim], -1).sum(-1)
+
+
+def recon_pointwise_loss(loss_name: str, recon, x):
+    """recon_loss_dict equivalent (objectives.py:177): mse / l1 / bce, summed."""
+    r = recon.reshape(recon.shape[0], -1)
+    t = x.reshape(x.shape[0], -1)
+    if loss_name == "normal":      # F.mse_loss
+        return torch.sum((r - t) ** 2)
+    if loss_name == "laplace":     # F.l1_loss
+        return torch.sum(torch.abs(r - t))
+    if loss_name == "bernoulli":   # F.binary_cross_entropy
+        rc = torch.clamp(r, 1e-7, 1 - 1e-7)
+        return -torch.sum(t * torch.log(rc) + (1 - t) * torch.log1p(-rc))
+    raise ValueError(loss_name)
 
 
 # ===========================================================================
@@ -193,6 +208,65 @@ def m_elbo_nf(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
     return obj, {}
 
 
+# ===========================================================================
+# JMVAE-NF (objectives.py:179-220)
+# ===========================================================================
+
+def _joint_kld_prior(mu, std):
+    """-0.5 sum(1 + log_var - mu^2 - var) with log_var = 2 log std
+    (objectives.py:209-211)."""
+    log_var = 2 * torch.log(std)
+    return torch.sum(-0.5 * torch.sum(1 + log_var - mu ** 2 - torch.exp(log_var), dim=-1))
+
+
+def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0,
+               beta_kl=1.0, past_warmup=None, frozen_joint=False, noise=None,
+               generator=None, **kw):
+    """The paper's JMVAE-NF loss (objectives.py:179-220). `past_warmup`
+    selects the phase (default epoch >= warmup); beta_kl arrives already
+    decayed by the schedule.
+
+    `frozen_joint` (the Trainer sets it from fix_jencoder and fix_decoders)
+    past warmup runs the joint forward without a gradient: every parameter
+    it reaches is frozen then, so the trainable gradients are unchanged and
+    the frozen ones' backward is skipped (tests/test_torch_jmvae_nf.py).
+
+    noise: standard-normal noise in the order the samples are drawn, the
+    joint forward's, compute_kld's joint sample, then each modality's
+    unimodal VAE forward (used past warmup; the last ones only without
+    no_recon); or None to draw from `generator`."""
+    if past_warmup is None:
+        past_warmup = epoch >= warmup
+    frozen_joint = bool(frozen_joint) and bool(past_warmup)
+    noise = [None] * (2 + len(x)) if noise is None else list(noise)
+    with torch.no_grad() if frozen_joint else nullcontext():
+        out = model(x, noise=noise[0], generator=generator)
+    mu, std = out["qz_xy"]
+    details = {}
+    loss = 0.0
+    for m, xm in enumerate(x):
+        l_m = recon_pointwise_loss(spec.recon_dists[m], out["recons"][m], xm) * spec.lik_scaling[m]
+        details[f"loss_{m}"] = l_m
+        loss = loss - l_m
+    details["loss"] = loss
+    details["kld_prior"] = _joint_kld_prior(mu, std)
+    if spec.linear_warmup:
+        beta_reg = min((epoch - 1) / warmup, 1.0) if warmup > 0 else 1.0
+    else:
+        beta_reg = 1.0
+    if past_warmup or spec.linear_warmup:
+        reg, det = model.compute_kld(x, no_recon=spec.no_recon, beta_kl=beta_kl,
+                                     stop_joint_grad=frozen_joint, noise=noise[1:],
+                                     generator=generator)
+        details["reg"] = reg
+        details.update(det)
+    else:
+        reg = 0.0
+        details["reg"] = loss.new_zeros(())
+    obj = loss - beta_reg * (beta_prior * details["kld_prior"] + reg)
+    return obj, {k: v.detach() for k, v in details.items()}
+
+
 OBJECTIVES = {
     "m_elbo_naive": m_elbo_naive,
     "m_elbo": m_elbo,
@@ -201,6 +275,7 @@ OBJECTIVES = {
     "m_dreg": m_dreg,
     "m_dreg_looser": m_dreg_looser,
     "m_elbo_nf": m_elbo_nf,
+    "m_jmvae_nf": m_jmvae_nf,
 }
 
 

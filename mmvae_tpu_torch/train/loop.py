@@ -18,6 +18,7 @@ float32.
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
@@ -38,12 +39,13 @@ _VAL_SEED_OFFSET = 0x7FFFFFFF
 class Trainer:
     def __init__(self, model, spec, cfg: ExperimentConfig, run_path: Optional[str] = None,
                  multimodal: bool = True, log_fn: Callable[[str], None] = print,
-                 device="cuda"):
+                 device="cuda", experiments_dir: Optional[str] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.spec = spec
         self.cfg = cfg
         self.run_path = run_path
+        self.experiments_dir = experiments_dir
         self.log = log_fn
         self.obj_name, self.obj_fn = obj_mod.resolve(cfg.obj, multimodal, cfg.looser)
         self.guard = bool(cfg.nan_guard)
@@ -78,7 +80,10 @@ class Trainer:
     def _obj_kwargs(self, beta_kl: float, epoch: int):
         cfg = self.cfg
         return dict(K=cfg.K, warmup=cfg.warmup, beta_prior=cfg.beta_prior, beta=cfg.beta,
-                    beta_kl=beta_kl, epoch=epoch, past_warmup=epoch >= cfg.warmup)
+                    beta_kl=beta_kl, epoch=epoch, past_warmup=epoch >= cfg.warmup,
+                    # lets m_jmvae_nf run the fully frozen joint forward
+                    # without a gradient past warmup
+                    frozen_joint=bool(cfg.fix_jencoder and cfg.fix_decoders))
 
     def _policy(self):
         return precision.use(self.compute_dtype, self.activation_dtype)
@@ -174,10 +179,23 @@ class Trainer:
         return from_array_loader(loader, device=self.device)
 
     def fit(self, train_loader, val_loader, callbacks: Optional[List[Callable]] = None,
-            min_epoch: int = 1, use_device_pipeline: bool = True):
-        """Full training run (main.py:234-277). Returns the last epoch + 1."""
+            min_epoch: int = 1, variables_hook: Optional[Callable[[torch.nn.Module], None]] = None,
+            use_device_pipeline: bool = True):
+        """Full training run (main.py:234-277). Returns the last epoch + 1.
+        variables_hook, if given, changes the freshly initialized model in
+        place (e.g. grafting pretrained DCCA trunks)."""
         cfg = self.cfg
         self.init_parameters()
+        if variables_hook is not None:
+            variables_hook(self.model)
+        if cfg.skip_warmup and self.run_path is not None:
+            pool = self._joint_pool_path()
+            try:
+                checkpoints.load_joint_vae(self.model, pool)
+                min_epoch = cfg.warmup
+                self.log(f"Loaded joint encoder/decoders from {pool}")
+            except FileNotFoundError:
+                self.log(f"skip_warmup: no pool at {pool}; training from scratch")
         self.init_opt_state(past_warmup=min_epoch >= cfg.warmup, amsgrad=True)
 
         plateau = ReduceLROnPlateau(lr=cfg.learning_rate)
@@ -230,6 +248,8 @@ class Trainer:
                 bad_epochs = 0
                 if self.run_path is not None:
                     checkpoints.save_model(self.model, self.run_path)
+                    if cfg.save_joint and epoch <= warmup and self._has_joint():
+                        checkpoints.save_joint_vae(self.model, self._joint_pool_path())
                 best_loss = va_loss
             else:
                 bad_epochs += 1
@@ -248,3 +268,16 @@ class Trainer:
 
         self._history = dict(hist)
         return epoch
+
+    def _has_joint(self):
+        return hasattr(self.model, "joint_encoder")
+
+    def _joint_pool_path(self):
+        """The shared joint-encoder pool <experiments_dir>/joint_encoders/<exp>
+        (main.py:79), shared across runs; next to the run dir's parent when
+        no experiments_dir was given."""
+        exp = (self.cfg.experiment or "default").split("/")[-1]
+        if self.experiments_dir:
+            return os.path.join(self.experiments_dir, "joint_encoders", exp)
+        base = os.path.dirname(self.run_path.rstrip("/")) if self.run_path else "."
+        return os.path.join(base, "joint_encoders", exp)

@@ -1,6 +1,6 @@
-"""Adam / AMSGrad written out to match optax (mmvae_tpu/train/loop.py
-`_make_tx`: optax.amsgrad(1.0) or optax.adam(1.0), then the update scaled by
-the learning rate).
+"""Adam / AMSGrad, and the DCCA Solver's RMSprop, written out to match
+optax. Adam: mmvae_tpu/train/loop.py `_make_tx`, optax.amsgrad(1.0) or
+optax.adam(1.0), then the update scaled by the learning rate.
 
 optax's AMSGrad keeps the running max of the BIAS-CORRECTED second moment,
 max(nu_max, nu / (1 - b2^t)), and divides by sqrt(nu_max) + eps.
@@ -68,3 +68,25 @@ class Adam:
             self.mu[k] = keep(mu, self.mu[k])
             self.nu[k] = keep(nu, self.nu[k])
         self.count = keep(count, self.count)
+
+
+class RMSprop:
+    """The DCCA Solver's optimizer written out to match optax
+    (mmvae_tpu/dcca/train.py: optax.chain(add_decayed_weights(weight_decay),
+    rmsprop(lr))). optax.rmsprop's defaults are not torch.optim.RMSprop's:
+    decay 0.9 (torch's alpha is 0.99), eps inside the square root
+    (g / sqrt(nu + eps); torch divides by sqrt(nu) + eps), and the second
+    moment starts at 0. The weight decay is added to the gradient first."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], lr: float = 1e-3,
+                 weight_decay: float = 1e-5, decay: float = 0.9, eps: float = 1e-8):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.lr, self.weight_decay, self.decay, self.eps = lr, weight_decay, decay, eps
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        for k, (p, g) in enumerate(zip(self.params, grads)):
+            g = g + self.weight_decay * p
+            self.nu[k] = (1.0 - self.decay) * (g * g) + self.decay * self.nu[k]
+            p.add_(-self.lr * (torch.rsqrt(self.nu[k] + self.eps) * g))

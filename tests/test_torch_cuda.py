@@ -15,6 +15,11 @@ The flagship MMVAE-DReG path, which launches no kernel of the port: a
 DReG-looser step on the card against the float64 CPU step, the bf16
 policy's CUDA forms of Linear and the convs against their CPU forms, and
 one small epoch of the flagship through the CLI.
+
+JMVAE-NF and its DCCA pretraining: a post-warmup JNF step on the card and
+its kernel launches, the Cholesky CCA loss and the singular-value
+Function's backward on the card against float64 on the CPU, and the DCCA
+Solver's RMSprop step on the card against the CPU.
 """
 
 import copy
@@ -32,11 +37,14 @@ from mmvae_tpu_torch.core import distributions as Dist
 from mmvae_tpu_torch.core import precision
 from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.data import get_dataloaders
+from mmvae_tpu_torch.dcca import objectives as cca
 from mmvae_tpu_torch.flows import MAF, build_masks
 from mmvae_tpu_torch.models import registry
 from mmvae_tpu_torch.nets import Conv2d, ConvTranspose2d, Linear
 from mmvae_tpu_torch.objectives import m_dreg_looser
 from mmvae_tpu_torch.ops import ar_flow
+from mmvae_tpu_torch.train import Trainer
+from mmvae_tpu_torch.train.optim import RMSprop
 
 D, H, N_HIDDEN = 20, 128, 3
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -309,3 +317,85 @@ def test_flagship_cli_epoch_on_card(card, tmp_path, config):
     assert all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
     with open(os.path.join(run_path, "metrics.jsonl")) as f:
         assert json.loads(f.readline())["train_nan_skipped"] == 0.0
+
+
+JNF = "configs/mnist_svhn/jmvae_nf.json"
+
+
+@pytest.mark.cuda
+def test_jnf_post_warmup_step_on_card(card):
+    """One post-warmup JMVAE-NF train step on cuda (frozen joint forward,
+    unimodal reconstructions on; latent 20, B=16, full-width nets): a
+    finite loss, no skipped step, 4 forward and 4 backward ar_solve launches
+    (2 modalities x 2 MAF blocks, the unimodal VAE forwards of compute_kld),
+    and the joint encoder and decoders untouched by the optimizer."""
+    cfg = ExperimentConfig.from_json(JNF)
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device=card)
+    trainer.init_parameters()
+    trainer.init_opt_state(past_warmup=True, amsgrad=False)
+    gen = torch.Generator().manual_seed(18)
+    xs = [torch.rand(16, 1, 28, 28, generator=gen).to(card),
+          torch.rand(16, 3, 32, 32, generator=gen).to(card)]
+    frozen = {n: p.detach().clone() for n, p in bundle.model.named_parameters()
+              if "joint_encoder" in n or "decoder" in n}
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=cfg.warmup)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (4, 4)
+    assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
+    assert trainer.opt.count.item() == 1 and details["recon_loss_1"].item() > 0
+    for n, p in bundle.model.named_parameters():
+        if n in frozen:
+            assert torch.equal(p, frozen[n]), n
+
+
+def _views(n, d, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 4))
+    return [z @ rng.normal(size=(4, d)) + 0.5 * rng.normal(size=(n, d)) for _ in range(2)]
+
+
+@pytest.mark.cuda
+def test_chol_cca_on_card_matches_f64_cpu(card):
+    """The Cholesky CCA loss (Solver backend "chol") on cuda in float32
+    against the CPU in float64 at a DCCA batch (800 x 16, top 16): value to
+    rtol 1e-4, each view's gradient to 2e-3 of its largest entry; and the
+    singular-value Function's backward alone (a 16 x 16 T, top 9) to 1e-4."""
+    hs = _views(800, 16, 19)
+    runs = {}
+    for dev, dtype in (("cpu", torch.float64), (card, torch.float32)):
+        ts = [torch.tensor(h, dtype=dtype, device=dev, requires_grad=True) for h in hs]
+        val = cca.cca_loss_chol(ts[0], ts[1], 16)
+        runs[str(dev)] = (val.item(), [g.double().cpu() for g in torch.autograd.grad(val, ts)])
+    (ref, ref_g), (got, got_g) = runs["cpu"], runs[str(card)]
+    assert abs(got - ref) <= 1e-4 * abs(ref)
+    for g, r in zip(got_g, ref_g):
+        assert (g - r).abs().max() <= 2e-3 * r.abs().max()
+
+    T = np.random.default_rng(20).normal(size=(16, 16))
+    grads = []
+    for dev, dtype in (("cpu", torch.float64), (card, torch.float32)):
+        t = torch.tensor(T, dtype=dtype, device=dev, requires_grad=True)
+        (g,) = torch.autograd.grad(cca.sum_topk_sv(t, 9, 1e-3), t)
+        grads.append(g.double().cpu())
+    assert (grads[1] - grads[0]).abs().max() <= 1e-4 * grads[0].abs().max()
+
+
+@pytest.mark.cuda
+def test_rmsprop_step_on_card_matches_cpu(card):
+    """Five RMSprop steps (the DCCA Solver's optimizer) on cuda against the
+    same steps on the CPU, float32: parameters to rtol 1e-6."""
+    rng = np.random.default_rng(21)
+    shapes = [(64, 32), (32,)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(5)]
+    runs = {}
+    for dev in ("cpu", card):
+        params = [torch.nn.Parameter(torch.tensor(p, device=dev)) for p in init]
+        opt = RMSprop(params, lr=1e-3, weight_decay=1e-5)
+        for g in grads:
+            opt.step([torch.tensor(x, device=dev) for x in g])
+        runs[str(dev)] = [p.detach().cpu() for p in params]
+    for a, b in zip(runs[str(card)], runs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

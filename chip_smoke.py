@@ -10,7 +10,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. ar_solve: the Hopper kernels against their plain PyTorch versions at
    the main path's shape (N=128) and others, D=20, H=128, 3 hidden layers,
    real MADE masks, sign +-1, s_bound 0 and 8, TF32 off. The forward
-   kernel against `unrolled_solve` at N=128 and 3840; the backward kernel
+   kernel against `unrolled_solve` at N=128 and 3840, and at evaluation's
+   rows: 500 (a coherence batch) and 10,000 (one IS call, 100 datapoints x
+   100 samples), there also through the Function under no_grad (one
+   launch, no tape); the backward kernel
    (with the wrapper's reduction) against autograd through `unrolled_solve`
    at N=128, 37 and 3840, for x, every weight and every bias. Kernel times
    are device times (CUDA events around 20 back-to-back launches queued
@@ -21,7 +24,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    calls (median of 20 runs). Then the bounds, and forward+backward
    through the autograd Function.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
-   CLI (`mmvae_tpu_torch.cli.train.main`, device cuda): 68 train steps and
+   CLI (`mmvae_tpu_torch.cli.train.main`, device cuda, with the config's
+   analytics, phase 14): 68 train steps and
    7 val batches at B=128, latent 20, 2 MADE blocks of 3x128. Checks the
    launch counts (forward kernel 4 per train step and per val batch,
    backward kernel 4 per train step and none per val batch), the
@@ -62,7 +66,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    warmup 2, grafting that artifact: the trunks equal the artifact's after
    both epochs, no ar_solve launch (no_recon: the flows run only their
    parallel direction), finite losses.
-14. The kernels line, and last the contract line
+14. analytics: the MMVAE-NF epoch of phase 4 ran with its config's own
+   "no_analytics": false; its epoch-1 grids are valid PNGs, and their 4
+   forward launches are counted apart from the epoch's.
+15. eval_validate: `mmvae_tpu_torch.cli.validate` on cuda (--repeats 1,
+   --fid-encoder classifier) over the full synthetic test set for the
+   MMVAE-NF, flagship and JMVAE-NF runs of phases 4, 6 and 9, the eval
+   classifiers trained into the pool first: coherence in [0, 1], finite
+   FIDs, 4 forward launches per conditional sampling call of a flow family
+   (coherence and FID per test batch, the grids once), none backward.
+16. eval_likelihoods: `mmvae_tpu_torch.cli.compute_likelihoods --bis` on
+   cuda at K=1000 in chunks of 100 over the first 2 test batches of 500
+   (cut from the full test set), one repeat, for the same runs: finite
+   values, peak memory, seconds per batch, the forward launches (200 per
+   batch for the conditional likelihoods, as many for JMVAE-NF's bis
+   proposals), none backward; and the share of one JMVAE-NF batch's device
+   time in the forward kernel, from torch.profiler.
+17. eval_parity: JMVAE-NF's conditional likelihoods and coherence on 16
+   test rows (K=200) on cuda in float32 against the CPU in float64, with
+   the same weights, classifiers and noise.
+18. eval_memory: where the likelihood run's peak memory goes (the SVHN
+   decoder with cuDNN, with cudnn.benchmark and without cuDNN), what the
+   rows of an IS call trade between memory and time, and ten small test
+   batches in one likelihood call against one call each.
+19. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -86,6 +113,26 @@ JNF = os.path.join(ROOT, "configs", "mnist_svhn", "jmvae_nf.json")
 JNF_DCCA = os.path.join(ROOT, "configs", "mnist_svhn", "jnf_dcca_synth.json")
 # JMVAE-NF runs: 2 epochs, the second past warmup
 JNF_RUN = dict(epochs=2, warmup=2, skip_warmup=False)
+# rows of one IS model call at K=1000, batch_size_K=100: 100 datapoints x
+# 100 samples (eval/likelihoods.py ROWS_PER_CALL)
+EVAL_IS_ROWS = 10_000
+# the eval phases: the likelihood protocol at K=1000 in chunks of 100 over
+# the first 2 test batches of 500, one repeat; the parity check's cut of one
+# test batch (16 rows, K=200 in chunks of 100, so the float64 CPU run stays
+# short)
+EVAL_K, EVAL_BK, EVAL_MAX_BATCHES = 1000, 100, 2
+PARITY_ROWS, PARITY_K = 16, 200
+# cuda float32 eval against the float64 CPU run with the same noise: the
+# conditional likelihood (sums of 784 or 3,072 pixel log-densities through
+# the 20-step flow solve) to rtol 1e-5; each coherence to one label of the
+# 16 scored (a near-tie of two logits may fall either way in float32)
+EVAL_LL_RTOL = 1e-5
+# phase eval_memory: the rows of one IS call it sets against each other
+# (ROWS_PER_CALL's choice), the decoder's rows without cuDNN (the native
+# transposed conv loops over the rows), and the small test batches it groups
+# ten to a call, as `compute_likelihoods --batch-size 50` does
+MEMORY_ROWS, NATIVE_ROWS = (50_000, 10_000, 5_000), 5_000
+GROUP_BATCH, GROUP_BATCHES = 50, 10
 
 # Published peaks of an H100 SXM (dense, no sparsity) at 700 W: float32 on
 # the CUDA cores and HBM3 bandwidth. A card set to a lower power limit may
@@ -253,15 +300,19 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
 def phase_ar_solve():
     import torch
 
+    from mmvae_tpu_torch.eval.likelihoods import ROWS_PER_CALL
     from mmvae_tpu_torch.ops import ar_flow
+
+    assert ROWS_PER_CALL == EVAL_IS_ROWS
 
     d, h, n_hidden = 20, 128, 3
     gen = torch.Generator().manual_seed(0)
     ws, bs = _made_params(d, h, n_hidden, gen)
-    fwd_err = bwd_err = 0.0
+    fwd_err = bwd_err = eval_fwd_err = 0.0
 
-    # forward kernel against the plain version
-    for n in (128, 3840):
+    # forward kernel against the plain version: the training path's rows,
+    # a coherence batch (ns*B = 500) and one IS call (100 datapoints x 100)
+    for n in (128, 500, 3840, EVAL_IS_ROWS):
         x = torch.randn(n, d, generator=gen).cuda()
         for sign in (1, -1):
             for s_bound in (0.0, 8.0):
@@ -273,6 +324,35 @@ def phase_ar_solve():
                                    [(y_k, y_p), (ld_k, ld_p)])
                 if n == 128:
                     fwd_err = max(fwd_err, err)
+                elif n in (500, EVAL_IS_ROWS):
+                    eval_fwd_err = max(eval_fwd_err, err)
+
+    # eval's call: the Function under no_grad, with parameters that require
+    # grad as a model's do: one forward launch and no tape
+    params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
+    new_tape = ar_flow.new_tape
+
+    def no_tape(*args, **kwargs):
+        raise AssertionError("ar_solve allocated a tape under no_grad")
+
+    ar_flow.new_tape = no_tape
+    try:
+        for n in (500, EVAL_IS_ROWS):
+            x = torch.randn(n, d, generator=gen).cuda()
+            before = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+            with torch.no_grad():
+                y, ld = ar_flow.ar_solve(x, params[:len(ws)], params[len(ws):], 1, 0.0)
+                y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, 1, 0.0)
+            torch.cuda.synchronize()
+            launched = (ar_flow.ar_solve.launches - before[0],
+                        ar_flow.ar_solve.backward_launches - before[1])
+            if launched != (1, 0) or y.grad_fn is not None:
+                raise AssertionError(f"ar_solve under no_grad at N={n}: launches {launched}, "
+                                     f"output with a graph: {y.grad_fn is not None}")
+            _check_close(dict(kernel="forward_no_grad", n=n, sign=1, s_bound=0.0),
+                         [(y, y_p), (ld, ld_p)])
+    finally:
+        ar_flow.new_tape = new_tape
 
     # backward kernel and the wrapper's reduction against autograd through
     # the plain version, for x, every weight and every bias
@@ -296,7 +376,7 @@ def phase_ar_solve():
     n_w = sum(w.numel() for w in ws)
     n_b = sum(b.numel() for b in bs)
     results = {}
-    for n in (128, 3840):
+    for n in (128, 500, 3840, EVAL_IS_ROWS):
         x = torch.randn(n, d, generator=gen).cuda()
         with torch.no_grad():
             k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
@@ -363,30 +443,36 @@ def phase_ar_solve():
                              f"backward kernels (expected 1 and 1)")
     fb_ms = cuda_time_ms(fwd_bwd)
     emit({"phase": "ar_solve_fwd_bwd", "n": 128, "ms": fb_ms})
-    return dict(results=results, fwd_err=fwd_err, bwd_err=bwd_err, fwd_bwd_ms=fb_ms)
+    return dict(results=results, fwd_err=fwd_err, bwd_err=bwd_err, eval_fwd_err=eval_fwd_err,
+                fwd_bwd_ms=fb_ms)
 
 
-def _slice_config(tmp, config=CONFIG, **overrides):
+def _slice_config(tmp, config=CONFIG, analytics=False, **overrides):
+    """`config` cut to the smoke's data scale and one epoch; its own
+    "no_analytics" (false in every published config) where `analytics`,
+    else no analytics."""
     with open(config) as f:
         raw = json.load(f)
     # an empty data directory of the run's own: the loaders take the
     # synthetic stand-in and read nothing outside the run
     data_dir = os.path.join(tmp, "data")
     os.makedirs(data_dir, exist_ok=True)
-    raw.update({"synthetic_n": 2048, "epochs": 1, "no_analytics": True, "data_path": data_dir,
-                **overrides})
+    raw.update({"synthetic_n": 2048, "epochs": 1, "data_path": data_dir, **overrides})
+    if not analytics:
+        raw["no_analytics"] = True
     path = os.path.join(tmp, "smoke_" + os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)
     return path, raw
 
 
-def _cli_epoch(tmp, config, **overrides):
+def _cli_epoch(tmp, config, analytics=False, **overrides):
     """`config`, cut as _slice_config cuts it (one epoch unless `overrides`
     say otherwise), through the port's CLI on cuda, with the ar_solve counts
     set to 0 just before and read just after. The counts and the trainable
     state are also read at the end of each epoch, by one more callback of
-    the Trainer's fit."""
+    the Trainer's fit, and the counts once more before the CLI's own
+    callbacks, so that the analytics' launches are counted apart."""
     import torch
 
     from mmvae_tpu_torch.cli.train import main as train_main
@@ -395,14 +481,14 @@ def _cli_epoch(tmp, config, **overrides):
     from mmvae_tpu_torch.ops import ar_flow
     from mmvae_tpu_torch.train import Trainer
 
-    cfg_path, raw = _slice_config(tmp, config, **overrides)
+    cfg_path, raw = _slice_config(tmp, config, analytics, **overrides)
     cfg = ExperimentConfig.from_json(cfg_path)
     bsz = cfg.batch_size
     data_kw = dict(batch_size=bsz, data_path=cfg.data_path, synthetic_n=raw["synthetic_n"])
     train_loader, _, val_loader = get_dataloaders("mnist_svhn", **data_kw)
     steps, val_batches = train_loader.num_examples // bsz, val_loader.num_examples // bsz
 
-    epochs = []
+    epochs, before_callbacks = [], []
 
     def at_epoch_end(trainer, epoch, *args, **kwargs):
         torch.cuda.synchronize()
@@ -411,10 +497,14 @@ def _cli_epoch(tmp, config, **overrides):
                        "params": {n: p.detach().clone()
                                   for n, p in trainer.model.named_parameters()}})
 
+    def before_cli_callbacks(trainer, epoch, *args, **kwargs):
+        before_callbacks.append(ar_flow.ar_solve.launches)
+
     fit = Trainer.fit
 
     def fit_with_probe(self, *args, callbacks=None, **kwargs):
-        return fit(self, *args, callbacks=[*(callbacks or []), at_epoch_end], **kwargs)
+        return fit(self, *args, callbacks=[before_cli_callbacks, *(callbacks or []), at_epoch_end],
+                   **kwargs)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -448,7 +538,9 @@ def _cli_epoch(tmp, config, **overrides):
             "train_loss": losses["train_loss"], "val_loss": losses["test_loss"],
             "losses_finite": finite, "nan_skipped_fraction": skipped_steps / (steps * len(metrics)),
             "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak,
-            "launches_by_epoch": [(e["launches"], e["backward_launches"]) for e in epochs]}
+            "launches_by_epoch": [(e["launches"], e["backward_launches"]) for e in epochs],
+            "callback_launches_by_epoch": [e["launches"] - b
+                                           for e, b in zip(epochs, before_callbacks)]}
     return cfg, train_loader, info, epochs
 
 
@@ -490,11 +582,15 @@ def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
 
 
 def phase_slice(tmp):
-    cfg, train_loader, info, _ = _cli_epoch(tmp, CONFIG)
+    """The MMVAE-NF epoch through the CLI with the config's own analytics:
+    its epoch-1 grids' launches (phase analytics) are counted apart."""
+    cfg, train_loader, info, _ = _cli_epoch(tmp, CONFIG, analytics=True)
     steps, val_batches = info["train_steps"], info["val_batches"]
-    launches, bwd_launches = info["ar_solve_launches"], info["ar_solve_backward_launches"]
+    (analytics_launches,) = info["callback_launches_by_epoch"]
+    launches = info["ar_solve_launches"] - analytics_launches
+    bwd_launches = info["ar_solve_backward_launches"]
     expected, bwd_expected = 4 * (steps + val_batches), 4 * steps
-    emit({"phase": "slice", **info, "expected_launches": expected,
+    emit({"phase": "slice", **info, "epoch_launches": launches, "expected_launches": expected,
           "expected_backward_launches": bwd_expected})
     if (launches, bwd_launches) != (expected, bwd_expected) or (steps, val_batches) != (68, 7):
         raise AssertionError(f"ar_solve launched {launches} forward and {bwd_launches} backward "
@@ -508,7 +604,8 @@ def phase_slice(tmp):
     emit({"phase": "slice_time", "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
           "eval_batch_ms": eval_ms, **prof})
     return dict(launches=launches, bwd_launches=bwd_launches, steps_per_s=1.0 / step_s,
-                peak=info["peak_mem_bytes"])
+                peak=info["peak_mem_bytes"], run_path=info["run_path"],
+                analytics_launches=analytics_launches)
 
 
 def phase_mmvae_slice(tmp):
@@ -525,7 +622,7 @@ def phase_mmvae_slice(tmp):
         raise AssertionError(f"flagship epoch: params on cuda {info['params_on_cuda']}, finite "
                              f"losses {info['losses_finite']}, skipped "
                              f"{info['nan_skipped_fraction']:.1%} of steps")
-    return train_loader
+    return train_loader, info["run_path"]
 
 
 def step_flops(trainer, xs):
@@ -829,7 +926,7 @@ def phase_jnf_slice(tmp):
     if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
         raise AssertionError(f"JNF: params on cuda {info['params_on_cuda']}, finite losses "
                              f"{info['losses_finite']}, skipped {info['nan_skipped_fraction']:.1%}")
-    return train_loader, dict(launches=post[0], bwd_launches=post[1])
+    return train_loader, dict(launches=post[0], bwd_launches=post[1], run_path=info["run_path"])
 
 
 def optimizer_launches(trainer):
@@ -1073,6 +1170,377 @@ def phase_jnf_dcca_slice(tmp, dcca_path):
     return launches
 
 
+def _png_ok(path):
+    """(width, height) of a PNG whose chunks' CRCs hold and whose image
+    data inflates to its rows; raises otherwise."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos: pos + 4])
+        kind, data = blob[pos + 4: pos + 8], blob[pos + 8: pos + 8 + n]
+        if struct.unpack(">I", blob[pos + 8 + n: pos + 12 + n])[0] != zlib.crc32(kind + data):
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        chunks[kind] = chunks.get(kind, b"") + data
+        pos += 12 + n
+    w, h, _, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + w * (1 if color == 0 else 3)):
+        raise AssertionError(f"{path}: image data of the wrong size")
+    return w, h
+
+
+def phase_analytics(sl):
+    """The MMVAE-NF slice's epoch-1 grids (mmvae_nf_synth.json's own
+    no_analytics: false): valid PNGs, and their launches, counted apart from
+    the epoch's: 8 conditional samples of 8 val rows per modality, 2
+    modalities x 2 MAF blocks = 4 forward launches, none backward."""
+    names = [f"cond_samples_{r}x{o}_001.png" for r in (0, 1) for o in (0, 1)] + \
+        ["generate_001.png"]
+    sizes = {n: _png_ok(os.path.join(sl["run_path"], n)) for n in names}
+    emit({"phase": "analytics", "config": os.path.basename(CONFIG), "grids": sizes,
+          "launches": sl["analytics_launches"], "expected_launches": 4})
+    if sl["analytics_launches"] != 4:
+        raise AssertionError(f"the analytics launched {sl['analytics_launches']} forward kernels "
+                             f"(expected 4)")
+    return sl["analytics_launches"]
+
+
+def _counted(fn, *args):
+    """fn(*args), its standard output kept, with the ar_solve counts set to
+    0 just before and read just after: (result, printed lines, (forward,
+    backward) launches, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, log.getvalue().splitlines(),
+            (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches),
+            time.perf_counter() - t0)
+
+
+def phase_eval_validate(tmp, runs):
+    """`cli/validate.py --repeats 1 --fid-encoder classifier` on cuda over
+    the full synthetic test set, for each run: the eval classifiers trained
+    into the pool first (timed), then coherence in [0, 1], finite FIDs, and
+    the forward launches: 4 per conditional sampling call (2 modalities x
+    2 MAF blocks) for the flow families, one call per test batch for the
+    coherence and one for the FID, and one for the gen_from_cond grids; the
+    flagship none; no backward launch anywhere."""
+    from mmvae_tpu_torch.cli import validate
+    from mmvae_tpu_torch.cli.common import get_or_train_classifiers, reload_model
+
+    exp = os.path.join(tmp, "experiments")
+    cfg, bundle, loaders = reload_model(runs["mmvae_nf"], 500, "cuda")
+    t0 = time.perf_counter()
+    get_or_train_classifiers(bundle, loaders, exp, cfg.seed, cfg=cfg, device="cuda")
+    classifier_s = time.perf_counter() - t0
+    nb = len(loaders[1])
+    out = {}
+    for name, run in runs.items():
+        summary, lines, launches, wall = _counted(validate.main, [
+            "--run-path", run, "--experiments-dir", exp, "--repeats", "1",
+            "--fid-encoder", "classifier", "--device", "cuda"])
+        marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines
+                 if l.startswith("[")}
+        expected = (0 if name == "flagship" else 4 * (2 * nb + 1), 0)
+        values = {k: v["mean"] for k, v in summary.items()}
+        ok = (launches == expected and all(0.0 <= values[k] <= 1.0 for k in
+                                            ("acc_0_1", "acc_1_0", "joint_coherence"))
+              and all(math.isfinite(values[k]) for k in ("fid_0", "fid_1")))
+        emit({"phase": "eval_validate", "run": name, "test_pairs": len(loaders[1].dataset),
+              "test_batches": nb, "metrics": values, "launches": list(launches),
+              "expected_launches": list(expected), "validate_s": wall,
+              "repeat_s": marks["repeat 0: fid done"] - marks["classifiers ready"],
+              "coherence_s": marks["repeat 0: accuracies done"] - marks["classifiers ready"],
+              "classifier_training_s": classifier_s, "ok": ok})
+        if not ok:
+            raise AssertionError(f"validate on {name}: launches {launches} (expected {expected}), "
+                                 f"metrics {values}")
+        out[name] = launches
+    return out
+
+
+def phase_eval_likelihoods(tmp, runs):
+    """`cli/compute_likelihoods.py --bis` on cuda at K=1000 in chunks of 100
+    over the first 2 test batches of 500, one repeat, for each run: finite
+    values, the peak memory, the seconds per test batch, and the forward
+    launches: per test batch and conditioning modality one per MAF block,
+    IS chunk and model call of ROWS_PER_CALL rows (2 x 2 x 10 x 5 = 200 for
+    the conditional likelihoods, as many again for JMVAE-NF's bis
+    proposals; MMVAE-NF has no bis estimator, the flagship no flow); no
+    backward launch. Then one JMVAE-NF batch of the
+    protocol under torch.profiler: the ar_solve kernels' share of its
+    device time."""
+    import torch
+
+    from mmvae_tpu_torch.cli import compute_likelihoods
+    from mmvae_tpu_torch.cli.common import generator, reload_model
+    from mmvae_tpu_torch.eval import likelihoods as L
+
+    calls = -(-500 // (EVAL_IS_ROWS // EVAL_BK))  # model calls per IS chunk of a batch
+    cond = 2 * 2 * (EVAL_K // EVAL_BK) * calls  # modalities x MAF blocks x IS chunks x calls
+    per_batch = {"mmvae_nf": cond, "flagship": 0, "jnf": 2 * cond}
+    out = {}
+    for name, run in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        summary, _, launches, wall = _counted(compute_likelihoods.main, [
+            "--run-path", run, "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK),
+            "--repeats", "1", "--max-batches", str(EVAL_MAX_BATCHES), "--bis", "--device", "cuda"])
+        expected = (per_batch[name] * EVAL_MAX_BATCHES, 0)
+        values = {k: v["mean"] for k, v in summary.items()}
+        ok = launches == expected and all(math.isfinite(v) for v in values.values())
+        emit({"phase": "eval_likelihoods", "run": name, "K": EVAL_K, "batch_size_K": EVAL_BK,
+              "test_batches": EVAL_MAX_BATCHES, "batch": 500, "metrics": values,
+              "launches": list(launches), "expected_launches": list(expected),
+              "wall_s_incl_reload": wall, "s_per_test_batch": wall / EVAL_MAX_BATCHES,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"likelihoods on {name}: launches {launches} (expected "
+                                 f"{expected}), values {values}")
+        out[name] = launches
+
+    # the device time of one JMVAE-NF test batch of the protocol
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, bundle, (_, test_l, _) = reload_model(runs["jnf"], 500, "cuda")
+    xs = [torch.as_tensor(x).cuda() for x in next(iter(test_l))[0]]
+
+    def protocol():
+        return L.protocol_chunked(bundle.model, bundle.spec, [xs], [generator("cuda", 0)],
+                                  EVAL_K, EVAL_BK, joint_fn=L.joint_likelihood_jmvae_nf, bis=True)
+
+    protocol()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    protocol()
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    prof_out = {"profile": "not measured"}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            protocol()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+        busy = sum(dev_us(e) for e in events)
+        if busy > 0:
+            ar = [e for e in events if "ar_solve_forward_kernel" in e.key]
+            top = sorted(events, key=dev_us, reverse=True)[:8]
+            prof_out = {"device_ms": busy / 1e3, "device_busy_share": busy / 1e6 / batch_s,
+                        "ar_solve_forward_share_of_device_time": sum(dev_us(e) for e in ar) / busy,
+                        "ar_solve_forward_launches": sum(e.count for e in ar),
+                        "ar_solve_forward_us_per_launch":
+                            sum(dev_us(e) for e in ar) / max(1, sum(e.count for e in ar)),
+                        "kernel_launches": sum(e.count for e in events),
+                        "top_kernels": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]}
+    except RuntimeError as e:  # the tracer could not start; the timing stands
+        prof_out = {"profile": f"not measured ({e})"[:200]}
+    emit({"phase": "eval_likelihoods_profile", "run": "jnf", "batch": len(xs[0]),
+          "K": EVAL_K, "batch_size_K": EVAL_BK, "host_s": batch_s, **prof_out})
+    return out
+
+
+def _peak(fn):
+    """(peak bytes allocated during fn() above those allocated before it,
+    seconds, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0, out
+
+
+def phase_eval_memory(runs):
+    """Where the likelihood run's peak memory goes, and what an IS call's
+    rows and the grouping of small test batches trade, on the JMVAE-NF run
+    under no_grad.
+
+    1. The SVHN decoder alone, the largest tensors of an IS call: at one
+       call's rows and at a tenth of them, with cuDNN as the port runs it
+       and with cudnn.benchmark, and at the tenth without cuDNN (the native
+       transposed conv, whose scratch is one row's columns). Beside each
+       peak, the bytes of the decoder's largest live tensors (a layer's
+       input, its conv output and their relu). The peak with cuDNN less
+       the peak without, at the same rows, is what cuDNN takes besides.
+    2. One test batch of 500's conditional likelihoods at K=1000 in chunks
+       of 100 with ROWS_PER_CALL at each of MEMORY_ROWS: peak and seconds,
+       and the values, equal to rtol 1e-5 (float32, other shapes per call).
+    3. GROUP_BATCHES test batches of GROUP_BATCH through `protocol_chunked`
+       (conditional likelihoods) in one call and in one call each: seconds,
+       and the values, equal to rtol 1e-5."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli.common import generator, reload_model
+    from mmvae_tpu_torch.eval import likelihoods as L
+    from mmvae_tpu_torch.nets import ConvTranspose2d
+
+    _, bundle, (_, test_l, _) = reload_model(runs["jnf"], 500, "cuda")
+    model, spec = bundle.model, bundle.spec
+    decoder, latent = model.vaes[1].decoder, model.vaes[1].latent_dim
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, i, o: shapes.append((i[0].numel(), o.numel())))
+             for m in decoder.modules() if isinstance(m, ConvTranspose2d)]
+    decode = {}
+    with torch.no_grad():
+        for rows in (MEMORY_ROWS[0], MEMORY_ROWS[0] // 10):
+            z = torch.randn(rows, latent, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(rows))
+            decoder(z)  # cuDNN picks its algorithms for these shapes
+            shapes.clear()
+            peak, s, _ = _peak(lambda: decoder(z))
+            live = max(i + 2 * o for i, o in shapes) * 4
+            entry = {"peak_bytes": peak, "s": s, "live_tensor_bytes": live,
+                     "output_bytes": shapes[-1][1] * 4}
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                            allow_tf32=False):
+                decoder(z)  # the trials of every algorithm
+                entry["benchmark_peak_bytes"], entry["benchmark_s"], _ = _peak(lambda: decoder(z))
+            if rows == NATIVE_ROWS:
+                with torch.backends.cudnn.flags(enabled=False):
+                    entry["no_cudnn_peak_bytes"], entry["no_cudnn_s"], _ = _peak(
+                        lambda: decoder(z))
+                entry["cudnn_extra_bytes"] = peak - entry["no_cudnn_peak_bytes"]
+            decode[rows] = entry
+    for h in hooks:
+        h.remove()
+
+    xs = [torch.as_tensor(x).cuda() for x in next(iter(test_l))[0]]
+
+    def cond_ll():
+        return L.protocol_chunked(model, spec, [xs], [generator("cuda", 0)], EVAL_K, EVAL_BK)
+
+    rows_per_call, values, default = {}, {}, L.ROWS_PER_CALL
+    try:
+        for rows in MEMORY_ROWS:
+            L.ROWS_PER_CALL = rows
+            cond_ll()
+            peak, s, out = _peak(cond_ll)
+            rows_per_call[rows] = {"peak_bytes": peak, "s": s}
+            values[rows] = out
+    finally:
+        L.ROWS_PER_CALL = default
+
+    _, _, (_, small_l, _) = reload_model(runs["jnf"], GROUP_BATCH, "cuda")
+    batches = [[torch.as_tensor(x).cuda() for x in xs_]
+               for (xs_, _), _ in zip(small_l, range(GROUP_BATCHES))]
+
+    def gens():
+        return [generator("cuda", 0, b) for b in range(len(batches))]
+
+    def together():
+        return L.protocol_chunked(model, spec, batches, gens(), EVAL_K, EVAL_BK)
+
+    def alone():
+        return [L.protocol_chunked(model, spec, [b], [g], EVAL_K, EVAL_BK)
+                for b, g in zip(batches, gens())]
+
+    together(), alone()
+    _, together_s, grouped = _peak(together)
+    _, alone_s, single = _peak(alone)
+
+    def rel(a, b):
+        return max(float(np.max(np.abs(np.subtract(a[k], b[k])) / np.abs(b[k]))) for k in b)
+
+    rows_err = max(rel(values[r], values[default]) for r in MEMORY_ROWS)
+    group_err = rel(grouped, {k: [v[k][0] for v in single] for k in grouped})
+    ok = rows_err <= EVAL_LL_RTOL and group_err <= EVAL_LL_RTOL
+    emit({"phase": "eval_memory", "run": "jnf", "K": EVAL_K, "batch_size_K": EVAL_BK,
+          "decoder_svhn": {str(r): v for r, v in decode.items()},
+          "cond_likelihood_batch500": {str(r): v for r, v in rows_per_call.items()},
+          "rows_per_call_max_rel_diff": rows_err,
+          "grouping": {"batch": GROUP_BATCH, "batches": len(batches), "together_s": together_s,
+                       "alone_s": alone_s, "max_rel_diff": group_err},
+          "rtol": EVAL_LL_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"likelihoods moved with the rows per call ({rows_err}) or the "
+                             f"grouping ({group_err})")
+
+
+class _CastNoise:
+    """A Noise whose draws, made on the CPU in float64, are cast to the
+    device and dtype of the run: the same noise for the CPU float64 run and
+    the cuda float32 one."""
+
+    def __init__(self, seed, device, dtype):
+        import torch
+
+        from mmvae_tpu_torch.eval.generation import Noise
+
+        self.noise = Noise([torch.Generator().manual_seed(seed)], dtype=torch.float64)
+        self.device, self.dtype = device, dtype
+
+    def draw(self, dist, shape):
+        return self.noise.draw(dist, shape).to(self.device, self.dtype)
+
+
+def phase_eval_parity(tmp, runs):
+    """JMVAE-NF's conditional likelihoods and coherence (ns=1) on the first
+    16 rows of test batch 0 on cuda in float32 against the CPU in float64,
+    the same weights, classifiers and noise; K=200 in chunks of 100."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli.common import get_or_train_classifiers, reload_model
+    from mmvae_tpu_torch.eval import coherence as C
+    from mmvae_tpu_torch.eval import likelihoods as L
+
+    exp = os.path.join(tmp, "experiments")
+    res = {}
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        cfg, bundle, loaders = reload_model(runs["jnf"], 500, dev)
+        bundle.model.to(dtype)
+        classifiers = get_or_train_classifiers(bundle, loaders, exp, cfg.seed, cfg=cfg, device=dev)
+        for c in classifiers:
+            c.model.to(dtype)
+        xs, labels = next(iter(loaders[1]))
+        xs = [torch.as_tensor(x[:PARITY_ROWS]).to(dev, dtype) for x in xs]
+        labels = [l[:PARITY_ROWS] for l in labels]
+        with torch.no_grad():
+            ll = L.compute_conditional_likelihoods(bundle.model, xs, bundle.spec,
+                                                   _CastNoise(1, dev, dtype), PARITY_K, EVAL_BK)
+            acc = C.compute_accuracies(bundle.model, classifiers, xs, labels,
+                                       _CastNoise(2, dev, dtype), bundle.spec,
+                                       n_data=PARITY_ROWS, ns=1)
+        res[dtype] = ({k: v.double().cpu().numpy() for k, v in ll.items()}, acc)
+    (ll64, acc64), (ll32, acc32) = res[torch.float64], res[torch.float32]
+    ll_err = max(float(np.max(np.abs(ll32[k] - ll64[k]) / np.abs(ll64[k]))) for k in ll64)
+    acc_err = max(abs(acc32[k] - acc64[k]) for k in acc64)
+    ok = ll_err <= EVAL_LL_RTOL and acc_err <= 1.0 / PARITY_ROWS + 1e-12
+    emit({"phase": "eval_parity", "run": "jnf", "rows": PARITY_ROWS, "K": PARITY_K,
+          "batch_size_K": EVAL_BK, "reference": "cpu float64",
+          "cond_likelihood_means_ref": {k: float(v.mean()) for k, v in ll64.items()},
+          "cond_likelihood_max_rel_err": ll_err, "coherence_ref": acc64, "coherence_cuda": acc32,
+          "coherence_max_abs_err": acc_err, "ll_rtol": EVAL_LL_RTOL,
+          "coherence_tol": f"1/{PARITY_ROWS}", "ok": ok})
+    if not ok:
+        raise AssertionError(f"eval on cuda off the float64 cpu run: likelihood rel err "
+                             f"{ll_err}, coherence {acc32} vs {acc64}")
+
+
 def main():
     import torch
 
@@ -1100,7 +1568,7 @@ def main():
     try:
         sl = phase_slice(tmp)
         phase_parity(tmp)
-        train_loader = phase_mmvae_slice(tmp)
+        train_loader, flagship_run = phase_mmvae_slice(tmp)
         for config in (FLAGSHIP, FLAGSHIP_BF16):
             phase_mmvae_time(tmp, config, train_loader)
         phase_mmvae_parity(tmp)
@@ -1109,13 +1577,22 @@ def main():
         phase_jnf_parity(tmp)
         dcca_path = phase_dcca(tmp)
         jnf_dcca = phase_jnf_dcca_slice(tmp, dcca_path)
+        analytics = phase_analytics(sl)
+        runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"]}
+        validate = phase_eval_validate(tmp, runs)
+        likelihoods = phase_eval_likelihoods(tmp, runs)
+        phase_eval_parity(tmp, runs)
+        phase_eval_memory(runs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # each path's own launches, its counts set to 0 just before it; the
     # flagship's are checked to be none in its phase
     by_path = {"mmvae_nf": (sl["launches"], sl["bwd_launches"]), "flagship": (0, 0),
-               "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca}
+               "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca,
+               "analytics_mmvae_nf": (analytics, 0),
+               **{f"validate_{k}": v for k, v in validate.items()},
+               **{f"likelihoods_{k}": v for k, v in likelihoods.items()}}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -1129,9 +1606,12 @@ def main():
 
     # the TPU kernel's pallas_call, and its custom_vjp backward (jax.vjp of
     # the unrolled solve), which the backward kernel and the wrapper's
-    # reduction replace: its `ms` is both, the kernel alone beside it
+    # reduction replace: its `ms` is both, the kernel alone beside it. The
+    # forward's times at eval's rows stand beside its main-path time.
+    at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
     emit({"kernels": [
-        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"]),
+        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
+              at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"]),
         entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
               solve["bwd_err"],
               kernel_ms=solve["results"]["backward"]["kernel_ms"])]})

@@ -11,6 +11,9 @@ is "vaes_0/flow/made_1/hidden_2". The layouts:
   the array unflipped where JAX flips it inside its dilated convolution.
 - MaskedDense: the port keeps JAX's (in, out) kernel.
 - Biases are the same vectors.
+- BatchNorm: `scale` and `bias` in params, the running `mean` and `var`
+  (buffers here) in the `batch_stats` collection; the port's BatchNorm2d
+  sits one scope above them, as JAX wraps a flax BatchNorm named "bn".
 
 Copies are exact, so JAX -> port -> JAX returns the same bits.
 """
@@ -25,10 +28,12 @@ import torch
 from torch import nn
 
 from .flows.made import MaskedDense
-from .nets.conv import Conv2d, ConvTranspose2d, Linear
+from .nets.conv import Conv2d, ConvTranspose2d, Linear, _BatchNorm
 
 
 def _jax_path(module_path: str) -> Tuple[str, ...]:
+    if not module_path:  # the root module's own leaves sit at the top of the tree
+        return ()
     return tuple(re.sub(r"\.(\d+)(?=\.|$)", r"_\1", module_path).split("."))
 
 
@@ -42,8 +47,19 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, b
         elif isinstance(m, MaskedDense):
             yield _jax_path(path) + ("kernel",), m.kernel, False
             yield _jax_path(path) + ("bias",), m.bias, False
+        elif isinstance(m, _BatchNorm):
+            yield _jax_path(path) + m.jax_scope + ("scale",), m.scale, False
+            yield _jax_path(path) + m.jax_scope + ("bias",), m.bias, False
         elif list(m.parameters(recurse=False)):
             raise TypeError(f"no JAX layout known for {type(m).__name__} at {path!r}")
+
+
+def _stat_leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, bool]]:
+    """(JAX batch_stats path, torch buffer, False) for every running statistic."""
+    for path, m in model.named_modules():
+        if isinstance(m, _BatchNorm):
+            yield _jax_path(path) + m.jax_scope + ("mean",), m.mean, False
+            yield _jax_path(path) + m.jax_scope + ("var",), m.var, False
 
 
 def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -57,11 +73,10 @@ def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[Tuple[str, ...], np.ndarra
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
-    """Copy a JAX params tree into `model` in place (any device)."""
-    flat = _flatten(params)
+def _load(leaves, tree: Dict[str, Any]) -> None:
+    flat = _flatten(tree)
     seen = set()
-    for path, p, transposed in _leaves(model):
+    for path, p, transposed in leaves:
         if path not in flat:
             raise KeyError(f"JAX tree has no {'/'.join(path)}")
         arr = flat[path].T if transposed else flat[path]
@@ -74,14 +89,35 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
         raise KeyError(f"JAX leaves with no port parameter: {sorted('/'.join(e) for e in extra)}")
 
 
-def export_jax_params(model: nn.Module) -> Dict[str, Any]:
-    """The JAX params tree of `model`, as nested dicts of numpy arrays that
-    own their memory (later updates of the model do not show through)."""
+def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
+    """Copy a JAX params tree into `model` in place (any device)."""
+    _load(_leaves(model), params)
+
+
+def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
+    """Copy JAX variables, `params` and (where the model has BatchNorm)
+    `batch_stats`, into `model` in place: the eval classifiers' trees."""
+    _load(_leaves(model), variables["params"])
+    _load(_stat_leaves(model), variables.get("batch_stats", {}))
+
+
+def _export(leaves) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for path, p, transposed in _leaves(model):
+    for path, p, transposed in leaves:
         arr = p.detach().cpu().numpy()
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = np.array(arr.T if transposed else arr, order="C", copy=True)
     return tree
+
+
+def export_jax_params(model: nn.Module) -> Dict[str, Any]:
+    """The JAX params tree of `model`, as nested dicts of numpy arrays that
+    own their memory (later updates of the model do not show through)."""
+    return _export(_leaves(model))
+
+
+def export_jax_variables(model: nn.Module) -> Dict[str, Any]:
+    """`params` and `batch_stats` of `model` as JAX trees."""
+    return {"params": export_jax_params(model), "batch_stats": _export(_stat_leaves(model))}

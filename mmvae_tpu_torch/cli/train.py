@@ -13,6 +13,9 @@ JMVAE-NF-DCCA configs ("dcca": true) graft the pretrained trunks of
 the trunks stay random and frozen, with a warning, as in the JAX package.
 "skip_warmup" starts from the shared joint-encoder pool
 <experiments-dir>/joint_encoders/<experiment> that "save_joint" publishes.
+With "no_analytics": false, as every published config has it, image grids
+are written every "freq_analytics" epochs and at epoch 1
+(`analytics_callback`).
 
 Float32 by default: on CUDA, TF32 is switched off for both matrix products
 and cuDNN convolutions (cuDNN's default is on). The config keys
@@ -28,7 +31,7 @@ import functools
 import inspect
 import json
 import os
-import time
+import traceback
 from pathlib import Path
 from tempfile import mkdtemp
 
@@ -38,14 +41,52 @@ import torch
 
 def _not_yet_ported(cfg):
     """Config features of the JAX CLI this port does not run yet."""
-    if not cfg.no_analytics:
-        return "analytics not yet ported: set \"no_analytics\": true"
     for key in ("use_pretrain", "use_gen"):
         if getattr(cfg, key):
             return f"{key} not yet ported"
     if cfg.mesh_data not in (None, 1) or cfg.mesh_k != 1:
         return "multi-device meshes not yet ported"
     return None
+
+
+def analytics_callback(cfg, bundle, val_loader, run_path, device):
+    """The per-epoch image grids (main.py:195-209), every `freq_analytics`
+    epochs and at epoch 1: cond_samples_{r}x{o}_{epoch:03d}.png, 8
+    conditional samples of modality o for each of the first 8 val rows of
+    modality r beside those rows, and generate_{epoch:03d}.png, 32 prior
+    samples. The noise comes from a generator seeded from (seed, epoch). A
+    failure to write the images is reported and does not stop training, as
+    in the JAX CLI; a failure of the sampling itself (a kernel's launch
+    among them) does."""
+    from ..eval.generation import Noise, generate, sample_from_conditional
+    from ..vis import adjust_shape, save_image, save_samples
+    from .common import STREAM_ANALYTICS, generator
+
+    xs, _ = next(iter(val_loader))
+    val_xs = [torch.as_tensor(x[:8]).to(device, torch.float32) for x in xs]
+
+    @torch.no_grad()
+    def analytics(trainer, epoch, *args, **kwargs):
+        if epoch % cfg.freq_analytics != 0 and epoch != 1:
+            return
+        model = trainer.model
+        noise = Noise([generator(device, cfg.seed, STREAM_ANALYTICS, epoch)])
+        model.eval()
+        samples = sample_from_conditional(model, val_xs, noise, n=8)
+        cond = {(r, o): (x.cpu().numpy(), samples[r][o].reshape(-1, *samples[r][o].shape[2:])
+                         .cpu().numpy())
+                for r, x in enumerate(val_xs) for o in range(len(val_xs))}
+        gen = [g.cpu().numpy() for g in generate(model, noise, bundle.spec, N=32)[:2]]
+        try:
+            for (r, o), (x, recon) in cond.items():
+                save_image(np.concatenate(adjust_shape(x, recon)),
+                           os.path.join(run_path, f"cond_samples_{r}x{o}_{epoch:03d}.png"))
+            save_samples(gen, os.path.join(run_path, f"generate_{epoch:03d}.png"))
+        except Exception as e:  # writing the grids must never kill training
+            traceback.print_exc()
+            print(f"[analytics] skipped at epoch {epoch}: {e!r}")
+
+    return analytics
 
 
 def main(argv=None):
@@ -62,17 +103,14 @@ def main(argv=None):
     from ..data.loaders import DATASETS
     from ..models import registry
     from ..train import Trainer
+    from ..utils import Tracker
+    from .common import torch_device
 
     cfg = ExperimentConfig.from_json(info.config_path)
     problem = _not_yet_ported(cfg)
     if problem:
         raise NotImplementedError(problem)
-    device = torch.device(info.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda but no CUDA device is available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = torch_device(info.device)
     np.random.seed(cfg.seed)
 
     bundle = registry.build(cfg)
@@ -115,20 +153,22 @@ def main(argv=None):
           + (f"; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
              f"cuDNN {torch.backends.cudnn.allow_tf32}" if device.type == "cuda" else "") + ")")
 
-    metrics_path = os.path.join(run_path, "metrics.jsonl")
+    tracker = Tracker(run_path)
 
     def track(trainer_, epoch, tr_det, va_det, **metrics):
         payload = {"train_loss": metrics.get("tr_loss"), "val_loss": metrics.get("va_loss"),
                    "lr": metrics.get("lr")}
         payload.update({f"train_{k}": v for k, v in (tr_det or {}).items()})
         payload.update({f"val_{k}": v for k, v in (va_det or {}).items()})
-        payload.update(epoch=epoch, _t=time.time())
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({k: float(v) for k, v in payload.items()}) + "\n")
+        tracker.log(payload, step=epoch)
 
+    callbacks = [track]
+    if not cfg.no_analytics:
+        callbacks.append(analytics_callback(cfg, bundle, val_loader, run_path, device))
     use_dp = bool(cfg.extra.get("device_pipeline", True))
-    trainer.fit(train_loader, val_loader, callbacks=[track], variables_hook=variables_hook,
+    trainer.fit(train_loader, val_loader, callbacks=callbacks, variables_hook=variables_hook,
                 use_device_pipeline=use_dp)
+    tracker.close()
 
     with open(os.path.join(run_path, "losses.json"), "w") as f:
         json.dump(trainer._history, f)

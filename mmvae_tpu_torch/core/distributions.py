@@ -69,13 +69,28 @@ def normal_log_prob(p: LocScale, x: torch.Tensor) -> torch.Tensor:
     return -((x - p.loc) ** 2) / (2 * var) - torch.log(p.scale) - 0.5 * LOG2PI
 
 
+def draw_noise(dist: str, shape, generator: Optional[torch.Generator] = None,
+               device=None, dtype=torch.float32) -> torch.Tensor:
+    """The noise `sample` draws for family `dist`: standard normal
+    ("normal"), uniform in (-1 + 1e-7, 1) ("laplace"), or uniform in [0, 1)
+    ("uniform", a Bernoulli(p) draw is u < p)."""
+    if dist == "normal":
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    r = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    if dist == "uniform":
+        return r
+    if dist == "laplace":
+        # jax.random.uniform: max(minval, r * (maxval - minval) + minval)
+        return torch.clamp_min(r * (LAPLACE_U_MAX - LAPLACE_U_MIN) + LAPLACE_U_MIN, LAPLACE_U_MIN)
+    raise NotImplementedError(f"{dist} noise not yet ported")
+
+
 def normal_sample(p: LocScale, sample_shape=(), eps: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """loc + eps * scale, eps standard normal."""
     shape = _sample_shape(p, sample_shape)
     if eps is None:
-        eps = torch.randn(shape, generator=generator, device=p.loc.device,
-                          dtype=p.loc.dtype)
+        eps = draw_noise("normal", shape, generator, p.loc.device, p.loc.dtype)
     else:
         _check_noise("eps", eps, shape)
     return p.loc + eps * p.scale
@@ -108,9 +123,7 @@ def laplace_sample(p: LocScale, sample_shape=(), u: Optional[torch.Tensor] = Non
     shape = _sample_shape(p, sample_shape)
     dtype = p.loc.dtype
     if u is None:
-        r = torch.rand(shape, generator=generator, device=p.loc.device, dtype=dtype)
-        # jax.random.uniform: max(minval, r * (maxval - minval) + minval)
-        u = torch.clamp_min(r * (LAPLACE_U_MAX - LAPLACE_U_MIN) + LAPLACE_U_MIN, LAPLACE_U_MIN)
+        u = draw_noise("laplace", shape, generator, p.loc.device, dtype)
     else:
         _check_noise("u", u, shape)
     tiny = torch.finfo(dtype).tiny

@@ -18,13 +18,17 @@ from . import pairing, sources
 class LazyGather:
     """View of ``base[idx]`` that gathers rows on access: the pairing maps a
     deduplicated base array onto many more paired rows, and the device
-    pipeline ships (base, idx) instead of the duplicated rows."""
+    pipeline ships (base, idx) instead of the duplicated rows. `base_labels`,
+    where given, are the labels of `base`'s rows, so that the eval
+    classifiers can train on the deduplicated rows."""
 
-    __slots__ = ("base", "idx")
+    __slots__ = ("base", "idx", "base_labels")
 
-    def __init__(self, base: np.ndarray, idx: np.ndarray):
+    def __init__(self, base: np.ndarray, idx: np.ndarray,
+                 base_labels: Optional[np.ndarray] = None):
         self.base = base
         self.idx = np.ascontiguousarray(idx)
+        self.base_labels = base_labels
 
     def __len__(self):
         return len(self.idx)
@@ -50,7 +54,7 @@ class LazyGather:
         return out if dtype is None else out.astype(dtype, copy=False)
 
     def lazy_subset(self, s) -> "LazyGather":
-        return LazyGather(self.base, self.idx[s])
+        return LazyGather(self.base, self.idx[s], self.base_labels)
 
 
 @dataclasses.dataclass
@@ -143,11 +147,11 @@ def _paired_from_sources(mods_train, mods_test, max_d, dm, len_train, batch_size
         idx_tr = tuple(i[:len_train] for i in idx_tr)
 
     train_full = PairedDataset(
-        [LazyGather(x, i) for (x, _), i in zip(mods_train, idx_tr)],
+        [LazyGather(x, i, base_labels=l) for (x, l), i in zip(mods_train, idx_tr)],
         [l[i] for (_, l), i in zip(mods_train, idx_tr)],
     )
     test = PairedDataset(
-        [LazyGather(x, i) for (x, _), i in zip(mods_test, idx_te)],
+        [LazyGather(x, i, base_labels=l) for (x, l), i in zip(mods_test, idx_te)],
         [l[i] for (_, l), i in zip(mods_test, idx_te)],
     )
     # deterministic val split (dataloaders.py:279-282)

@@ -120,8 +120,18 @@ class JMVAE_NF(nn.Module):
             params.append((mu, vae.posterior_std(log_var)))
         return params
 
-    def infer_latent_from_mod(self, cond_mod: int, x, noise=None, generator=None):
-        return self.vaes[cond_mod](x, noise=noise, generator=generator)["z"]
+    def vae_forward(self, x_m, m: int, K: int = 1, noise=None, generator=None):
+        """Full forward of unimodal VAE m (jmvae_nf.py:134-137)."""
+        return self.vaes[m](x_m, K, noise=noise, generator=generator)
+
+    def vae_forward_by_mod(self, x_m, m: int, K: int = 1, noise=None, generator=None):
+        """Unimodal VAE m's forward for the likelihood estimators
+        (jmvae_nf.py:139-141), up to the latent: they read no recon."""
+        return self.vaes[m].sample_posterior(x_m, K, noise=noise, generator=generator)
+
+    def infer_latent_from_mod(self, cond_mod: int, x, K: int = 1, noise=None, generator=None):
+        """A sample of the flow posterior q(z|x_m); K > 1 adds a leading axis."""
+        return self.vaes[cond_mod].sample_posterior(x, K, noise=noise, generator=generator)["z"]
 
     def decode_all(self, z):
         return [vae.decode(z) for vae in self.vaes]

@@ -66,9 +66,10 @@ class MMVAE(nn.Module):
         qz_params, zss = self.encode_and_sample(x, K=K, noise=noise, generator=generator)
         return {"qz_params": qz_params, "zss": zss, "recons": self.decode_cross(zss)}
 
-    def infer_latent_from_mod(self, cond_mod: int, x, noise=None, generator=None):
-        """One sample of q(z|x_m) (multi_vaes.py:71-79)."""
-        return self.vaes[cond_mod](x, noise=noise, generator=generator)["z"]
+    def infer_latent_from_mod(self, cond_mod: int, x, K: int = 1, noise=None, generator=None):
+        """A sample of q(z|x_m) (multi_vaes.py:71-79); K > 1 adds a leading
+        axis of K samples. Nothing is decoded."""
+        return self.vaes[cond_mod].sample_posterior(x, K, noise=noise, generator=generator)["z"]
 
     def decode_all(self, z):
         """Decode one latent in every modality (multi_vaes.py:94-95)."""

@@ -45,3 +45,11 @@ class MMVAE_NF(nn.Module):
                 if e != d:
                     recons[e][d] = vae.decode(z)
         return {"ln_qz_xs": ln_qz_xs, "zs": zs, "recons": recons}
+
+    def infer_latent_from_mod(self, cond_mod: int, x, K: int = 1, noise=None, generator=None):
+        """A sample of the flow posterior q(z|x_m), through the flow's
+        sampling direction (mmvae_nf.py:46-47); K > 1 adds a leading axis."""
+        return self.vaes[cond_mod].sample_posterior(x, K, noise=noise, generator=generator)["z"]
+
+    def decode_all(self, z):
+        return [vae.decode(z) for vae in self.vaes]

@@ -33,6 +33,12 @@ class ModelBundle:
     spec: ModelSpec
     dataset: str                  # data.loaders.DATASETS key
     model_name: str
+    shape_mods: Tuple[Tuple[int, ...], ...] = ()
+    classifier_keys: Tuple[str, ...] = ()  # eval classifier per modality (eval/classifiers.py)
+
+
+# the MNIST-SVHN builders' modality shapes and eval classifiers
+_MS = dict(shape_mods=((1, 28, 28), (3, 32, 32)), classifier_keys=("mnist", "svhn"))
 
 
 def _flow(cfg: ExperimentConfig):
@@ -72,7 +78,8 @@ def mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
     spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
                      recon_dists=tuple(cfg.recon_losses),
                      lik_scaling=_ms_lik_scaling(cfg))
-    return ModelBundle(MMVAE(vaes, posterior=cfg.dist), spec, "mnist_svhn", "mmvae_mnist_svhn")
+    return ModelBundle(MMVAE(vaes, posterior=cfg.dist), spec, "mnist_svhn", "mmvae_mnist_svhn",
+                       **_MS)
 
 
 def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
@@ -88,7 +95,8 @@ def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
     spec = ModelSpec(latent_dim=cfg.latent_dim, posterior="normal",
                      recon_dists=tuple(cfg.recon_losses),
                      lik_scaling=_ms_lik_scaling(cfg))
-    return ModelBundle(MMVAE_NF(vaes), spec, "mnist_svhn", "mmvae_nf_mnist_svhn")
+    return ModelBundle(MMVAE_NF(vaes), spec, "mnist_svhn", "mmvae_nf_mnist_svhn",
+                       **_MS)
 
 
 def _dcca_pair(cfg, builders, dim_first: int = 16, artifacts=None):
@@ -135,7 +143,7 @@ def _jnf_mnist_svhn(cfg: ExperimentConfig, use_dcca: bool, dcca_artifacts=None) 
                      recon_dists=tuple(cfg.recon_losses), lik_scaling=_ms_lik_scaling(cfg),
                      no_recon=cfg.no_recon, linear_warmup=cfg.linear_warmup)
     return ModelBundle(model, spec, "mnist_svhn",
-                       "jmvae_nf_dcca_mnist_svhn" if use_dcca else "jmvae_nf_mnist_svhn")
+                       "jmvae_nf_dcca_mnist_svhn" if use_dcca else "jmvae_nf_mnist_svhn", **_MS)
 
 
 def _load_dcca_artifacts(cfg: ExperimentConfig, dataset: str):

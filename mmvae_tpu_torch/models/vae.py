@@ -71,21 +71,19 @@ class UnimodalVAE(nn.Module):
         z, ldj = self.flow_inverse(z0)
         return (mu, std), z, ldj
 
-    def forward(self, x, K: int = 1, noise=None, generator=None):
-        """Full forward pass. Encoding runs once; the leading sample axis K
-        is present only when K > 1. Returns recon, mu, log_var, std, z0, z,
-        log_abs_det_jac."""
+    def sample_posterior(self, x, K: int = 1, noise=None, generator=None):
+        """The forward pass up to the latent, without decoding: mu, log_var,
+        std, z0, z, log_abs_det_jac. Encoding runs once; the leading sample
+        axis K is present only when K > 1."""
         mu, log_var = self.encode(x)
         std = self.posterior_std(log_var)
         shape = (K,) if K > 1 else ()
         z0 = D.sample(self.posterior, LocScale(mu, std), shape, noise=noise, generator=generator)
         z, ldj = self.flow_inverse(z0)
-        return {
-            "recon": self.decode(z),
-            "mu": mu,
-            "log_var": log_var,
-            "std": std,
-            "z0": z0,
-            "z": z,
-            "log_abs_det_jac": ldj,
-        }
+        return {"mu": mu, "log_var": log_var, "std": std, "z0": z0, "z": z,
+                "log_abs_det_jac": ldj}
+
+    def forward(self, x, K: int = 1, noise=None, generator=None):
+        """Full forward pass: `sample_posterior`, plus recon, the decoded z."""
+        out = self.sample_posterior(x, K, noise=noise, generator=generator)
+        return {"recon": self.decode(out["z"]), **out}

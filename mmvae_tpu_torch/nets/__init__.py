@@ -1,4 +1,6 @@
-from .conv import Conv2d, ConvTranspose2d, Linear, init_parameters  # noqa: F401
+from .conv import (  # noqa: F401
+    BatchNorm, BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, Linear, init_parameters,
+)
 from .encoders import (  # noqa: F401
     DecoderSVHN, EncoderSVHN, MLPDecoder, MLPEncoder, TwoStepsEncoder,
 )

@@ -91,6 +91,80 @@ class ConvTranspose2d(_Kaiming):
                               output_padding=self.output_padding)
 
 
+class _BatchNorm(nn.Module):
+    """flax.linen.BatchNorm written out. In training the batch's statistics
+    normalize, with the variance as flax computes it, E[x^2] - E[x]^2 clamped
+    at 0, and the running statistics take `momentum` of them, the running
+    variance the BIASED batch variance (torch.nn.BatchNorm* takes the
+    unbiased one). In eval mode the running statistics normalize.
+    `momentum` is torch's convention: flax's momentum is 1 - momentum."""
+
+    axis: int = 1
+    jax_scope: tuple = ()  # where the JAX tree keeps the leaves below the module
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            for t, v in ((self.scale, 1.0), (self.bias, 0.0), (self.mean, 0.0), (self.var, 1.0)):
+                t.fill_(v)
+
+    def forward(self, x):
+        # statistics in at least float32, as flax computes them
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [d for d in range(x.dim()) if d != self.axis % x.dim()]
+        shape = [1] * x.dim()
+        shape[self.axis] = -1
+        if self.training:
+            mean = x.mean(dims)
+            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+                self.var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class BatchNorm2d(_BatchNorm):
+    """torch.nn.BatchNorm2d's place on NCHW (momentum 0.1, eps 1e-5), with
+    flax's statistics (JAX nets/conv.py BatchNorm2d, a flax BatchNorm named
+    "bn" over axis 1)."""
+
+    axis = 1
+    jax_scope = ("bn",)
+
+
+class BatchNorm(_BatchNorm):
+    """flax nn.BatchNorm over the last axis; flax's momentum 0.9 is 0.1 here."""
+
+    axis = -1
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: in training each entry is kept with probability
+    1 - rate and scaled by 1 / (1 - rate); the keep mask is u < 1 - rate for
+    u uniform, drawn from `generator`. The identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter of `model` from `generator`, module by module
     in registration order."""

@@ -48,7 +48,9 @@ class Adam:
         if self.clip > 0.0:
             grads = self._clip(grads)
         count = self.count + 1
-        t = count.to(torch.float32)
+        # the bias corrections in the parameters' precision, as optax takes
+        # them in JAX's default float type (float64 under x64)
+        t = count.to(self.params[0].dtype if self.params else torch.float32)
         bc1 = 1.0 - self.b1 ** t
         bc2 = 1.0 - self.b2 ** t
 

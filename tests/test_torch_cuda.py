@@ -20,6 +20,10 @@ JMVAE-NF and its DCCA pretraining: a post-warmup JNF step on the card and
 its kernel launches, the Cholesky CCA loss and the singular-value
 Function's backward on the card against float64 on the CPU, and the DCCA
 Solver's RMSprop step on the card against the CPU.
+
+Evaluation: the forward kernel under no_grad at eval's row counts (no
+tape, one launch per call), and a tiny validate and compute_likelihoods on
+cuda with their launch counts.
 """
 
 import copy
@@ -32,12 +36,15 @@ import pytest
 import torch
 
 from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
+from mmvae_tpu_torch.cli import compute_likelihoods, validate
 from mmvae_tpu_torch.cli import train as cli_train
+from mmvae_tpu_torch.cli.common import reload_model
 from mmvae_tpu_torch.core import distributions as Dist
 from mmvae_tpu_torch.core import precision
 from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.data import get_dataloaders
 from mmvae_tpu_torch.dcca import objectives as cca
+from mmvae_tpu_torch.eval import classifiers as Cl
 from mmvae_tpu_torch.flows import MAF, build_masks
 from mmvae_tpu_torch.models import registry
 from mmvae_tpu_torch.nets import Conv2d, ConvTranspose2d, Linear
@@ -399,3 +406,71 @@ def test_rmsprop_step_on_card_matches_cpu(card):
         runs[str(dev)] = [p.detach().cpu() for p in params]
     for a, b in zip(runs[str(card)], runs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [500, 10_000])  # a coherence batch; an IS call, 100 x 100 rows
+def test_forward_kernel_under_no_grad(card, monkeypatch, n):
+    """The eval paths' call: the Function under no_grad, with parameters
+    that require grad as a model's do, launches the forward kernel once,
+    allocates no tape and matches `unrolled_solve`."""
+    ws, bs = _weights(card, seed=22)
+    params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
+    x = torch.randn(n, D, generator=torch.Generator().manual_seed(23)).to(card)
+
+    def no_tape(*args, **kwargs):
+        raise AssertionError("a tape was allocated under no_grad")
+
+    monkeypatch.setattr(ar_flow, "new_tape", no_tape)
+    before = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    with torch.no_grad():
+        y, ld = ar_flow.ar_solve(x, params[:len(ws)], params[len(ws):], 1, 0.0)
+        y_ref, ld_ref = ar_flow.unrolled_solve(x, ws, bs, 1, 0.0)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == \
+        (before[0] + 1, before[1])
+    assert not y.requires_grad and y.grad_fn is None
+    torch.testing.assert_close(y, y_ref, **TOL)
+    torch.testing.assert_close(ld, ld_ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_eval_clis_on_card(card, tmp_path):
+    """A tiny JMVAE-NF run through the train CLI on cuda (with its
+    analytics grids), then validate (classifier-feature FID, a pool of
+    random classifiers) and compute_likelihoods --bis on cuda: the metric
+    names, and the forward kernel's launches, 4 per conditional sampling
+    call (2 modalities x 2 MAF blocks) and 2 per IS chunk and conditioning
+    modality; no backward launch."""
+    with open(JNF) as f:
+        raw = json.load(f)
+    raw.update(latent_dim=4, synthetic_n=64, batch_size=16, epochs=1, warmup=1, skip_warmup=False,
+               data_path=str(tmp_path / "data"))
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(raw))
+    exp = tmp_path / "exp"
+    for key, shape in (("mnist", (1, 28, 28)), ("svhn", (3, 32, 32))):
+        Cl.save_classifier(Cl.ARCHS[key](in_shape=shape), str(exp / "classifiers" / f"{key}.pt"))
+    run = cli_train.main(["--config-path", str(cfg_path), "--experiments-dir", str(exp)])
+    assert os.path.exists(os.path.join(run, "generate_001.png"))
+    nb = len(reload_model(run, 16)[2][1])  # test batches at the eval batch size
+
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    summary = validate.main(["--run-path", run, "--experiments-dir", str(exp), "--repeats", "1",
+                             "--fid-encoder", "classifier", "--batch-size", "16"])
+    torch.cuda.synchronize()
+    assert sorted(summary) == ["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence"]
+    # coherence and FID per test batch, and the gen_from_cond grids
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (4 * (2 * nb + 1), 0)
+
+    ar_flow.ar_solve.launches = 0
+    summary = compute_likelihoods.main(["--run-path", run, "--k", "6", "--batch-size-k", "3",
+                                        "--repeats", "1", "--batch-size", "16", "--bis"])
+    torch.cuda.synchronize()
+    assert sorted(summary) == ["cond_likelihood_0_1", "cond_likelihood_1_0",
+                               "conditional_likelihood_bis_0_1", "conditional_likelihood_bis_1_0",
+                               "likelihood"]
+    assert all(math.isfinite(v["mean"]) for v in summary.values())
+    # per batch: 2 conditioning modalities x 2 chunks x 2 blocks, for the
+    # conditional likelihoods and again for the bis protocol's proposals
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (16 * nb, 0)

@@ -237,7 +237,36 @@ def test_cli_one_epoch_cpu(tmp_path):
         assert json.load(f)["synthetic_n"] == 64
 
 
-def test_cli_refuses_analytics(tmp_path):
-    with pytest.raises(NotImplementedError, match="analytics not yet ported"):
-        cli_train.main(["--config-path", _write_config(tmp_path, no_analytics=False),
-                        "--experiments-dir", str(tmp_path / "exp"), "--device", "cpu"])
+def test_cli_refuses_analytics(tmp_path, capsys):
+    """The CLI no longer refuses "no_analytics": false, the published
+    configs' setting: it trains and writes the epoch-1 grids."""
+    run_path = cli_train.main(["--config-path", _write_config(tmp_path, no_analytics=False),
+                               "--experiments-dir", str(tmp_path / "exp"), "--device", "cpu"])
+    assert "[analytics] skipped" not in capsys.readouterr().out
+    grids = sorted(f for f in os.listdir(run_path) if f.endswith(".png"))
+    assert grids == [f"cond_samples_{r}x{o}_001.png" for r in (0, 1) for o in (0, 1)] + \
+        ["generate_001.png"]
+
+
+@pytest.mark.parametrize("where", ["writing", "sampling"])
+def test_cli_analytics_failures(tmp_path, capsys, monkeypatch, where):
+    """A grid that cannot be written is reported and training goes on; a
+    failure of the sampling (a kernel launch among them) stops the run."""
+    import mmvae_tpu_torch.eval.generation as G
+    import mmvae_tpu_torch.vis as V
+
+    def fail(*args, **kwargs):
+        raise (OSError if where == "writing" else RuntimeError)(f"injected {where} failure")
+
+    monkeypatch.setattr(*((V, "save_image") if where == "writing" else
+                          (G, "sample_from_conditional")), fail)
+    argv = ["--config-path", _write_config(tmp_path, no_analytics=False),
+            "--experiments-dir", str(tmp_path / "exp"), "--device", "cpu"]
+    if where == "sampling":
+        with pytest.raises(RuntimeError, match="injected sampling failure"):
+            cli_train.main(argv)
+        return
+    run_path = cli_train.main(argv)
+    assert "[analytics] skipped at epoch 1: OSError('injected writing failure')" in \
+        capsys.readouterr().out
+    assert os.path.exists(os.path.join(run_path, "model.pt"))

@@ -25,7 +25,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    through the autograd Function.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
    CLI (`mmvae_tpu_torch.cli.train.main`, device cuda, with the config's
-   analytics, phase 14): 68 train steps and
+   analytics, phase 16): 68 train steps and
    7 val batches at B=128, latent 20, 2 MADE blocks of 3x128. Checks the
    launch counts (forward kernel 4 per train step and per val batch,
    backward kernel 4 per train step and none per val batch), the
@@ -66,30 +66,49 @@ Phases, each printing one JSON line; any failure exits non-zero:
    warmup 2, grafting that artifact: the trunks equal the artifact's after
    both epochs, no ar_solve launch (no_recon: the flows run only their
    parallel direction), finite losses.
-14. analytics: the MMVAE-NF epoch of phase 4 ran with its config's own
+14. telbo_nf_slice: TELBO-NF (`configs/mnist_svhn/telbo_nf.json`: the
+   JMVAE-NF model with 2 MAF blocks of 3x128 per modality, m_telbo_nf)
+   through the CLI for 2 epochs at the same data scale, warmup 2: epoch 1
+   trains the joint ELBO and launches no ar_solve kernel; epoch 2 adds the
+   unimodal VAEs' ELBOs, whose forwards run both kernels under autograd: 4
+   forward kernels per train step and per val batch, 4 backward kernels per
+   train step. Every joint_encoder and decoder parameter bit-unchanged over
+   epoch 2, the unimodal encoders and MADE blocks moved. Then its steady
+   post-warmup step (host ms, device time, launches, busy share, ar_solve's
+   share of the device time) and the step on cuda in float32 against the
+   CPU in float64 (telbo_nf_parity).
+15. mvae_slice, moepoe_slice: one epoch of `mvae_synth.json` and of
+   `moepoe_synth.json` (beta_kl 20) through the CLI at the same scale
+   (m_self_built, no flow): neither ar_solve kernel launched, finite
+   losses, no skipped step; the steady step; the cuda float32 step against
+   the float64 CPU step (mvae_parity, moepoe_parity).
+16. analytics: the MMVAE-NF epoch of phase 4 ran with its config's own
    "no_analytics": false; its epoch-1 grids are valid PNGs, and their 4
    forward launches are counted apart from the epoch's.
-15. eval_validate: `mmvae_tpu_torch.cli.validate` on cuda (--repeats 1,
+17. eval_validate: `mmvae_tpu_torch.cli.validate` on cuda (--repeats 1,
    --fid-encoder classifier) over the full synthetic test set for the
-   MMVAE-NF, flagship and JMVAE-NF runs of phases 4, 6 and 9, the eval
-   classifiers trained into the pool first: coherence in [0, 1], finite
-   FIDs, 4 forward launches per conditional sampling call of a flow family
-   (coherence and FID per test batch, the grids once), none backward.
-16. eval_likelihoods: `mmvae_tpu_torch.cli.compute_likelihoods --bis` on
+   MMVAE-NF, flagship, JMVAE-NF, MVAE and MoE-PoE runs of phases 4, 6, 9
+   and 15, the eval classifiers trained into the pool first: coherence in
+   [0, 1], finite FIDs, 4 forward launches per conditional sampling call of
+   a flow family (coherence and FID per test batch, the grids once), none
+   backward, none at all for the families without a flow.
+18. eval_likelihoods: `mmvae_tpu_torch.cli.compute_likelihoods --bis` on
    cuda at K=1000 in chunks of 100 over the first 2 test batches of 500
-   (cut from the full test set), one repeat, for the same runs: finite
-   values, peak memory, seconds per batch, the forward launches (200 per
-   batch for the conditional likelihoods, as many for JMVAE-NF's bis
-   proposals), none backward; and the share of one JMVAE-NF batch's device
-   time in the forward kernel, from torch.profiler.
-17. eval_parity: JMVAE-NF's conditional likelihoods and coherence on 16
-   test rows (K=200) on cuda in float32 against the CPU in float64, with
-   the same weights, classifiers and noise.
-18. eval_memory: where the likelihood run's peak memory goes (the SVHN
+   (MVAE and MoE-PoE: the first one), cut from the full test set, one
+   repeat, for the same runs: finite values, peak memory, seconds per
+   batch, the forward launches (200 per batch for the conditional
+   likelihoods, as many for JMVAE-NF's bis proposals), none backward;
+   MVAE's and MoE-PoE's metric names; and the share of one JMVAE-NF
+   batch's device time in the forward kernel, from torch.profiler.
+19. eval_parity: the conditional likelihoods (MVAE's joint likelihood too)
+   and coherence of the JMVAE-NF, MVAE and MoE-PoE runs on 16 test rows
+   (K=200) on cuda in float32 against the CPU in float64, with the same
+   weights, classifiers and noise.
+20. eval_memory: where the likelihood run's peak memory goes (the SVHN
    decoder with cuDNN, with cudnn.benchmark and without cuDNN), what the
    rows of an IS call trade between memory and time, and ten small test
    batches in one likelihood call against one call each.
-19. The kernels line, and last the contract line
+21. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -111,8 +130,13 @@ FLAGSHIP = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth.json")
 FLAGSHIP_BF16 = os.path.join(ROOT, "configs", "mnist_svhn", "mmvae_synth_bf16.json")
 JNF = os.path.join(ROOT, "configs", "mnist_svhn", "jmvae_nf.json")
 JNF_DCCA = os.path.join(ROOT, "configs", "mnist_svhn", "jnf_dcca_synth.json")
-# JMVAE-NF runs: 2 epochs, the second past warmup
+TELBO_NF = os.path.join(ROOT, "configs", "mnist_svhn", "telbo_nf.json")
+MVAE = os.path.join(ROOT, "configs", "mnist_svhn", "mvae_synth.json")
+MOEPOE = os.path.join(ROOT, "configs", "mnist_svhn", "moepoe_synth.json")
+# JMVAE-NF and TELBO-NF runs: 2 epochs, the second past warmup
 JNF_RUN = dict(epochs=2, warmup=2, skip_warmup=False)
+# the eval runs whose models have no flow, so launch no ar_solve kernel
+NO_FLOW_RUNS = ("flagship", "mvae", "moepoe")
 # rows of one IS model call at K=1000, batch_size_K=100: 100 datapoints x
 # 100 samples (eval/likelihoods.py ROWS_PER_CALL)
 EVAL_IS_ROWS = 10_000
@@ -121,6 +145,8 @@ EVAL_IS_ROWS = 10_000
 # test batch (16 rows, K=200 in chunks of 100, so the float64 CPU run stays
 # short)
 EVAL_K, EVAL_BK, EVAL_MAX_BATCHES = 1000, 100, 2
+# MVAE's and MoE-PoE's likelihood runs: one test batch of 500
+POE_EVAL_BATCHES = 1
 PARITY_ROWS, PARITY_K = 16, 200
 # cuda float32 eval against the float64 CPU run with the same noise: the
 # conditional likelihood (sums of 784 or 3,072 pixel log-densities through
@@ -155,6 +181,14 @@ STEP_GRAD_TOL = 1e-4  # max |g_cuda - g_ref| / max |g_ref| per parameter
 # (tests/test_torch_mmvae.py holds float32 DReG gradients to JAX's at
 # 5e-3). bf16 against float32: the rtol of the JAX package's own bf16
 # tests.
+# A ReLU whose float64 pre-activation lies within float32 round-off of 0
+# may take the other branch in float32, and its derivative then jumps from 0
+# to 1: one such element moved a gradient leaf of MVAE's SVHN encoder by
+# 3.6e-3 of its largest entry on an H100 (a pre-activation of 1.3e-8, whose
+# float32 round-off is 5e-7). Where `_step_parity` aligns the branches, the
+# float64 reference takes each ReLU on the branch of the float32 run, and
+# each element taken on the other branch must lie within RELU_KINK_ATOL of 0.
+RELU_KINK_ATOL = 1e-5
 MMVAE_PARITY_B = 32
 MMVAE_GRAD_TOL = 2e-3
 BF16_LOSS_RTOL = 0.05
@@ -898,35 +932,44 @@ def _moved(epochs, prefixes):
     return [n for n in names if not torch.equal(before[n], after[n])], len(names)
 
 
-def phase_jnf_slice(tmp):
-    """JMVAE-NF through the CLI for 2 epochs, warmup 2: no ar_solve launch
-    in the warmup epoch; past it 4 forward kernels per train step and per
-    val batch and 4 backward kernels per train step; the joint encoder and
-    decoders frozen bit for bit."""
-    cfg, train_loader, info, epochs = _cli_epoch(tmp, JNF, **JNF_RUN)
+def _frozen_slice(tmp, config, phase, objective):
+    """`config` (a JMVAE-NF model, fix_jencoder and fix_decoders) through
+    the CLI for 2 epochs, warmup 2: no ar_solve launch in the warmup epoch;
+    past it 4 forward kernels per train step and per val batch and 4
+    backward kernels per train step; the joint encoder and decoders frozen
+    bit for bit, the unimodal encoders and the MADE blocks moved."""
+    cfg, train_loader, info, epochs = _cli_epoch(tmp, config, **JNF_RUN)
     steps, val_batches = info["train_steps"], info["val_batches"]
     (w_fwd, w_bwd), (fwd, bwd) = info["launches_by_epoch"]
     post = (fwd - w_fwd, bwd - w_bwd)
     expected = (4 * (steps + val_batches), 4 * steps)
     moved, n_frozen = _moved(epochs, ("joint_encoder", "decoder"))
     trained, _ = _moved(epochs, ("",))
-    emit({"phase": "jnf_slice", "model": cfg.model, "objective": "m_jmvae_nf",
+    unimodal = {p: any(n.startswith(p) for n in trained)
+                for p in ("vaes.0.encoder.", "vaes.1.encoder.", "vaes.0.flow.made.",
+                          "vaes.1.flow.made.")}
+    emit({"phase": phase, "model": cfg.model, "objective": objective,
           **{k: v for k, v in info.items() if k != "launches_by_epoch"},
           "warmup_epoch_launches": [w_fwd, w_bwd], "post_warmup_launches": list(post),
           "expected_post_warmup_launches": list(expected),
           "frozen_params_compared": n_frozen, "frozen_params_moved": moved,
-          "params_moved_in_epoch_2": len(trained)})
+          "params_moved_in_epoch_2": len(trained), "unimodal_moved": unimodal})
     if (w_fwd, w_bwd) != (0, 0) or post != expected or (steps, val_batches) != (68, 7):
-        raise AssertionError(f"JNF: warmup epoch launched {(w_fwd, w_bwd)} ar_solve kernels "
+        raise AssertionError(f"{phase}: warmup epoch launched {(w_fwd, w_bwd)} ar_solve kernels "
                              f"(expected none); epoch 2 {post} for {steps}+{val_batches} batches "
                              f"(expected {expected}, 68+7)")
-    if moved or not n_frozen or not trained:
-        raise AssertionError(f"JNF epoch 2: frozen parameters moved: {moved[:5]}, "
-                             f"{len(trained)} parameters moved in all")
+    if moved or not n_frozen or not all(unimodal.values()):
+        raise AssertionError(f"{phase} epoch 2: frozen parameters moved: {moved[:5]}; "
+                             f"unimodal encoders and MADE blocks moved: {unimodal}")
     if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
-        raise AssertionError(f"JNF: params on cuda {info['params_on_cuda']}, finite losses "
+        raise AssertionError(f"{phase}: params on cuda {info['params_on_cuda']}, finite losses "
                              f"{info['losses_finite']}, skipped {info['nan_skipped_fraction']:.1%}")
     return train_loader, dict(launches=post[0], bwd_launches=post[1], run_path=info["run_path"])
+
+
+def phase_jnf_slice(tmp):
+    """JMVAE-NF through the CLI for 2 epochs, warmup 2 (`_frozen_slice`)."""
+    return _frozen_slice(tmp, JNF, "jnf_slice", "m_jmvae_nf")
 
 
 def optimizer_launches(trainer):
@@ -973,11 +1016,56 @@ def phase_jnf_time(tmp, train_loader):
     return out
 
 
-def phase_jnf_parity(tmp):
-    """One post-warmup JNF step (frozen joint forward, unimodal
-    reconstructions on) on cuda in float32 against the same step on the CPU
-    in float64 (the CPU float32 step beside it), same weights and noise:
-    the objective and every trainable parameter's gradient."""
+class _ReluBranches:
+    """`torch.relu` that records the branch (x > 0) of each call, or, given
+    a recording, takes each call's branch from it in call order: x times
+    the recorded mask, whose derivative is the mask. A float64 run under a
+    float32 run's recording differentiates the same piecewise-linear
+    function as that run. `flips` counts the elements taken on the other
+    branch than their own, and `flip_max_abs` is the largest |x| among them."""
+
+    def __init__(self, replay=None):
+        self.replay, self.masks, self.flips, self.flip_max_abs = replay, [], 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        self._relu, torch.relu = torch.relu, self._call
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.relu = self._relu
+
+    def _call(self, x):
+        own = x > 0
+        if self.replay is None:
+            self.masks.append(own.cpu())
+            return self._relu(x)
+        mask = self.replay[len(self.masks)].to(x.device)
+        self.masks.append(mask)
+        other = own != mask
+        if other.any():
+            self.flips += int(other.sum())
+            self.flip_max_abs = max(self.flip_max_abs, x.detach()[other].abs().max().item())
+        return x * mask.to(x.dtype)
+
+
+def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False, **details):
+    """One training step of `config` (cut by `overrides`) at epoch
+    max(warmup, 1), past any warmup, on cuda in float32 against
+    the same step on the CPU in float64 (the CPU float32 step beside it),
+    the same weights and `n_noise` standard-normal draws: the objective and
+    every trainable parameter's gradient (those of the phase's freezing),
+    the loss, and one optimizer step taken, none skipped. With
+    `align_relu` (for models whose every ReLU is a `torch.relu` call, on
+    the card as on the CPU: no flow kernel) the reference is the float64
+    step on the float32 cuda step's ReLU branches (`_ReluBranches`), each
+    element on another branch than its own within RELU_KINK_ATOL of 0; the
+    errors against the float64 step on its own branches stand beside."""
+    import contextlib
+
     import numpy as np
     import torch
 
@@ -987,21 +1075,22 @@ def phase_jnf_parity(tmp):
     from mmvae_tpu_torch.models import registry
     from mmvae_tpu_torch.train import Trainer, freezing
 
-    cfg_path, raw = _slice_config(tmp, JNF, **JNF_RUN)
+    cfg_path, raw = _slice_config(tmp, config, **(overrides or {}))
     cfg = ExperimentConfig.from_json(cfg_path)
     train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
                                          data_path=cfg.data_path,
                                          synthetic_n=raw["synthetic_n"])
     xs_np, _ = next(iter(train_loader))
     rng = np.random.default_rng(0)
-    # the joint forward, compute_kld's joint sample, each unimodal forward
     eps_np = [rng.standard_normal((cfg.batch_size, cfg.latent_dim)).astype(np.float32)
-              for _ in range(4)]
-    epoch = cfg.warmup
+              for _ in range(n_noise)]
+    epoch = max(cfg.warmup, 1)
 
-    out, weights, trainable = {}, None, None
-    for run, dev, dtype in (("cpu_f64", "cpu", torch.float64), ("cpu_f32", "cpu", torch.float32),
-                            ("cuda_f32", "cuda", torch.float32)):
+    out, weights, trainable, branches = {}, None, None, {}
+    runs = [("cuda_f32", "cuda", torch.float32), ("cpu_f32", "cpu", torch.float32),
+            ("cpu_f64", "cpu", torch.float64)]
+    for run, dev, dtype in runs + ([("cpu_f64_on_cuda_branches", "cpu", torch.float64)]
+                                   if align_relu else []):
         bundle = registry.build(cfg)
         trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
         if weights is None:
@@ -1009,33 +1098,107 @@ def phase_jnf_parity(tmp):
             weights = export_jax_params(trainer.model)
         else:
             load_jax_params(trainer.model, weights)
-        trainer.init_opt_state(past_warmup=True, amsgrad=False)
+        # the optimizer the Trainer runs there: reset to Adam at a warmup's end
+        trainer.init_opt_state(past_warmup=True, amsgrad=cfg.warmup == 0)
         frozen = freezing.frozen_prefixes_for_phase(trainer.obj_name, True, cfg.fix_jencoder,
                                                     cfg.fix_decoders)
         trainable = list(freezing.trainable_parameters(trainer.model, frozen))
         named = dict(trainer.model.named_parameters())
         xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
         eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
-        obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps,
-                                **trainer._obj_kwargs(1.0, epoch))
-        grads = torch.autograd.grad(obj, [named[n] for n in trainable])
-        loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=epoch, noise=eps)
+        replay = branches["cuda_f32"].masks if run.endswith("branches") else None
+        branches[run] = _ReluBranches(replay) if align_relu else contextlib.nullcontext()
+        with branches[run]:
+            obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps,
+                                    **trainer._obj_kwargs(1.0, epoch))
+            grads = torch.autograd.grad(obj, [named[n] for n in trainable])
+        loss, step_details = trainer.train_step(xs, cfg.learning_rate, epoch=epoch, noise=eps)
         out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
-                        loss=loss.item(), skipped=details["nan_skipped"].item(),
+                        loss=loss.item(), skipped=step_details["nan_skipped"].item(),
                         stepped=trainer.opt.count.item())
 
-    ref = out["cpu_f64"]
+    ref = out["cpu_f64_on_cuda_branches" if align_relu else "cpu_f64"]
     cuda, cpu32 = (_step_errors(out[run], ref, trainable) for run in ("cuda_f32", "cpu_f32"))
     ok = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
           and cuda["grad_max_rel_err"] <= STEP_GRAD_TOL
           and all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values()))
-    emit({"phase": "jnf_parity", "objective": "m_jmvae_nf", "epoch": epoch,
-          "frozen_joint": True, "no_recon": cfg.no_recon, "trainable_leaves": len(trainable),
-          "reference": "cpu float64", "objective_ref": ref["obj"],
-          "objective_cuda": out["cuda_f32"]["obj"], "cuda_f32": cuda, "cpu_f32": cpu32,
-          "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
+    aligned = {}
+    if align_relu:
+        rb = branches["cpu_f64_on_cuda_branches"]
+        aligned = {"relu_calls": len(rb.masks), "relu_elements_on_other_branch": rb.flips,
+                   "relu_other_branch_max_abs_preact": rb.flip_max_abs,
+                   "relu_kink_atol": RELU_KINK_ATOL,
+                   "cuda_f32_vs_cpu_f64_own_branches": _step_errors(out["cuda_f32"],
+                                                                    out["cpu_f64"], trainable)}
+        ok = ok and len(rb.masks) == len(branches["cuda_f32"].masks) and \
+            rb.flip_max_abs <= RELU_KINK_ATOL
+    emit({"phase": phase, "objective": trainer.obj_name, "epoch": epoch, **details,
+          "trainable_leaves": len(trainable),
+          "reference": "cpu float64" + (" on the cuda step's ReLU branches" if align_relu else ""),
+          "objective_ref": ref["obj"], "objective_cuda": out["cuda_f32"]["obj"],
+          "cuda_f32": cuda, "cpu_f32": cpu32, **aligned, "objective_rtol": STEP_OBJ_RTOL,
+          "grad_tol": STEP_GRAD_TOL, "ok": ok})
     if not ok:
-        raise AssertionError("the cuda JNF step disagrees with the float64 cpu step")
+        raise AssertionError(f"{phase}: the cuda step disagrees with the float64 cpu step")
+
+
+def phase_jnf_parity(tmp):
+    """One post-warmup JNF step (frozen joint forward, unimodal
+    reconstructions on) against the float64 CPU step; the noise: the joint
+    forward's, compute_kld's joint sample, each unimodal forward."""
+    _step_parity(tmp, JNF, 4, "jnf_parity", JNF_RUN, frozen_joint=True, no_recon=False)
+
+
+def phase_telbo_slice(tmp):
+    """TELBO-NF (`configs/mnist_svhn/telbo_nf.json`: the JMVAE-NF model
+    with MAF flows, m_telbo_nf) through the CLI for 2 epochs, warmup 2
+    (`_frozen_slice`): past warmup each unimodal VAE's forward runs both
+    ar_solve kernels under autograd. Then its steady post-warmup step, and
+    the same step on cuda against the float64 CPU step (the noise: the joint
+    forward's, then each unimodal forward's)."""
+    import torch
+
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+
+    loader, out = _frozen_slice(tmp, TELBO_NF, "telbo_nf_slice", "m_telbo_nf")
+    cfg = ExperimentConfig.from_json(_slice_config(tmp, TELBO_NF, **JNF_RUN)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, loader, epoch=cfg.warmup)
+    emit({"phase": "telbo_nf_slice_time", "epoch": cfg.warmup, "train_step_ms": step_s * 1e3,
+          "steps_per_s": 1.0 / step_s, "eval_batch_ms": eval_ms,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), **prof})
+    _step_parity(tmp, TELBO_NF, 3, "telbo_nf_parity", JNF_RUN)
+    return out
+
+
+def phase_poe_slice(tmp, config, name):
+    """MVAE or MoE-PoE (m_self_built, no flow) through the CLI for one
+    epoch: no ar_solve launch, finite losses, no skipped step; its steady
+    step; then the step on cuda against the float64 CPU step (MVAE's noise
+    z_0, z_1, z_joint; MoE-PoE's one mixture draw), the reference on the
+    cuda step's ReLU branches (`_ReluBranches`)."""
+    import torch
+
+    cfg, train_loader, info, _ = _cli_epoch(tmp, config)
+    launches = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    emit({"phase": f"{name}_slice", "model": cfg.model, "objective": "m_self_built",
+          "beta_kl": cfg.beta_kl, **info})
+    if launches != (0, 0) or (info["train_steps"], info["val_batches"]) != (68, 7):
+        raise AssertionError(f"{name}: {info['train_steps']} train steps and "
+                             f"{info['val_batches']} val batches (expected 68+7); ar_solve "
+                             f"launched {launches} (expected none)")
+    if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
+        raise AssertionError(f"{name}: params on cuda {info['params_on_cuda']}, finite losses "
+                             f"{info['losses_finite']}, skipped {info['nan_skipped_fraction']:.1%}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader)
+    emit({"phase": f"{name}_slice_time", "train_step_ms": step_s * 1e3,
+          "steps_per_s": 1.0 / step_s, "pairs_per_s": cfg.batch_size / step_s,
+          "eval_batch_ms": eval_ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(), **prof})
+    _step_parity(tmp, config, 3 if name == "mvae" else 1, f"{name}_parity", align_relu=True)
+    return launches, info["run_path"]
 
 
 def phase_dcca(tmp):
@@ -1240,7 +1403,7 @@ def phase_eval_validate(tmp, runs):
     the forward launches: 4 per conditional sampling call (2 modalities x
     2 MAF blocks) for the flow families, one call per test batch for the
     coherence and one for the FID, and one for the gen_from_cond grids; the
-    flagship none; no backward launch anywhere."""
+    flagship, MVAE and MoE-PoE none; no backward launch anywhere."""
     from mmvae_tpu_torch.cli import validate
     from mmvae_tpu_torch.cli.common import get_or_train_classifiers, reload_model
 
@@ -1257,7 +1420,7 @@ def phase_eval_validate(tmp, runs):
             "--fid-encoder", "classifier", "--device", "cuda"])
         marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines
                  if l.startswith("[")}
-        expected = (0 if name == "flagship" else 4 * (2 * nb + 1), 0)
+        expected = (0 if name in NO_FLOW_RUNS else 4 * (2 * nb + 1), 0)
         values = {k: v["mean"] for k, v in summary.items()}
         ok = (launches == expected and all(0.0 <= values[k] <= 1.0 for k in
                                             ("acc_0_1", "acc_1_0", "joint_coherence"))
@@ -1277,13 +1440,16 @@ def phase_eval_validate(tmp, runs):
 
 def phase_eval_likelihoods(tmp, runs):
     """`cli/compute_likelihoods.py --bis` on cuda at K=1000 in chunks of 100
-    over the first 2 test batches of 500, one repeat, for each run: finite
-    values, the peak memory, the seconds per test batch, and the forward
+    over the first 2 test batches of 500 (MVAE and MoE-PoE: the first one),
+    one repeat, for each run: finite values, the peak memory, the seconds
+    per test batch, and the forward
     launches: per test batch and conditioning modality one per MAF block,
     IS chunk and model call of ROWS_PER_CALL rows (2 x 2 x 10 x 5 = 200 for
     the conditional likelihoods, as many again for JMVAE-NF's bis
-    proposals; MMVAE-NF has no bis estimator, the flagship no flow); no
-    backward launch. Then one JMVAE-NF batch of the
+    proposals; MMVAE-NF has no bis estimator, the flagship, MVAE and
+    MoE-PoE no flow); no backward launch. MVAE and MoE-PoE write
+    `likelihood`, both `cond_likelihood_i_j` and both
+    `conditional_likelihood_bis_i_j`. Then one JMVAE-NF batch of the
     protocol under torch.profiler: the ar_solve kernels' share of its
     device time."""
     import torch
@@ -1294,20 +1460,25 @@ def phase_eval_likelihoods(tmp, runs):
 
     calls = -(-500 // (EVAL_IS_ROWS // EVAL_BK))  # model calls per IS chunk of a batch
     cond = 2 * 2 * (EVAL_K // EVAL_BK) * calls  # modalities x MAF blocks x IS chunks x calls
-    per_batch = {"mmvae_nf": cond, "flagship": 0, "jnf": 2 * cond}
+    per_batch = {"mmvae_nf": cond, "flagship": 0, "jnf": 2 * cond, "mvae": 0, "moepoe": 0}
+    poe_keys = sorted(["likelihood", "cond_likelihood_0_1", "cond_likelihood_1_0",
+                       "conditional_likelihood_bis_0_1", "conditional_likelihood_bis_1_0"])
     out = {}
     for name, run in runs.items():
+        n_batches = POE_EVAL_BATCHES if name in ("mvae", "moepoe") else EVAL_MAX_BATCHES
         torch.cuda.reset_peak_memory_stats()
         summary, _, launches, wall = _counted(compute_likelihoods.main, [
             "--run-path", run, "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK),
-            "--repeats", "1", "--max-batches", str(EVAL_MAX_BATCHES), "--bis", "--device", "cuda"])
-        expected = (per_batch[name] * EVAL_MAX_BATCHES, 0)
+            "--repeats", "1", "--max-batches", str(n_batches), "--bis", "--device", "cuda"])
+        expected = (per_batch[name] * n_batches, 0)
         values = {k: v["mean"] for k, v in summary.items()}
         ok = launches == expected and all(math.isfinite(v) for v in values.values())
+        if name in ("mvae", "moepoe"):
+            ok = ok and sorted(values) == poe_keys
         emit({"phase": "eval_likelihoods", "run": name, "K": EVAL_K, "batch_size_K": EVAL_BK,
-              "test_batches": EVAL_MAX_BATCHES, "batch": 500, "metrics": values,
+              "test_batches": n_batches, "batch": 500, "metrics": values,
               "launches": list(launches), "expected_launches": list(expected),
-              "wall_s_incl_reload": wall, "s_per_test_batch": wall / EVAL_MAX_BATCHES,
+              "wall_s_incl_reload": wall, "s_per_test_batch": wall / n_batches,
               "peak_mem_bytes": torch.cuda.max_memory_allocated(), "ok": ok})
         if not ok:
             raise AssertionError(f"likelihoods on {name}: launches {launches} (expected "
@@ -1498,9 +1669,10 @@ class _CastNoise:
 
 
 def phase_eval_parity(tmp, runs):
-    """JMVAE-NF's conditional likelihoods and coherence (ns=1) on the first
-    16 rows of test batch 0 on cuda in float32 against the CPU in float64,
-    the same weights, classifiers and noise; K=200 in chunks of 100."""
+    """The conditional likelihoods (MVAE's joint likelihood too) and the
+    coherence (ns=1) on the first 16 rows of test batch 0 on cuda in
+    float32 against the CPU in float64, the same weights, classifiers and
+    noise, K=200 in chunks of 100: for the JMVAE-NF, MVAE and MoE-PoE runs."""
     import numpy as np
     import torch
 
@@ -1509,36 +1681,45 @@ def phase_eval_parity(tmp, runs):
     from mmvae_tpu_torch.eval import likelihoods as L
 
     exp = os.path.join(tmp, "experiments")
-    res = {}
-    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
-        cfg, bundle, loaders = reload_model(runs["jnf"], 500, dev)
-        bundle.model.to(dtype)
-        classifiers = get_or_train_classifiers(bundle, loaders, exp, cfg.seed, cfg=cfg, device=dev)
-        for c in classifiers:
-            c.model.to(dtype)
-        xs, labels = next(iter(loaders[1]))
-        xs = [torch.as_tensor(x[:PARITY_ROWS]).to(dev, dtype) for x in xs]
-        labels = [l[:PARITY_ROWS] for l in labels]
-        with torch.no_grad():
-            ll = L.compute_conditional_likelihoods(bundle.model, xs, bundle.spec,
-                                                   _CastNoise(1, dev, dtype), PARITY_K, EVAL_BK)
-            acc = C.compute_accuracies(bundle.model, classifiers, xs, labels,
-                                       _CastNoise(2, dev, dtype), bundle.spec,
-                                       n_data=PARITY_ROWS, ns=1)
-        res[dtype] = ({k: v.double().cpu().numpy() for k, v in ll.items()}, acc)
-    (ll64, acc64), (ll32, acc32) = res[torch.float64], res[torch.float32]
-    ll_err = max(float(np.max(np.abs(ll32[k] - ll64[k]) / np.abs(ll64[k]))) for k in ll64)
-    acc_err = max(abs(acc32[k] - acc64[k]) for k in acc64)
-    ok = ll_err <= EVAL_LL_RTOL and acc_err <= 1.0 / PARITY_ROWS + 1e-12
-    emit({"phase": "eval_parity", "run": "jnf", "rows": PARITY_ROWS, "K": PARITY_K,
-          "batch_size_K": EVAL_BK, "reference": "cpu float64",
-          "cond_likelihood_means_ref": {k: float(v.mean()) for k, v in ll64.items()},
-          "cond_likelihood_max_rel_err": ll_err, "coherence_ref": acc64, "coherence_cuda": acc32,
-          "coherence_max_abs_err": acc_err, "ll_rtol": EVAL_LL_RTOL,
-          "coherence_tol": f"1/{PARITY_ROWS}", "ok": ok})
-    if not ok:
-        raise AssertionError(f"eval on cuda off the float64 cpu run: likelihood rel err "
-                             f"{ll_err}, coherence {acc32} vs {acc64}")
+    for name in ("jnf", "mvae", "moepoe"):
+        res = {}
+        for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+            cfg, bundle, loaders = reload_model(runs[name], 500, dev)
+            bundle.model.to(dtype)
+            classifiers = get_or_train_classifiers(bundle, loaders, exp, cfg.seed, cfg=cfg,
+                                                   device=dev)
+            for c in classifiers:
+                c.model.to(dtype)
+            xs, labels = next(iter(loaders[1]))
+            xs = [torch.as_tensor(x[:PARITY_ROWS]).to(dev, dtype) for x in xs]
+            labels = [l[:PARITY_ROWS] for l in labels]
+            with torch.no_grad():
+                ll = L.compute_conditional_likelihoods(bundle.model, xs, bundle.spec,
+                                                       _CastNoise(1, dev, dtype), PARITY_K,
+                                                       EVAL_BK)
+                if name == "mvae":
+                    ll.update(L.joint_likelihood_mvae(bundle.model, xs, bundle.spec,
+                                                      _CastNoise(3, dev, dtype), PARITY_K,
+                                                      EVAL_BK))
+                acc = C.compute_accuracies(bundle.model, classifiers, xs, labels,
+                                           _CastNoise(2, dev, dtype), bundle.spec,
+                                           n_data=PARITY_ROWS, ns=1)
+            res[dtype] = ({k: v.double().cpu().numpy() for k, v in ll.items()}, acc)
+        (ll64, acc64), (ll32, acc32) = res[torch.float64], res[torch.float32]
+        errs = {k: float(np.max(np.abs(ll32[k] - ll64[k]) / np.abs(ll64[k]))) for k in ll64}
+        ll_err = max(errs.values())
+        acc_err = max(abs(acc32[k] - acc64[k]) for k in acc64)
+        ok = ll_err <= EVAL_LL_RTOL and acc_err <= 1.0 / PARITY_ROWS + 1e-12
+        emit({"phase": "eval_parity", "run": name, "rows": PARITY_ROWS, "K": PARITY_K,
+              "batch_size_K": EVAL_BK, "reference": "cpu float64",
+              "cond_likelihood_means_ref": {k: float(v.mean()) for k, v in ll64.items()},
+              "cond_likelihood_max_rel_err": ll_err, "max_rel_err_by_metric": errs,
+              "coherence_ref": acc64, "coherence_cuda": acc32,
+              "coherence_max_abs_err": acc_err, "ll_rtol": EVAL_LL_RTOL,
+              "coherence_tol": f"1/{PARITY_ROWS}", "ok": ok})
+        if not ok:
+            raise AssertionError(f"eval of {name} on cuda off the float64 cpu run: likelihood "
+                                 f"rel err {errs}, coherence {acc32} vs {acc64}")
 
 
 def main():
@@ -1577,8 +1758,12 @@ def main():
         phase_jnf_parity(tmp)
         dcca_path = phase_dcca(tmp)
         jnf_dcca = phase_jnf_dcca_slice(tmp, dcca_path)
+        telbo = phase_telbo_slice(tmp)
+        mvae, mvae_run = phase_poe_slice(tmp, MVAE, "mvae")
+        moepoe, moepoe_run = phase_poe_slice(tmp, MOEPOE, "moepoe")
         analytics = phase_analytics(sl)
-        runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"]}
+        runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"],
+                "mvae": mvae_run, "moepoe": moepoe_run}
         validate = phase_eval_validate(tmp, runs)
         likelihoods = phase_eval_likelihoods(tmp, runs)
         phase_eval_parity(tmp, runs)
@@ -1590,7 +1775,8 @@ def main():
     # flagship's are checked to be none in its phase
     by_path = {"mmvae_nf": (sl["launches"], sl["bwd_launches"]), "flagship": (0, 0),
                "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca,
-               "analytics_mmvae_nf": (analytics, 0),
+               "telbo_nf": (telbo["launches"], telbo["bwd_launches"]), "mvae": mvae,
+               "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()}}
 

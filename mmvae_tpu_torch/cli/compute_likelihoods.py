@@ -7,7 +7,8 @@ reference's compute_likelihoods.py).
 Per test batch, with K importance samples in chunks of --batch-size-k
 (compute_likelihoods.py:95-122): the conditional likelihoods
 cond_likelihood_i_j, the family's joint likelihood `likelihood` (MMVAE's
-Bernoulli-mixture proposal, JMVAE-NF's joint posterior; MMVAE-NF has none),
+and MoE-PoE's Bernoulli-mixture proposal, JMVAE-NF's joint posterior,
+MVAE's PoE with the prior; MMVAE-NF has none),
 and with --bis conditional_likelihood_bis_i_j (MMVAE-NF has no estimator
 for it, as in the reference). Each repeat's value is the mean over the test
 batches weighted by their sizes; likelihoods.json holds each metric's mean
@@ -33,13 +34,17 @@ import torch
 
 
 def joint_fn_for(model):
-    """The family's joint-likelihood estimator (compute_likelihoods.py:65-77)."""
+    """The family's joint-likelihood estimator (compute_likelihoods.py:65-77).
+    Bimodal MoE-PoE takes MMVAE's mixture proposal: the reference's own
+    MoE-PoE estimator is broken (moepoe.py:217-249 holds a deliberate 1/0)."""
     from ..eval import likelihoods as L
-    from ..models import JMVAE_NF, MMVAE
+    from ..models import JMVAE_NF, MMVAE, MOEPOE, MVAE
 
     if isinstance(model, JMVAE_NF):
         return L.joint_likelihood_jmvae_nf
-    if isinstance(model, MMVAE):
+    if isinstance(model, MVAE):
+        return L.joint_likelihood_mvae
+    if isinstance(model, MMVAE) or (isinstance(model, MOEPOE) and model.n_mod == 2):
         return L.joint_likelihood_mmvae
     return None
 

@@ -1,5 +1,6 @@
 """Importance-sampled likelihood estimators (mmvae_tpu/eval/likelihoods.py;
-reference multi_vaes.py:219-355, mmvae.py:121-234, jmvae_nf.py:87-143,209-270).
+reference multi_vaes.py:219-355, mmvae.py:121-234, jmvae_nf.py:87-143,209-270,
+mvae.py:219-264).
 
 Vectorised over datapoints: each IS chunk of `batch_size_K` samples runs
 for P datapoints in one model call of P * batch_size_K rows, and the K /
@@ -144,11 +145,10 @@ def compute_uni_ll_from_prior(model, data, mod: int, spec, noise: Noise, K: int 
 # joint likelihoods per family
 # ---------------------------------------------------------------------------
 
-def joint_likelihood_jmvae_nf(model, data, spec, noise: Noise, K: int = 1000,
-                              batch_size_K: int = 100):
-    """IS with the joint posterior as proposal (jmvae_nf.py:209-270)."""
-    mu, std = model.encode_joint(data)
-    n, bk = mu.shape[0], batch_size_K
+def _gaussian_proposal_is(model, data, spec, noise: Noise, mu, std, K: int, bk: int):
+    """Per-datapoint ln p(x, y) by IS with the proposal N(mu, std) (the
+    posterior family's, `spec.posterior`): weights lpx + lpz - lqz."""
+    n = mu.shape[0]
 
     def log_w(sl, eps):
         q = LocScale(_expand(mu[sl], bk), _expand(std[sl], bk))
@@ -160,7 +160,26 @@ def joint_likelihood_jmvae_nf(model, data, spec, noise: Noise, K: int = 1000,
     def draw():
         return (noise.draw(spec.posterior, (n, bk, mu.shape[1])),)
 
-    return {"likelihood": _chunked_is(draw, log_w, n, K, bk)}
+    return _chunked_is(draw, log_w, n, K, bk)
+
+
+def joint_likelihood_jmvae_nf(model, data, spec, noise: Noise, K: int = 1000,
+                              batch_size_K: int = 100):
+    """IS with the joint posterior as proposal (jmvae_nf.py:209-270)."""
+    mu, std = model.encode_joint(data)
+    return {"likelihood": _gaussian_proposal_is(model, data, spec, noise, mu, std, K,
+                                                batch_size_K)}
+
+
+def joint_likelihood_mvae(model, data, spec, noise: Noise, K: int = 1000,
+                          batch_size_K: int = 100):
+    """IS with the PoE of every expert and the prior as proposal
+    (mvae.py:219-264). JAX takes it from a full forward and discards that
+    forward's samples; the port computes the PoE alone: the same values, no
+    noise drawn for it."""
+    mu, std = model.poe_subset_params(range(len(data)), data)
+    return {"likelihood": _gaussian_proposal_is(model, data, spec, noise, mu, std, K,
+                                                batch_size_K)}
 
 
 def joint_likelihood_mmvae(model, data, spec, noise: Noise, K: int = 1000,
@@ -217,27 +236,17 @@ def joint_ll_from_uni_jmvae_nf(model, data, cond_mod: int, spec, noise: Noise, K
 def joint_ll_from_uni_gaussian(model, data, cond_mod: int, spec, noise: Noise, K: int = 1000,
                                batch_size_K: int = 100):
     """ln p(x, y) by IS with the unimodal encoder posterior q(z|x_cond) as
-    proposal, the MMVAE variant (mmvae.py:180-234)."""
+    proposal, the MMVAE variant (mmvae.py:180-234); MVAE's and MoE-PoE's
+    too, on their raw encoder posteriors (`encode_all`)."""
     mu, std = model.encode_all(data)[cond_mod]
-    n, bk = mu.shape[0], batch_size_K
-
-    def log_w(sl, eps):
-        q = LocScale(_expand(mu[sl], bk), _expand(std[sl], bk))
-        z = D.sample(spec.posterior, q, noise=eps)
-        lqz = torch.sum(D.log_prob(spec.posterior, q, z), dim=-1)
-        return (_lpx(spec, model.decode_all(z), [x[sl] for x in data], 1)
-                + _prior_log_prob(spec, z) - lqz)
-
-    def draw():
-        return (noise.draw(spec.posterior, (n, bk, mu.shape[1])),)
-
-    return {f"joint_ll_from_{cond_mod}": _chunked_is(draw, log_w, n, K, bk)}
+    return {f"joint_ll_from_{cond_mod}": _gaussian_proposal_is(model, data, spec, noise, mu, std,
+                                                               K, batch_size_K)}
 
 
 def joint_ll_from_uni_for(model):
     """The ln p(x, y)-from-a-unimodal-posterior estimator of the model's
     family: JMVAE-NF the flow posterior density, the families with
-    `encode_all` (MMVAE) the encoder posterior."""
+    `encode_all` (MMVAE, MVAE, MoE-PoE) the encoder posterior."""
     from ..models.jmvae_nf import JMVAE_NF
 
     if isinstance(model, JMVAE_NF):

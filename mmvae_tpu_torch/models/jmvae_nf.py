@@ -20,7 +20,7 @@ from torch import nn
 from ..core import distributions as D
 from ..core.constants import LOG2PI
 from ..core.distributions import LocScale
-from .vae import UnimodalVAE, gaussian_log_q_z0
+from .vae import UnimodalVAE, encoder_posteriors, gaussian_log_q_z0
 
 
 class JMVAE_NF(nn.Module):
@@ -114,11 +114,7 @@ class JMVAE_NF(nn.Module):
 
     def encode_all_unimodal(self, x):
         """Per-modality posterior params [(mu, std)]."""
-        params = []
-        for m, vae in enumerate(self.vaes):
-            mu, log_var = vae.encode(x[m])
-            params.append((mu, vae.posterior_std(log_var)))
-        return params
+        return encoder_posteriors(self.vaes, x)
 
     def vae_forward(self, x_m, m: int, K: int = 1, noise=None, generator=None):
         """Full forward of unimodal VAE m (jmvae_nf.py:134-137)."""

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..core import distributions as D
 from ..core.distributions import LocScale
-from .vae import UnimodalVAE
+from .vae import UnimodalVAE, encoder_posteriors
 
 
 class MMVAE(nn.Module):
@@ -35,11 +35,7 @@ class MMVAE(nn.Module):
 
     def encode_all(self, x):
         """Per-modality posterior params [(mu, std)] (mmvae.py:38-49)."""
-        params = []
-        for m, vae in enumerate(self.vaes):
-            mu, log_var = vae.encode(x[m])
-            params.append((mu, vae.posterior_std(log_var)))
-        return params
+        return encoder_posteriors(self.vaes, x)
 
     def encode_and_sample(self, x, K: int = 1, noise: Optional[Sequence] = None,
                           generator=None):

@@ -1,7 +1,7 @@
 """Model registry: config -> built model + spec + dataset wiring
-(mmvae_tpu/models/registry.py). MMVAE, MMVAE-NF and JMVAE-NF(-DCCA) on
-MNIST-SVHN are ported so far; every other model name of the JAX registry
-raises NotImplementedError.
+(mmvae_tpu/models/registry.py). The MNIST-SVHN models are ported: MMVAE,
+MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE; every other model name of the
+JAX registry raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ from ..objectives import ModelSpec
 from .jmvae_nf import JMVAE_NF
 from .mmvae import MMVAE
 from .mmvae_nf import MMVAE_NF
+from .moepoe import MOEPOE
+from .mvae import MVAE
 from .vae import UnimodalVAE
 
 
@@ -82,21 +84,43 @@ def mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
                        **_MS)
 
 
-def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
-    """MMVAE-NF (mmvae_nf/mnist_svhn.py): flow VAEs, normal posteriors."""
-    vaes = [
+def _gaussian_ms_vaes(cfg, with_flow: bool = False):
+    """The MNIST-SVHN VAEs with normal posteriors, with the config's flow or none."""
+    return [
         _vae(cfg, MLPEncoder(latent_dim=cfg.latent_dim, in_features=1 * 28 * 28),
              MLPDecoder(latent_dim=cfg.latent_dim, output_shape=(1, 28, 28)),
-             "mnist", posterior="normal", with_flow=True),
+             "mnist", posterior="normal", with_flow=with_flow),
         _vae(cfg, EncoderSVHN(latent_dim=cfg.latent_dim),
-             DecoderSVHN(latent_dim=cfg.latent_dim), "svhn",
-             posterior="normal", with_flow=True),
+             DecoderSVHN(latent_dim=cfg.latent_dim), "svhn", posterior="normal",
+             with_flow=with_flow),
     ]
-    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior="normal",
-                     recon_dists=tuple(cfg.recon_losses),
-                     lik_scaling=_ms_lik_scaling(cfg))
-    return ModelBundle(MMVAE_NF(vaes), spec, "mnist_svhn", "mmvae_nf_mnist_svhn",
-                       **_MS)
+
+
+def _gaussian_ms_spec(cfg) -> ModelSpec:
+    return ModelSpec(latent_dim=cfg.latent_dim, posterior="normal",
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=_ms_lik_scaling(cfg))
+
+
+def mmvae_nf_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE-NF (mmvae_nf/mnist_svhn.py): flow VAEs, normal posteriors."""
+    return ModelBundle(MMVAE_NF(_gaussian_ms_vaes(cfg, with_flow=True)), _gaussian_ms_spec(cfg),
+                       "mnist_svhn", "mmvae_nf_mnist_svhn", **_MS)
+
+
+def mvae_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
+    """MVAE (mvae/mnist_svhn.py): MMVAE's nets, normal posteriors."""
+    model = MVAE(_gaussian_ms_vaes(cfg), lik_scaling=_ms_lik_scaling(cfg))
+    return ModelBundle(model, _gaussian_ms_spec(cfg), "mnist_svhn", "mvae_mnist_svhn", **_MS)
+
+
+def moepoe_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
+    """MoE-PoE (moepoe/mnist_svhn.py): MMVAE's nets and likelihood scaling
+    (moepoe/mnist_svhn.py:52), normal posteriors; the KL weight is the
+    config's beta_kl, fixed here (the Trainer's per-epoch beta_kl does not
+    reach it)."""
+    model = MOEPOE(_gaussian_ms_vaes(cfg), lik_scaling=_ms_lik_scaling(cfg),
+                   recon_dists=tuple(cfg.recon_losses), beta_kl=cfg.beta_kl)
+    return ModelBundle(model, _gaussian_ms_spec(cfg), "mnist_svhn", "moepoe_mnist_svhn", **_MS)
 
 
 def _dcca_pair(cfg, builders, dim_first: int = 16, artifacts=None):
@@ -189,6 +213,8 @@ REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
     "mnist_svhn": mnist_svhn,
     "mmvae_nf_mnist_svhn": mmvae_nf_mnist_svhn,
     "jnf_mnist_svhn_dcca": jnf_mnist_svhn_dcca,
+    "mvae_mnist_svhn": mvae_mnist_svhn,
+    "moepoe_mnist_svhn": moepoe_mnist_svhn,
 }
 
 

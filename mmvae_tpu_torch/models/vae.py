@@ -27,6 +27,15 @@ def gaussian_log_q_z0(mu, log_var, z0):
     return torch.sum(-0.5 * (log_var + LOG2PI + (z0 - mu) ** 2 / torch.exp(log_var)), dim=-1)
 
 
+def encoder_posteriors(vaes, x):
+    """Each VAE's encoder posterior params [(mu, std)] on its modality x[m]."""
+    params = []
+    for m, vae in enumerate(vaes):
+        mu, log_var = vae.encode(x[m])
+        params.append((mu, vae.posterior_std(log_var)))
+    return params
+
+
 class UnimodalVAE(nn.Module):
     def __init__(self, encoder: nn.Module, decoder: nn.Module, latent_dim: int,
                  flow: Optional[nn.Module] = None, posterior: str = "normal",

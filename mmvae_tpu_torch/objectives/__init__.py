@@ -1,1 +1,3 @@
-from .objectives import ModelSpec, m_dreg_looser, m_elbo_nf, m_jmvae_nf, resolve  # noqa: F401
+from .objectives import (  # noqa: F401
+    ModelSpec, m_dreg_looser, m_elbo_nf, m_jmvae_nf, m_self_built, m_telbo_nf, resolve,
+)

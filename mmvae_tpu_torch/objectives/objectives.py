@@ -219,6 +219,22 @@ def _joint_kld_prior(mu, std):
     return torch.sum(-0.5 * torch.sum(1 + log_var - mu ** 2 - torch.exp(log_var), dim=-1))
 
 
+def _joint_terms(model, x, spec: ModelSpec, noise, generator):
+    """The joint forward's scaled reconstruction losses and prior KL, shared
+    by JMVAE-NF and TELBO (objectives.py:179-220, 223-259): (loss, details)
+    with loss = -sum_m loss_m, details loss_{m}, loss and kld_prior."""
+    out = model(x, noise=noise, generator=generator)
+    details = {}
+    loss = 0.0
+    for m, xm in enumerate(x):
+        l_m = recon_pointwise_loss(spec.recon_dists[m], out["recons"][m], xm) * spec.lik_scaling[m]
+        details[f"loss_{m}"] = l_m
+        loss = loss - l_m
+    details["loss"] = loss
+    details["kld_prior"] = _joint_kld_prior(*out["qz_xy"])
+    return loss, details
+
+
 def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0,
                beta_kl=1.0, past_warmup=None, frozen_joint=False, noise=None,
                generator=None, **kw):
@@ -240,16 +256,7 @@ def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
     frozen_joint = bool(frozen_joint) and bool(past_warmup)
     noise = [None] * (2 + len(x)) if noise is None else list(noise)
     with torch.no_grad() if frozen_joint else nullcontext():
-        out = model(x, noise=noise[0], generator=generator)
-    mu, std = out["qz_xy"]
-    details = {}
-    loss = 0.0
-    for m, xm in enumerate(x):
-        l_m = recon_pointwise_loss(spec.recon_dists[m], out["recons"][m], xm) * spec.lik_scaling[m]
-        details[f"loss_{m}"] = l_m
-        loss = loss - l_m
-    details["loss"] = loss
-    details["kld_prior"] = _joint_kld_prior(mu, std)
+        loss, details = _joint_terms(model, x, spec, noise[0], generator)
     if spec.linear_warmup:
         beta_reg = min((epoch - 1) / warmup, 1.0) if warmup > 0 else 1.0
     else:
@@ -267,6 +274,65 @@ def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
     return obj, {k: v.detach() for k, v in details.items()}
 
 
+# ===========================================================================
+# TELBO (objectives.py:223-259)
+# ===========================================================================
+
+def _vae_neg_elbo(spec: ModelSpec, m: int, vout, x):
+    """my_VAE.loss_function (vae_model_adapted.py:104-124): 0.5 * squared
+    error ("mse") or the clipped binary cross-entropy, plus the analytic
+    KL of (mu, log_var) to the prior (the flow's log-det is not in it),
+    summed over the batch."""
+    recon, mu, log_var = vout["recon"], vout["mu"], vout["log_var"]
+    r = recon.reshape(x.shape[0], -1)
+    t = x.reshape(x.shape[0], -1)
+    if spec.vae_recon_losses[m] == "mse":
+        recon_loss = 0.5 * torch.sum((r - t) ** 2, dim=-1)
+    else:
+        rc = torch.clamp(r, 1e-7, 1 - 1e-7)
+        recon_loss = -torch.sum(t * torch.log(rc) + (1 - t) * torch.log1p(-rc), dim=-1)
+    kld = -0.5 * torch.sum(1 + log_var - mu ** 2 - torch.exp(log_var), dim=-1)
+    return torch.sum(recon_loss + kld)
+
+
+def m_telbo_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0,
+               past_warmup=None, noise=None, generator=None, **kw):
+    """TELBO with a joint warmup, then the unimodal VAEs' ELBOs
+    (objectives.py:223-259). The joint term stays in the objective past
+    warmup, where the Trainer's freezing keeps it from training the frozen
+    joint encoder and decoders; unlike m_jmvae_nf there is no detached
+    joint path (the Trainer's `frozen_joint` lands in **kw), and
+    `spec.no_recon` is not read. Past warmup each unimodal VAE runs its
+    full forward under autograd: with a flow, its sampling direction, the
+    fused solve.
+
+    noise: standard-normal noise in draw order, the joint forward's, then
+    each modality's unimodal VAE forward (past warmup); or None to draw
+    from `generator`."""
+    if past_warmup is None:
+        past_warmup = epoch >= warmup
+    noise = [None] * (1 + len(x)) if noise is None else list(noise)
+    loss, details = _joint_terms(model, x, spec, noise[0], generator)
+    if past_warmup:
+        for m, xm in enumerate(x):
+            vout = model.vae_forward(xm, m, noise=noise[1 + m], generator=generator)
+            neg_elbo = _vae_neg_elbo(spec, m, vout, xm) * spec.lik_scaling[m]
+            details[f"neg_elbo_{m}"] = neg_elbo
+            loss = loss - neg_elbo
+    obj = loss - beta_prior * details["kld_prior"]
+    return obj, {k: v.detach() for k, v in details.items()}
+
+
+# ===========================================================================
+# MVAE / MoE-PoE (objectives.py:481-483)
+# ===========================================================================
+
+def m_self_built(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """The model's own ELBO (MVAE, MoE-PoE build it in their forward), with
+    no details. K reaches nothing, as in the JAX package."""
+    return model(x, noise=noise, generator=generator)["elbo"], {}
+
+
 OBJECTIVES = {
     "m_elbo_naive": m_elbo_naive,
     "m_elbo": m_elbo,
@@ -276,6 +342,8 @@ OBJECTIVES = {
     "m_dreg_looser": m_dreg_looser,
     "m_elbo_nf": m_elbo_nf,
     "m_jmvae_nf": m_jmvae_nf,
+    "m_telbo_nf": m_telbo_nf,
+    "m_self_built": m_self_built,
 }
 
 

@@ -21,6 +21,11 @@ its kernel launches, the Cholesky CCA loss and the singular-value
 Function's backward on the card against float64 on the CPU, and the DCCA
 Solver's RMSprop step on the card against the CPU.
 
+TELBO-NF, MVAE and MoE-PoE: a post-warmup TELBO-NF step, whose unimodal
+VAE forwards run both kernels under autograd, against the same step through
+the plain solve on the card; an MVAE and a MoE-PoE step, which launch no
+kernel.
+
 Evaluation: the forward kernel under no_grad at eval's row counts (no
 tape, one launch per call), and a tiny validate and compute_likelihoods on
 cuda with their launch counts.
@@ -355,6 +360,88 @@ def test_jnf_post_warmup_step_on_card(card):
     for n, p in bundle.model.named_parameters():
         if n in frozen:
             assert torch.equal(p, frozen[n]), n
+
+
+TELBO_NF = "configs/mnist_svhn/telbo_nf.json"
+
+
+def _card_batch(card, n=16, latent=20, n_noise=3, seed=18):
+    gen = torch.Generator().manual_seed(seed)
+    xs = [torch.rand(n, 1, 28, 28, generator=gen).to(card),
+          torch.rand(n, 3, 32, 32, generator=gen).to(card)]
+    return xs, [torch.randn(n, latent, generator=gen).to(card) for _ in range(n_noise)]
+
+
+@pytest.mark.cuda
+def test_telbo_nf_post_warmup_step_on_card(card):
+    """One post-warmup TELBO-NF step on cuda (telbo_nf.json: latent 20,
+    B=16, full-width nets, MAF flows): the unimodal VAE forwards run both
+    ar_solve kernels under autograd, 4 forward and 4 backward launches (2
+    modalities x 2 MAF blocks). The objective and every gradient leaf
+    against the same step through the plain solve on the card (rtol 1e-4;
+    each leaf to 1e-4 of its largest entry); then the Trainer's step
+    leaves the joint encoder and decoders untouched."""
+    from mmvae_tpu_torch.objectives import m_telbo_nf
+
+    cfg = ExperimentConfig.from_json(TELBO_NF)
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device=card)
+    trainer.init_parameters()
+    trainer.init_opt_state(past_warmup=True, amsgrad=False)
+    model, params = bundle.model, list(bundle.model.parameters())
+    xs, eps = _card_batch(card)
+    flows = [v.flow for v in model.vaes]
+
+    def objective_and_grads(fused):
+        for f in flows:
+            f.use_fused = fused
+        obj, _ = m_telbo_nf(model, xs, bundle.spec, epoch=cfg.warmup, warmup=cfg.warmup,
+                            noise=eps)
+        grads = torch.autograd.grad(obj, params, allow_unused=True)
+        return obj.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    plain_obj, plain_grads = objective_and_grads(False)
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    obj, grads = objective_and_grads(True)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (4, 4)
+    assert obj == pytest.approx(plain_obj, rel=1e-4)
+    for (name, _), g, ref in zip(model.named_parameters(), grads, plain_grads):
+        scale = ref.abs().max().clamp_min(1e-30)
+        assert ((g - ref).abs().max() / scale).item() <= 1e-4, name
+
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if "joint_encoder" in n or "decoder" in n}
+    loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=cfg.warmup)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (8, 8)
+    assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
+    assert details["neg_elbo_0"].item() > 0
+    for n, p in model.named_parameters():
+        if n in frozen:
+            assert torch.equal(p, frozen[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["configs/mnist_svhn/mvae_synth.json",
+                                    "configs/mnist_svhn/moepoe_synth.json"])
+def test_poe_family_step_on_card(card, config):
+    """One MVAE and one MoE-PoE train step on cuda (latent 20, B=16,
+    full-width nets): no ar_solve launch (no flow), a finite loss, no
+    skipped step, every parameter on the card after the step."""
+    cfg = ExperimentConfig.from_json(config)
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device=card)
+    trainer.init_parameters()
+    trainer.init_opt_state()
+    xs, _ = _card_batch(card, n_noise=0)
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    loss, details = trainer.train_step(xs, cfg.learning_rate)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (0, 0)
+    assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
+    assert trainer.opt.count.item() == 1
+    assert all(p.is_cuda for p in bundle.model.parameters())
 
 
 def _views(n, d, seed):

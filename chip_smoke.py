@@ -108,7 +108,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    decoder with cuDNN, with cudnn.benchmark and without cuDNN), what the
    rows of an IS call trade between memory and time, and ten small test
    batches in one likelihood call against one call each.
-21. The kernels line, and last the contract line
+21. gen_slice: the ms_small augmentation experiment through the CLIs on
+   cuda at full width and the published data (synthetic_n 20,000,
+   len_train 10,000): `jnf_synth.json` (2 epochs, warmup 2; published
+   200/100) publishes the joint-encoder pool; `generate_joint --n 9000`
+   fits a 10-component mixture by EM on the 8,960 train latents and
+   decodes 9,000 samples; `jnf_gen_synth.json` (1 epoch) appends them
+   (use_gen); `validate --prd` on it; `plot_results` in its three modes;
+   a `use_pretrain` resume (1 epoch). Checks the printed count, the train
+   pairs (9,000, then 18,000), the joint encoder and decoders bit-unchanged,
+   finite losses and no skipped step, PRD in [0, 1], valid PNGs, the
+   resume's args and starting parameters, and each path's ar_solve launches
+   as predicted (phase_gen_slice); then stage 2's steady step and the
+   times of generate_joint's parts and of PRD (gen_slice_time).
+22. gen_parity: k-means, EM, the mixture's density, PRD and the Bernoulli
+   log-density on the card in float64 against the CPU in float64 from the
+   same inputs and starts.
+23. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1722,9 +1738,360 @@ def phase_eval_parity(tmp, runs):
                                  f"rel err {errs}, coherence {acc32} vs {acc64}")
 
 
+# ---------------------------------------------------------------------------
+# the ms_small augmentation pipeline (configs/ms_small)
+# ---------------------------------------------------------------------------
+
+GEN_STAGE1 = os.path.join(ROOT, "configs", "ms_small", "jnf_synth.json")
+GEN_STAGE2 = os.path.join(ROOT, "configs", "ms_small", "jnf_gen_synth.json")
+GEN_N = 9000
+GEN_SYNTHETIC_N = 20_000  # as published
+GEN_TRAIN_PAIRS = 9000  # len_train 10,000 less the 1,000-pair val split
+# published 200/100 epochs: cut to one warmup epoch and one after it
+# (past_warmup is epoch >= warmup, so warmup 2 leaves epoch 1 in warmup)
+GEN_RUN1 = dict(epochs=2, warmup=2)
+# skip_warmup starts at epoch = warmup: one epoch, for stage 2 and the resume
+GEN_RUN2 = dict(epochs=1, warmup=1)
+GEN_PLOTS = (("prd_curves.png", ["--prd-curves", "--direction", "1"]),
+             ("acc_0_1.png", ["--metric", "acc_0_1"]), ("losses.png", ["--losses"]))
+GEN_PARITY_RTOL = 1e-9
+GEN_PARITY_EXACT_RTOL = 1e-12
+
+
+class _Timers:
+    """Wraps module attributes so that each call's seconds, synchronized
+    on the card, add up under the attribute's name; restores them on exit."""
+
+    def __init__(self, *targets):
+        self.targets, self.seconds, self.calls = targets, {}, {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t0
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return out
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _run_checks(run):
+    """(losses finite, skipped steps, epochs run) of a train run dir."""
+    with open(os.path.join(run, "losses.json")) as f:
+        losses = json.load(f)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    finite = all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
+    skipped = sum(r.get("train_nan_skipped", 0.0) for r in rows)
+    return finite, skipped, len(losses["train_loss"])
+
+
+def _train_count(lines):
+    (line,) = [l for l in lines if l.startswith("Train: ")]
+    return int(line.split()[1].rstrip(","))
+
+
+def phase_gen_slice(tmp, jnf_run):
+    """The ms_small augmentation experiment through the port's CLIs on cuda,
+    at full width (B=128, latent 20, MLP 512, SVHN f_base 32, 2 MAF blocks
+    of 3x128 per modality) and the published data (synthetic_n 20,000,
+    len_train 10,000: 9,000 train pairs after the 1,000-pair val split):
+
+    1. train `jnf_synth.json` (epochs 2, warmup 2), which publishes the
+       joint-encoder pool (save_joint);
+    2. `generate_joint --n 9000`: the joint encoder's means of the train
+       batches (70 of 128: 8,960 latents), a 10-component mixture by EM,
+       9,000 samples decoded, their joint coherence;
+    3. train `jnf_gen_synth.json` (one epoch): skip_warmup reloads the pool,
+       use_gen appends the 9,000 generated pairs;
+    4. `validate --fid-encoder classifier --prd --repeats 1` on stage 2;
+    5. `plot_results` in its three modes (its acc_0_1 figure beside the
+       validated JMVAE-NF run `jnf_run`);
+    6. a `use_pretrain` resume of stage 2 (one epoch).
+
+    Launch counts predicted from the code, each path counted from 0: the
+    configs set no_recon, so past warmup compute_kld runs only the flows'
+    density direction (no sequential solve) and no train step or val batch
+    launches a kernel in either stage; the grids of epoch 1 sample 8
+    conditionals of 8 val rows per modality, 2 modalities x 2 MAF blocks =
+    4 forward launches (stages 1 and 2; the resume's epoch 2 writes none,
+    freq_analytics 5); generate_joint encodes jointly and decodes (none);
+    validate 4 per conditional sampling call: coherence and FID per test
+    batch and the gen_from_cond grids once, 4 * (2 * nb + 1); no backward
+    launch anywhere."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli import generate_joint, plot_results, train, validate
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.data.loaders import ArrayLoader, PairedDataset
+    from mmvae_tpu_torch.eval import cluster, coherence, generation, gmm
+    from mmvae_tpu_torch.train import Trainer
+
+    exp = os.path.join(tmp, "experiments")
+    common = ["--experiments-dir", exp, "--device", "cuda"]
+    data = dict(analytics=True, synthetic_n=GEN_SYNTHETIC_N)
+    t_phase = time.perf_counter()
+
+    cfg1_path, _ = _slice_config(tmp, GEN_STAGE1, **data, **GEN_RUN1)
+    run1, lines1, n1, s1 = _counted(train.main, ["--config-path", cfg1_path, *common])
+
+    pool = os.path.join(exp, "joint_encoders", "mnist_svhn_small_synth")
+    with _Timers((gmm, "fit_sampler_on_train_latents"), (cluster, "kmeans"),
+                 (cluster, "fit_gaussian_mixture"), (gmm.GaussianMixtureSampler, "sample"),
+                 (generation, "generate"), (coherence, "compute_joint_accuracy")) as timers:
+        joint_acc, lines_gen, n_gen, s_gen = _counted(
+            generate_joint.main, ["--run-path", run1, "--n", str(GEN_N), *common])
+    sec = timers.seconds
+    em = next(l for l in lines_gen if l.startswith("GMM fitted on "))
+    n_latents, n_iter = int(em.split()[3]), int(em.split("(")[1].split()[0])
+    gen_parts = {"latent_pass_s": sec["fit_sampler_on_train_latents"]
+                 - sec["fit_gaussian_mixture"],
+                 "kmeans_s": sec["kmeans"], "em_s": sec["fit_gaussian_mixture"] - sec["kmeans"],
+                 "em_iterations": n_iter, "sampling_s": sec["sample"],
+                 "decode_s": sec["generate"] - sec["sample"],
+                 "coherence_s": sec["compute_joint_accuracy"], "total_s": s_gen}
+    generated = [np.load(os.path.join(pool, f"generated_modality_{i}.npy")) for i in (0, 1)]
+
+    cfg2_path, _ = _slice_config(tmp, GEN_STAGE2, **data, **GEN_RUN2)
+    state_pool = {f"joint_encoder.{k}": v for k, v in torch.load(
+        os.path.join(pool, "model_joint_encoder.pt"), weights_only=True).items()}
+    for i in (0, 1):
+        state_pool.update({f"vaes.{i}.decoder.{k}": v for k, v in torch.load(
+            os.path.join(pool, f"model_vaes_{i}_decoder.pt"), weights_only=True).items()})
+    run2, lines2, n2, s2 = _counted(train.main, ["--config-path", cfg2_path, *common])
+    state1 = torch.load(os.path.join(run1, "model.pt"), weights_only=True)
+    state2 = torch.load(os.path.join(run2, "model.pt"), weights_only=True)
+    frozen_moved = [n for n, v in state_pool.items() if not torch.equal(v, state2[n])]
+    trained = [n for n in state2 if n not in state_pool and not torch.equal(state1[n], state2[n])]
+
+    cfg2 = ExperimentConfig.from_json(cfg2_path)
+    nb = len(reload_model(run2, 500, "cuda")[2][1])
+    summary, lines_val, n_val, s_val = _counted(validate.main, [
+        "--run-path", run2, "--repeats", "1", "--fid-encoder", "classifier", "--prd", *common])
+    marks = {l.split("] ", 1)[1]: float(l.split("+")[1].split("s]")[0]) for l in lines_val
+             if l.startswith("  [fid +")}
+    prd_s = {d: marks[f"prd {d}"] - marks[f"frechet distance {d}"] for d in ("0", "1")}
+
+    # the PRD curve of stage 2; acc_0_1 of the JMVAE-NF run (phase
+    # eval_validate) beside stage 2's; the losses of both stages
+    plot_runs = {"--prd-curves": [run2], "--metric": [jnf_run, run2], "--losses": [run1, run2]}
+    plot_labels = {"--prd-curves": ["stage2"], "--metric": ["jmvae_nf", "stage2"],
+                   "--losses": ["stage1", "stage2"]}
+    plots = {}
+    for name, mode in GEN_PLOTS:
+        out = os.path.join(tmp, name)
+        _, _, n_plot, _ = _counted(plot_results.main, [
+            "--runs", *plot_runs[mode[0]], "--labels", *plot_labels[mode[0]], "--out", out,
+            *mode])
+        with open(out + ".json") as f:
+            plots[name] = {"size": _png_ok(out), "legend": json.load(f)["legend"],
+                           "launches": n_plot}
+
+    starts = []
+    init_opt_state = Trainer.init_opt_state
+
+    def probe(self, *args, **kwargs):
+        if not starts:
+            starts.append({n: t.detach().clone() for n, t in self.model.state_dict().items()})
+        return init_opt_state(self, *args, **kwargs)
+
+    cfg3_path, _ = _slice_config(tmp, GEN_STAGE2, **data, **GEN_RUN2, use_pretrain=run2)
+    Trainer.init_opt_state = probe
+    try:
+        run3, lines3, n3, s3 = _counted(train.main, ["--config-path", cfg3_path, *common])
+    finally:
+        Trainer.init_opt_state = init_opt_state
+    with open(os.path.join(run3, "args.json")) as f:
+        args3 = json.load(f)
+    resumed_equal = sorted(starts[0]) == sorted(state2) and all(
+        torch.equal(starts[0][n], v) for n, v in state2.items())
+
+    grids = {}
+    for run, tag in ((run1, "stage1"), (run2, "stage2")):
+        for n in [f"cond_samples_{r}x{o}_001.png" for r in (0, 1) for o in (0, 1)] + \
+                ["generate_001.png"]:
+            grids[f"{tag}/{n}"] = _png_ok(os.path.join(run, n))
+    for n in ("generate_val.png", "gen_from_cond_0.png", "gen_from_cond_1.png",
+              "prd_curve_0.png", "prd_curve_1.png"):
+        grids[f"validate/{n}"] = _png_ok(os.path.join(run2, n))
+
+    checks = {run: _run_checks(path) for run, path in
+              (("stage1", run1), ("stage2", run2), ("resume", run3))}
+    launches = {"stage1": n1, "generate_joint": n_gen, "stage2": n2, "validate_prd": n_val,
+                "plot_results": tuple(map(sum, zip(*(p["launches"] for p in plots.values())))),
+                "resume": n3}
+    expected = {"stage1": (4, 0), "generate_joint": (0, 0), "stage2": (4, 0),
+                "validate_prd": (4 * (2 * nb + 1), 0), "plot_results": (0, 0), "resume": (0, 0)}
+    train1, train2 = _train_count(lines1), _train_count(lines2)
+    prd = {k: summary[k]["mean"] for k in ("prd_f8_0", "prd_f8_1", "prd_f1_8_0", "prd_f1_8_1")}
+    appended = f"use_gen: appended {GEN_N} generated pairs"
+    result = {
+        "phase": "gen_slice", "configs": [os.path.basename(GEN_STAGE1),
+                                          os.path.basename(GEN_STAGE2)],
+        "train_pairs_stage1": train1, "train_pairs_stage2": train2,
+        "gmm_latents": n_latents, "generated": [list(g.shape) for g in generated],
+        "use_gen_printed": appended in lines2, "frozen_params_compared": len(state_pool),
+        "frozen_params_moved": frozen_moved, "trained_params_moved": len(trained),
+        "joint_coherence_gmm": joint_acc, "metrics": {k: v["mean"] for k, v in summary.items()},
+        "prd": prd, "prd_seconds_by_direction": prd_s, "generate_joint": gen_parts,
+        "plots": plots, "grids": grids, "losses_finite_skipped_epochs": checks,
+        "resume_args": {k: args3[k] for k in ("epochs", "warmup", "use_pretrain")},
+        "resume_starts_at_stage2": resumed_equal, "launches": launches,
+        "expected_launches": expected, "test_batches": nb,
+        "seconds": {"stage1": s1, "generate_joint": s_gen, "stage2": s2, "validate_prd": s_val,
+                    "resume": s3, "phase": time.perf_counter() - t_phase}}
+    emit(result)
+    problems = []
+    if launches != expected:
+        problems.append(f"launches {launches}, expected {expected}")
+    if not result["use_gen_printed"] or train2 != train1 + GEN_N or train1 != GEN_TRAIN_PAIRS:
+        problems.append(f"train pairs {train1} -> {train2}; printed {appended!r}: "
+                        f"{result['use_gen_printed']}")
+    if generated[0].shape != (GEN_N, 1, 28, 28) or generated[1].shape != (GEN_N, 3, 32, 32):
+        problems.append(f"generated {result['generated']}")
+    if frozen_moved or not state_pool or not trained:
+        problems.append(f"frozen moved {frozen_moved[:5]}; trained moved {len(trained)}")
+    if any(not f or sk for f, sk, _ in checks.values()) or \
+            [e for *_, e in checks.values()] != [2, 1, 1]:
+        problems.append(f"losses finite / skipped / epochs: {checks}")
+    if not all(0.0 <= v <= 1.0 for v in prd.values()) or not 0.0 <= joint_acc <= 1.0:
+        problems.append(f"prd {prd}, joint coherence {joint_acc}")
+    if (args3["epochs"], args3["warmup"]) != (2, 2) or not resumed_equal:
+        problems.append(f"resume args {result['resume_args']}, starts at stage 2's "
+                        f"parameters: {resumed_equal}")
+    if problems:
+        raise AssertionError("gen_slice: " + "; ".join(problems))
+
+    # stage 2's steady step (past warmup, frozen joint, no_recon) on its own
+    # train set: stage 1's pairs and the generated ones
+    ds = reload_model(run2, device="cuda")[2][0].dataset
+    merged = PairedDataset([np.concatenate([m, g]) for m, g in zip(ds.modalities, generated)],
+                           [np.concatenate([l, np.zeros(GEN_N, l.dtype)]) for l in ds.labels])
+    loader2 = ArrayLoader(merged, cfg2.batch_size, shuffle=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg2, loader2, epoch=cfg2.warmup)
+    emit({"phase": "gen_slice_time", "train_step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
+          "eval_batch_ms": eval_ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(), **prof})
+    return {k: tuple(v) for k, v in launches.items()}, run1
+
+
+def phase_gen_parity(run1):
+    """The port's k-means, mixture EM, mixture density, PRD and Bernoulli
+    family on the card in float64 against the CPU in float64, from the same
+    inputs and starts: the stage-1 train latents (the joint encoder's means
+    on the card, as generate_joint takes them); k-means from k-means++
+    centers drawn on the CPU; EM from that labelling's weights, means and
+    precisions; the mixture's log-density with the CPU fit's parameters;
+    PRD of 8,960 mixture samples against the latents, clustered from one
+    start; the Bernoulli log-density of the MNIST decoder's output on a
+    test batch."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.cli.generate_joint import latent_fn
+    from mmvae_tpu_torch.core import distributions as D
+    from mmvae_tpu_torch.eval import cluster, prd
+    from mmvae_tpu_torch.eval.gmm import GaussianMixtureSampler
+
+    cfg, bundle, loaders = reload_model(run1, device="cuda")
+    infer = latent_fn(bundle.model, torch.device("cuda"), torch.float32)
+    lat = torch.cat([infer(xs) for xs, _ in loaders[0]]).double()
+    x = {"cpu": lat.cpu(), "cuda": lat}
+    out, errs, secs = {}, {}, {}
+
+    def rel(a, b):
+        """max |a - b| over max |b|"""
+        a, b = (torch.as_tensor(v).double().cpu() for v in (a, b))
+        return float((a - b).abs().max() / b.abs().max())
+
+    init = cluster.kmeans_plusplus(x["cpu"], 10, torch.Generator().manual_seed(0))
+    km, fits = {}, {}
+    for dev in ("cpu", "cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km[dev] = cluster.kmeans(x[dev], 10, init=init.to(dev))
+        torch.cuda.synchronize()
+        secs[f"kmeans_{dev}"] = time.perf_counter() - t0
+    start = cluster.init_from_labels(x["cpu"], km["cpu"].labels, 10)
+    gmm_init = (start.weights, start.means, torch.linalg.inv(start.covariances))
+    for dev in ("cpu", "cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[dev] = GaussianMixtureSampler(10).fit(x[dev], init=tuple(a.to(dev) for a in gmm_init))
+        torch.cuda.synchronize()
+        secs[f"em_{dev}"] = time.perf_counter() - t0
+    out["kmeans_labels_equal"] = bool(torch.equal(km["cpu"].labels, km["cuda"].labels.cpu()))
+    out["kmeans_iterations"] = [km["cpu"].n_iter, km["cuda"].n_iter]
+    errs["kmeans_inertia"] = rel(km["cuda"].inertia, km["cpu"].inertia)
+    out["em_iterations"] = [fits["cpu"].fit_result.n_iter, fits["cuda"].fit_result.n_iter]
+    for name, a, b in zip(("weights", "means", "covariances"), fits["cuda"].params[:3],
+                          fits["cpu"].params[:3]):
+        errs[f"em_{name}"] = rel(a, b)
+    errs["em_lower_bound"] = rel(fits["cuda"].fit_result.lower_bound,
+                                 fits["cpu"].fit_result.lower_bound)
+    p = fits["cpu"].params
+    on_card = GaussianMixtureSampler.from_params(p.weights, p.means, p.covariances, "cuda")
+    errs["gmm_log_prob"] = rel(on_card.log_prob(x["cuda"]), fits["cpu"].log_prob(x["cpu"]))
+
+    samples = fits["cpu"].sample(len(lat), torch.Generator().manual_seed(1), torch.float64)
+    union = torch.cat([samples, x["cpu"]])
+    start20 = cluster.kmeans_plusplus(union, 20, torch.Generator().manual_seed(2))
+    bins, curves, pairs, labels = {}, {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        labels[dev] = cluster.kmeans(union.to(dev), 20, init=start20.to(dev)).labels
+        bins[dev] = prd._histogram_bins(labels[dev], len(samples), 20)
+        curves[dev] = prd.compute_prd(*bins[dev])
+        pairs[dev] = prd.prd_to_max_f_beta_pair(*curves[dev])
+    out["prd_labels_equal"] = bool(torch.equal(labels["cpu"], labels["cuda"].cpu()))
+    out["prd_bins_equal"] = all(torch.equal(a.cpu(), b) for a, b in zip(bins["cuda"], bins["cpu"]))
+    errs["prd_precision"] = rel(curves["cuda"][0], curves["cpu"][0])
+    errs["prd_recall"] = rel(curves["cuda"][1], curves["cpu"][1])
+    errs["prd_f_beta_pair"] = rel(pairs["cuda"], pairs["cpu"])
+    out["prd_f_beta_pair"] = pairs["cpu"]
+
+    xs, _ = next(iter(loaders[1]))
+    with torch.no_grad():
+        probs = bundle.model.vaes[0].decode(lat[: len(xs[0])].float()).double()
+    target = torch.as_tensor(np.asarray(xs[0])).double()
+    lp = {dev: D.log_prob("bernoulli", D.LocScale(probs.to(dev), torch.ones_like(probs, device=dev)),
+                          target.to(dev)) for dev in ("cpu", "cuda")}
+    errs["bernoulli_log_prob"] = rel(lp["cuda"], lp["cpu"])
+    out["bernoulli_log_prob_mean_per_image"] = float(lp["cpu"].reshape(len(target), -1).sum(1).mean())
+
+    tol = {k: (GEN_PARITY_RTOL if k.startswith(("em_", "kmeans")) else GEN_PARITY_EXACT_RTOL)
+           for k in errs}
+    ok = (out["kmeans_labels_equal"] and out["prd_labels_equal"] and out["prd_bins_equal"]
+          and out["em_iterations"][0] == out["em_iterations"][1]
+          and all(errs[k] <= tol[k] for k in errs))
+    emit({"phase": "gen_parity", "latents": list(lat.shape), "reference": "cpu float64",
+          **out, "max_rel_err": errs, "rtol": tol, "seconds": secs, "ok": ok})
+    if not ok:
+        raise AssertionError(f"gen_parity: {out} {errs}")
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -1768,6 +2135,8 @@ def main():
         likelihoods = phase_eval_likelihoods(tmp, runs)
         phase_eval_parity(tmp, runs)
         phase_eval_memory(runs)
+        gen, gen_run1 = phase_gen_slice(tmp, runs["jnf"])
+        phase_gen_parity(gen_run1)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1778,7 +2147,8 @@ def main():
                "telbo_nf": (telbo["launches"], telbo["bwd_launches"]), "mvae": mvae,
                "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
                **{f"validate_{k}": v for k, v in validate.items()},
-               **{f"likelihoods_{k}": v for k, v in likelihoods.items()}}
+               **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
+               **{f"gen_{k}": v for k, v in gen.items()}}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -1795,6 +2165,7 @@ def main():
     # reduction replace: its `ms` is both, the kernel alone beside it. The
     # forward's times at eval's rows stand beside its main-path time.
     at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
+    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
               at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"]),

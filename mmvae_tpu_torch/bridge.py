@@ -16,6 +16,9 @@ is "vaes_0/flow/made_1/hidden_2". The layouts:
   sits one scope above them, as JAX wraps a flax BatchNorm named "bn".
 
 Copies are exact, so JAX -> port -> JAX returns the same bits.
+
+`gmm_from_numpy` carries a Gaussian mixture fitted on the JAX side across
+as the port's latent sampler.
 """
 
 from __future__ import annotations
@@ -121,3 +124,13 @@ def export_jax_params(model: nn.Module) -> Dict[str, Any]:
 def export_jax_variables(model: nn.Module) -> Dict[str, Any]:
     """`params` and `batch_stats` of `model` as JAX trees."""
     return {"params": export_jax_params(model), "batch_stats": _export(_stat_leaves(model))}
+
+
+def gmm_from_numpy(weights, means, covariances, device=None):
+    """A mixture fitted on the JAX side (scikit-learn's GaussianMixture, as
+    `mmvae_tpu.eval.gmm.GaussianMixtureSampler.gmm` holds it: `weights_`,
+    `means_`, `covariances_`) as the port's `GaussianMixtureSampler`, in
+    float64 on `device`."""
+    from .eval.gmm import GaussianMixtureSampler
+
+    return GaussianMixtureSampler.from_params(weights, means, covariances, device=device)

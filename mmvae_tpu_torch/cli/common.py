@@ -15,7 +15,7 @@ import torch
 
 # streams of the eval generators, the first key after the config's seed
 STREAM_CLASSIFIER, STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_LIKELIHOOD, \
-    STREAM_ANALYTICS = range(1, 7)
+    STREAM_ANALYTICS, STREAM_PRD, STREAM_GMM = range(1, 9)
 
 
 def torch_device(name) -> torch.device:

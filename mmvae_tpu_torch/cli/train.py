@@ -12,7 +12,12 @@ JMVAE-NF-DCCA configs ("dcca": true) graft the pretrained trunks of
 (default <experiments-dir>/dcca/<dataset>/dcca.npz); without an artifact
 the trunks stay random and frozen, with a warning, as in the JAX package.
 "skip_warmup" starts from the shared joint-encoder pool
-<experiments-dir>/joint_encoders/<experiment> that "save_joint" publishes.
+<experiments-dir>/joint_encoders/<experiment> that "save_joint" publishes;
+with "use_gen" the `generate_joint` samples in that pool
+(generated_modality_{i}.npy, the first "len_gen" of them) are appended to
+the train set with label 0. "use_pretrain": RUN resumes RUN: its args.json
+is adopted, with the epochs and warmup of both configs added, and its
+model.pt is reloaded before training.
 With "no_analytics": false, as every published config has it, image grids
 are written every "freq_analytics" epochs and at epoch 1
 (`analytics_callback`).
@@ -41,9 +46,6 @@ import torch
 
 def _not_yet_ported(cfg):
     """Config features of the JAX CLI this port does not run yet."""
-    for key in ("use_pretrain", "use_gen"):
-        if getattr(cfg, key):
-            return f"{key} not yet ported"
     if cfg.mesh_data not in (None, 1) or cfg.mesh_k != 1:
         return "multi-device meshes not yet ported"
     return None
@@ -100,9 +102,9 @@ def main(argv=None):
 
     from ..core.config import ExperimentConfig
     from ..data import get_dataloaders
-    from ..data.loaders import DATASETS
+    from ..data.loaders import DATASETS, ArrayLoader, PairedDataset
     from ..models import registry
-    from ..train import Trainer
+    from ..train import Trainer, checkpoints
     from ..utils import Tracker
     from .common import torch_device
 
@@ -112,6 +114,18 @@ def main(argv=None):
         raise NotImplementedError(problem)
     device = torch_device(info.device)
     np.random.seed(cfg.seed)
+
+    # use_pretrain resume (main.py:54-62, 88-91): adopt the old run's args,
+    # extend the epoch budget, reload its checkpoint below
+    pretrained_path = cfg.use_pretrain
+    if pretrained_path:
+        new_cfg = cfg
+        cfg = ExperimentConfig.from_json(os.path.join(pretrained_path, "args.json"))
+        prev_epochs = cfg.epochs
+        cfg.epochs = prev_epochs + new_cfg.epochs
+        cfg.warmup = prev_epochs + new_cfg.warmup
+        cfg.freq_analytics = new_cfg.freq_analytics
+        cfg.use_pretrain = pretrained_path
 
     bundle = registry.build(cfg)
     run_id = datetime.datetime.now().isoformat()
@@ -130,20 +144,45 @@ def main(argv=None):
     sig = inspect.signature(DATASETS[bundle.dataset]).parameters
     kw.update({k: v for k, v in cfg.extra.items() if k in sig})
     train_loader, test_loader, val_loader = get_dataloaders(bundle.dataset, **kw)
+
+    # use_gen warm start: append the joint-encoder pool's generated samples
+    # to the train set (main.py:123-127)
+    if cfg.skip_warmup and cfg.use_gen:
+        pool = os.path.join(info.experiments_dir, "joint_encoders",
+                            (cfg.experiment or "default").split("/")[-1])
+        gen = [np.load(os.path.join(pool, f"generated_modality_{i}.npy"))
+               for i in range(len(bundle.shape_mods))]
+        if cfg.len_gen:
+            gen = [g[: cfg.len_gen] for g in gen]
+        ds = train_loader.dataset
+        merged = PairedDataset(
+            [np.concatenate([m, g]) for m, g in zip(ds.modalities, gen)],
+            [np.concatenate([l, np.zeros(len(gen[0]), dtype=l.dtype)]) for l in ds.labels])
+        train_loader = ArrayLoader(merged, cfg.batch_size, shuffle=True)
+        print(f"use_gen: appended {len(gen[0])} generated pairs")
     print(f"Train: {train_loader.num_examples}, Test: {test_loader.num_examples}, "
           f"Val: {val_loader.num_examples}")
 
-    variables_hook = None
+    hooks = []
+    if pretrained_path:
+        def load_pretrained(model):
+            print(f"Loading model from {pretrained_path}")
+            checkpoints.load_model(model, pretrained_path)
+
+        hooks.append(load_pretrained)
     if cfg.dcca:
         dcca_path = cfg.extra.get("dcca_path", os.path.join(info.experiments_dir, "dcca",
                                                             bundle.dataset, "dcca.npz"))
         if os.path.exists(dcca_path):
             print(f"grafting pretrained DCCA trunks from {dcca_path}")
-            variables_hook = functools.partial(registry.graft_dcca_params,
-                                               dcca_npz_path=dcca_path)
+            hooks.append(functools.partial(registry.graft_dcca_params, dcca_npz_path=dcca_path))
         else:
             print(f"WARNING: dcca=true but no artifacts at {dcca_path}; "
                   "trunks stay randomly initialized (frozen)")
+
+    def variables_hook(model):
+        for hook in hooks:
+            hook(model)
 
     trainer = Trainer(bundle.model, bundle.spec, cfg, run_path=run_path, device=device,
                       experiments_dir=info.experiments_dir)
@@ -166,8 +205,8 @@ def main(argv=None):
     if not cfg.no_analytics:
         callbacks.append(analytics_callback(cfg, bundle, val_loader, run_path, device))
     use_dp = bool(cfg.extra.get("device_pipeline", True))
-    trainer.fit(train_loader, val_loader, callbacks=callbacks, variables_hook=variables_hook,
-                use_device_pipeline=use_dp)
+    trainer.fit(train_loader, val_loader, callbacks=callbacks,
+                variables_hook=variables_hook if hooks else None, use_device_pipeline=use_dp)
     tracker.close()
 
     with open(os.path.join(run_path, "losses.json"), "w") as f:

@@ -8,9 +8,12 @@ Reloads the latest run of the experiment (or --run-path), then over the
 full test set, in --repeats repeats (validate.py:98-154): the
 cross-coherences acc_i_j and the joint coherence from the eval classifiers
 (trained into <experiments-dir>/classifiers on first use), and the
-conditional FID fid_j on the classifiers' penultimate features. Writes
-metrics.json (mean and std per metric over the repeats), one metrics.jsonl
-row per repeat, and the grids generate_val.png and gen_from_cond_{0,1}.png.
+conditional FID fid_j on the classifiers' penultimate features, and with
+--prd the PRD pair prd_f8_j / prd_f1_8_j from the same features, its curves
+prd_curve_j.npz, .png and .png.json written on repeat 0.
+Writes metrics.json (mean and std per metric over the repeats), one
+metrics.jsonl row per repeat, and the grids generate_val.png and
+gen_from_cond_{0,1}.png.
 
 Each test batch's noise comes from a generator of its own, seeded from
 (seed, repeat, batch). Runs on cuda unless --device says otherwise.
@@ -29,8 +32,6 @@ import torch
 
 def _unported(info):
     """The JAX CLI's options this port does not run yet, with the reason."""
-    if info.prd:
-        return "--prd not yet ported: PRD needs a k-means of its own and a plot"
     if not info.skip_fid and info.fid_encoder == "inception":
         return ("--fid-encoder inception not yet ported: the InceptionV3 weights "
                 "(pt_inception-2015-12-05-6726825d.pth) are not in the repository; "
@@ -57,7 +58,8 @@ def main(argv=None):
     parser.add_argument("--fid-batches", type=int, default=0,
                         help="cap FID on the first N test batches; 0 = the full test loader")
     parser.add_argument("--fid-weights", type=str, default="")
-    parser.add_argument("--prd", action="store_true")
+    parser.add_argument("--prd", action="store_true",
+                        help="also the per-direction PRD f8/f1_8 from the FID activations")
     parser.add_argument("--fid-encoder", type=str, default="inception",
                         choices=["inception", "classifier"],
                         help="activation network for FID: the Inception FID net (not yet "
@@ -76,7 +78,7 @@ def main(argv=None):
     from ..utils import Tracker
     from ..vis import save_samples
     from .common import (
-        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, find_latest_run, generator,
+        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_PRD, find_latest_run, generator,
         get_or_train_classifiers, reload_model, torch_device,
     )
 
@@ -125,7 +127,9 @@ def main(argv=None):
             if encoders is not None:
                 metrics.update(cross_modal_fid(
                     model, test_l, lambda bi: noise(STREAM_FID, r, bi), encoders,
-                    n_batches=info.fid_batches or None, verbose=(r == 0)))
+                    n_batches=info.fid_batches or None, verbose=(r == 0),
+                    compute_prd=info.prd, prd_curve_dir=run_path if r == 0 else None,
+                    prd_generator=generator(device, cfg.seed, STREAM_PRD, r)))
                 _mark(f"repeat {r}: fid done")
             all_metrics.append(metrics)
             print(f"repeat {r}: {metrics}")

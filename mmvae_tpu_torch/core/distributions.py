@@ -4,7 +4,8 @@
 Samplers take their noise explicitly, or a `torch.Generator` that draws it
 on the parameters' device, in place of the JAX `key`. What the noise is
 depends on the family: standard-normal `eps` for the Normal, a uniform `u`
-in (-1 + 1e-7, 1) for the Laplace. Tests hand the same numpy noise to both
+in (-1 + 1e-7, 1) for the Laplace, a uniform `u` in [0, 1) for the
+Bernoulli (a draw is u < p). Tests hand the same numpy noise to both
 packages, since the two frameworks' generators give different numbers from
 one seed.
 
@@ -20,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .constants import ETA, LOG2PI
+from .constants import BERNOULLI_EPS, ETA, LOG2PI
 
 # the open interval JAX's laplace_sample draws its uniform from
 LAPLACE_U_MIN, LAPLACE_U_MAX = -1.0 + 1e-7, 1.0
@@ -73,11 +74,11 @@ def draw_noise(dist: str, shape, generator: Optional[torch.Generator] = None,
                device=None, dtype=torch.float32) -> torch.Tensor:
     """The noise `sample` draws for family `dist`: standard normal
     ("normal"), uniform in (-1 + 1e-7, 1) ("laplace"), or uniform in [0, 1)
-    ("uniform", a Bernoulli(p) draw is u < p)."""
+    ("uniform" or "bernoulli": a Bernoulli(p) draw is u < p)."""
     if dist == "normal":
         return torch.randn(shape, generator=generator, device=device, dtype=dtype)
     r = torch.rand(shape, generator=generator, device=device, dtype=dtype)
-    if dist == "uniform":
+    if dist in ("uniform", "bernoulli"):
         return r
     if dist == "laplace":
         # jax.random.uniform: max(minval, r * (maxval - minval) + minval)
@@ -141,10 +142,34 @@ def laplace_kl(p: LocScale, q: LocScale) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Bernoulli (probs parameterization, as the binary decoders use it)
+# --------------------------------------------------------------------------
+
+def bernoulli_log_prob(probs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x ln p + (1 - x) ln(1 - p), p clipped to [BERNOULLI_EPS, 1 - BERNOULLI_EPS]."""
+    p = torch.clamp(probs, BERNOULLI_EPS, 1.0 - BERNOULLI_EPS)
+    return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+
+def bernoulli_sample(probs: torch.Tensor, sample_shape=(), u: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """1 where a uniform u in [0, 1) lies below p, else 0, in the dtype of
+    `probs`: the law of jax.random.bernoulli."""
+    shape = tuple(sample_shape) + tuple(probs.shape)
+    if u is None:
+        u = draw_noise("uniform", shape, generator, probs.device, probs.dtype)
+    else:
+        _check_noise("u", u, shape)
+    return (u < probs).to(probs.dtype)
+
+
+# --------------------------------------------------------------------------
 # Generic dispatch by family name
 # --------------------------------------------------------------------------
 
-_LOG_PROB = {"normal": normal_log_prob, "laplace": laplace_log_prob}
+_LOG_PROB = {"normal": normal_log_prob, "laplace": laplace_log_prob,
+             # the loc/scale pair carries the probabilities in `loc`
+             "bernoulli": lambda p, x: bernoulli_log_prob(p.loc, x)}
 _KL = {"normal": normal_kl, "laplace": laplace_kl}
 
 
@@ -162,12 +187,15 @@ def sample(dist: str, p: LocScale, sample_shape=(), noise: Optional[torch.Tensor
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """A sample of `dist` with leading `sample_shape`. `noise` is the
     family's own: standard-normal eps ("normal") or uniform u in
-    (-1 + 1e-7, 1) ("laplace"); without it the noise is drawn from
+    (-1 + 1e-7, 1) ("laplace"), uniform u in [0, 1) ("bernoulli", whose
+    probabilities are `p.loc`); without it the noise is drawn from
     `generator`."""
     if dist == "normal":
         return normal_sample(p, sample_shape, eps=noise, generator=generator)
     if dist == "laplace":
         return laplace_sample(p, sample_shape, u=noise, generator=generator)
+    if dist == "bernoulli":
+        return bernoulli_sample(p.loc, sample_shape, u=noise, generator=generator)
     raise NotImplementedError(f"{dist} sampling not yet ported")
 
 

@@ -15,7 +15,7 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
-from .generation import Noise, _no_sampler, generate, sample_from_conditional
+from .generation import Noise, generate, sample_from_conditional
 
 
 def _labels(classifier, x):
@@ -64,12 +64,19 @@ def compute_accuracies(model, classifiers, data, classes, noise: Noise, spec,
                        n_data=20, ns: int = 100, sampler=None) -> Dict[str, float]:
     """Cross-coherence matrix acc_i_j and joint coherence over the first
     n_data rows of one batch (accuracies.py:31-62). Noise: each modality's
-    conditional samples, then the ns*n_data prior samples."""
-    _no_sampler(sampler)
+    conditional samples, then the ns*n_data prior samples, or with a fitted
+    `sampler` its ns*n_data latents (the joint coherence of its samples)."""
     if n_data == "all" or n_data > len(data[0]):
         n_data = len(data[0])
     bdata = [d[:n_data] for d in data]
     true = torch.as_tensor(np.asarray(classes[0][:n_data]), device=bdata[0].device)
+    if sampler is not None:
+        labels = conditional_labels(model, classifiers, bdata, noise, n_data, ns)
+        out = {f"acc_{i}_{j}": float((labels[i][j] == true[:, None]).double().mean())
+               for i in range(len(bdata)) for j in range(len(bdata)) if i != j}
+        gen = generate(model, noise, spec, N=ns * n_data, sampler=sampler)
+        out["joint_coherence"] = compute_joint_accuracy(classifiers, gen)
+        return out
     w = torch.ones(n_data, dtype=bdata[0].dtype, device=bdata[0].device)
     sums = _batch_sums(model, classifiers, bdata, true, w, noise, spec, ns)
     out = {k: float(v) / n_data for k, v in sums.items() if k.startswith("acc_")}

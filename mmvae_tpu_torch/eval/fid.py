@@ -4,12 +4,14 @@ analysis/pytorch_fid/ and modalities/mnist_svhn.py:13-66).
 The Frechet distance and the per-direction cross-modal FID over any
 per-modality encoders: the port's encoders are the eval classifiers'
 penultimate features (`classifiers.make_feature_fn`, the reference's
-Quality_assess.py custom-encoder pattern). The InceptionV3 FID network and
-PRD are not ported yet.
+Quality_assess.py custom-encoder pattern). With `compute_prd` the same
+activations also give each direction's PRD (eval/prd.py). The InceptionV3
+FID network is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -52,7 +54,8 @@ def make_inception_fn(weights_path: Optional[str] = None):
 
 def cross_modal_fid(model, loader, noise_for_batch: Callable[[int], Noise],
                     encoder_fn, n_batches: Optional[int] = None, verbose: bool = False,
-                    compute_prd: bool = False):
+                    compute_prd: bool = False, prd_curve_dir: Optional[str] = None,
+                    prd_generator: Optional[torch.Generator] = None):
     """Conditional FID over all ordered cross pairs: activations of the real
     test data against those of samples generated from the other modality,
     one conditional sample per datapoint, batch bi's from
@@ -61,15 +64,19 @@ def cross_modal_fid(model, loader, noise_for_batch: Callable[[int], Noise],
 
     encoder_fn: one callable for every modality or a list of per-modality
     callables, each x -> (rows, features) numpy activations.
-    n_batches=None takes the whole test loader (mnist_svhn.py:26-33)."""
-    if compute_prd:
-        raise NotImplementedError("PRD not yet ported: it needs a k-means of its own (the JAX "
-                                  "package uses scikit-learn's MiniBatchKMeans) and a plot")
+    n_batches=None takes the whole test loader (mnist_svhn.py:26-33).
+
+    compute_prd adds `prd_f8_{suffix}` and `prd_f1_8_{suffix}` per
+    direction, from the first min(generated, real) rows of the same
+    activations (prd_score.py:139), the clusterings seeded from
+    `prd_generator`, on the model's device. With `prd_curve_dir` the curve
+    is saved as prd_curve_{suffix}.npz (precision, recall) and drawn as
+    prd_curve_{suffix}.png with its JSON."""
     t0 = time.time()
 
     def _mark(msg):
         if verbose:
-            print(f"  [fid +{time.time() - t0:6.1f}s] {msg}", flush=True)
+            print(f"  [fid +{time.time() - t0:8.3f}s] {msg}", flush=True)
 
     p = next(model.parameters())
     n_mod, enc = None, None
@@ -94,13 +101,32 @@ def cross_modal_fid(model, loader, noise_for_batch: Callable[[int], Noise],
             acc.append(enc[tgt](gen[src][tgt][0]))
         _mark(f"batch {bi}: activations")
 
-    ref_stats = [activation_statistics(np.concatenate(r)) for r in ref_acts]
+    ref_cat = [np.concatenate(r) for r in ref_acts]
+    ref_stats = [activation_statistics(r) for r in ref_cat]
     fids = {}
     for (src, tgt), acc in gen_acts.items():
+        gen_cat = np.concatenate(acc)
         mu1, s1 = ref_stats[tgt]
-        mu2, s2 = activation_statistics(np.concatenate(acc))
+        mu2, s2 = activation_statistics(gen_cat)
         keysuf = f"{tgt}" if n_mod == 2 else f"{src}_{tgt}"
         fids[f"fid_{keysuf}"] = calculate_frechet_distance(mu1, s1, mu2, s2)
         _mark(f"frechet distance {keysuf}")
+        if compute_prd:
+            from . import prd
+
+            n = min(len(gen_cat), len(ref_cat[tgt]))
+            precision, recall = prd.compute_prd_from_embedding(
+                gen_cat[:n], ref_cat[tgt][:n], generator=prd_generator, device=p.device)
+            f8, f18 = prd.prd_to_max_f_beta_pair(precision, recall)
+            fids[f"prd_f8_{keysuf}"] = f8
+            fids[f"prd_f1_8_{keysuf}"] = f18
+            if prd_curve_dir:
+                os.makedirs(prd_curve_dir, exist_ok=True)
+                base = os.path.join(prd_curve_dir, f"prd_curve_{keysuf}")
+                np.savez(base + ".npz", precision=precision.cpu().numpy(),
+                         recall=recall.cpu().numpy())
+                prd.plot_prd_curves([(f"F8={f8:.3f} F1/8={f18:.3f}", precision, recall)],
+                                    base + ".png")
+            _mark(f"prd {keysuf}")
     return fids
 

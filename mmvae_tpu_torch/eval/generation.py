@@ -52,15 +52,16 @@ def _like(model) -> dict:
     return {"device": p.device, "dtype": p.dtype}
 
 
-def _no_sampler(sampler) -> None:
-    if sampler is not None:
-        raise NotImplementedError("fitted latent samplers (GMM, eval/gmm.py) not yet ported")
-
-
 def generate(model, noise: Noise, spec, N: int, sampler=None):
-    """Prior samples decoded in every modality (multi_vaes.py:83-103).
-    Returns a list of (N, *event_m)."""
-    _no_sampler(sampler)
+    """Prior samples, or with `sampler` (a fitted latent sampler such as
+    eval/gmm.py's, whose `sample(N, generator)` gives the latents) its
+    samples, decoded in every modality (multi_vaes.py:83-103). The sampler
+    draws from the Noise's generator. Returns a list of (N, *event_m)."""
+    if sampler is not None:
+        if len(noise.generators) != 1:
+            raise ValueError("a fitted sampler draws from one generator")
+        latents = sampler.sample(N, noise.generators[0])
+        return model.decode_all(latents.to(**_like(model)))
     pz = LocScale(torch.zeros(N, spec.latent_dim, **_like(model)),
                   torch.ones(N, spec.latent_dim, **_like(model)))
     latents = D.sample(spec.posterior, pz, noise=noise.draw(spec.posterior, (N, spec.latent_dim)))

@@ -1,7 +1,7 @@
 """Checkpoints (mmvae_tpu/train/checkpoints.py) as torch state dicts: the
 best-val `model.pt`, with the reference's `.old` backup before overwrite
-(utils.py:58-66), and the shared joint-encoder pool that skip_warmup
-starts from (utils.py:84-101)."""
+(utils.py:58-66), its reload for a use_pretrain resume, and the shared
+joint-encoder pool that skip_warmup starts from (utils.py:84-101)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,14 @@ def save_model(model: nn.Module, run_path: str, name: str = "model") -> str:
         shutil.copyfile(path, path + ".old")
     torch.save(model.state_dict(), path)
     return path
+
+
+def load_model(model: nn.Module, run_path: str, name: str = "model") -> None:
+    """<run_path>/<name>.pt into `model`, in place, on the model's device
+    (the use_pretrain reload, main.py:88-91)."""
+    state = torch.load(os.path.join(run_path, f"{name}.pt"), map_location="cpu",
+                       weights_only=True)
+    model.load_state_dict(state)
 
 
 def _pool_parts(model: nn.Module):

@@ -1,8 +1,13 @@
-"""Sample grids (mmvae_tpu/vis.py:16-66; reference vis.py:194-204).
+"""Sample grids (mmvae_tpu/vis.py:16-66; reference vis.py:194-204) and line
+plots.
 
 The PNG writer uses zlib and struct from the standard library: 8-bit gray
 for one channel, 8-bit RGB for three, the grid clamped to [0, 1] and cast
 as (grid * 255).astype(uint8), as the JAX package's PIL path does.
+
+The line plots stand in for the JAX package's matplotlib figures (PRD
+curves, plot_results): the same series on the same axes, drawn without text
+or font. The labels, limits and legend order go beside each PNG as JSON.
 """
 
 from __future__ import annotations
@@ -83,3 +88,131 @@ def save_samples(data: Sequence[np.ndarray], path: str, nrow: int = 8) -> None:
     """Two-modality sample grid (vis.py:194-204)."""
     a, b = adjust_shape(np.asarray(data[0]), np.asarray(data[1]))
     save_image(np.concatenate([a, b]), path, nrow=nrow)
+
+
+# ---------------------------------------------------------------------------
+# line plots (the JAX package draws these with matplotlib)
+# ---------------------------------------------------------------------------
+
+# matplotlib's default color cycle ("tab10")
+PALETTE = ((31, 119, 180), (255, 127, 14), (44, 160, 44), (214, 39, 40), (148, 103, 189),
+           (140, 86, 75), (227, 119, 194), (127, 127, 127), (188, 189, 34), (23, 190, 207))
+
+
+def _data_range(values, pad: float = 0.05):
+    v = np.asarray([x for x in values if np.isfinite(x)], dtype=np.float64)
+    if v.size == 0:
+        return 0.0, 1.0
+    lo, hi = float(v.min()), float(v.max())
+    span = hi - lo if hi > lo else max(abs(lo), 1.0)
+    return lo - pad * span, hi + pad * span
+
+
+class _Canvas:
+    """An RGB raster with a plot box: data coordinates map linearly into the
+    box, y upwards."""
+
+    def __init__(self, width, height, xlim, ylim, margin=24):
+        self.img = np.full((height, width, 3), 255, np.uint8)
+        self.x0, self.y0 = margin, margin
+        self.w, self.h = width - 2 * margin, height - 2 * margin
+        self.xlim, self.ylim = xlim, ylim
+
+    def to_px(self, x, y):
+        (a, b), (c, d) = self.xlim, self.ylim
+        px = self.x0 + (np.asarray(x, np.float64) - a) / (b - a) * self.w
+        py = self.y0 + (1.0 - (np.asarray(y, np.float64) - c) / (d - c)) * self.h
+        return px, py
+
+    def dots(self, px, py, color, radius=1):
+        """Set every pixel within `radius` (a square) of each point."""
+        px, py = np.rint(px).astype(np.int64), np.rint(py).astype(np.int64)
+        hgt, wid = self.img.shape[:2]
+        for dy in range(-radius, radius + 1):
+            for dx in range(-radius, radius + 1):
+                x, y = px + dx, py + dy
+                ok = (x >= 0) & (x < wid) & (y >= 0) & (y < hgt)
+                self.img[y[ok], x[ok]] = color
+
+    def segments(self, p, q, color, dash=0, radius=1):
+        """Lines from points p to points q (pixel coordinates, (n, 2) each);
+        with `dash`, on for `dash` pixels of length, then off as long."""
+        p, q = np.asarray(p, np.float64), np.asarray(q, np.float64)
+        ok = np.isfinite(p).all(1) & np.isfinite(q).all(1)
+        p, q = p[ok], q[ok]
+        if not len(p):
+            return
+        length = np.hypot(*(q - p).T)
+        n = np.ceil(2 * length).astype(np.int64) + 1
+        seg = np.repeat(np.arange(len(p)), n)
+        t = (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)) / np.repeat(np.maximum(n - 1, 1), n)
+        pts = p[seg] + t[:, None] * (q - p)[seg]
+        if dash:
+            along = np.concatenate([[0.0], np.cumsum(length)])[seg] + t * length[seg]
+            keep = (along // dash) % 2 == 0
+            pts = pts[keep]
+        self.dots(pts[:, 0], pts[:, 1], color, radius)
+
+    def frame(self):
+        """The plot box in black, with 5 ticks on each axis."""
+        x0, y0, x1, y1 = self.x0, self.y0, self.x0 + self.w, self.y0 + self.h
+        corners = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float64)
+        self.segments(corners, np.roll(corners, -1, 0), (0, 0, 0), radius=0)
+        ticks = np.linspace(0, 1, 5)
+        xs, ys = x0 + ticks * self.w, y0 + ticks * self.h
+        self.segments(np.c_[xs, np.full(5, y1)], np.c_[xs, np.full(5, y1 + 4)], (0, 0, 0), radius=0)
+        self.segments(np.c_[np.full(5, x0 - 4), ys], np.c_[np.full(5, x0), ys], (0, 0, 0), radius=0)
+
+
+def line_plot(series, out_path: str, xlim=None, ylim=None, xlabel: str = "", ylabel: str = "",
+              xticklabels=None):
+    """A 480x360 line figure as a PNG, without text: axes box with ticks, one
+    polyline per series in matplotlib's color cycle, optional error bars and
+    markers. Each series is a dict with "label", "x", "y" and optionally
+    "yerr", "dashed" and "marker". `xlim`/`ylim` default to the data's range
+    padded by 5 %. What text would say goes beside the PNG as
+    <out_path>.json (so that plot.png never replaces a run's plot.json):
+    the limits, the axis labels (and `xticklabels`, the names of the points
+    at x = 0, 1, ...), every series with its color, and the legend order.
+    Returns that dict."""
+    import json
+    import os
+
+    series = list(series)
+    xs = [v for s in series for v in np.asarray(s["x"], np.float64).ravel()]
+    ys = []
+    for s in series:
+        y = np.asarray(s["y"], np.float64).ravel()
+        err = np.asarray(s.get("yerr", np.zeros_like(y)), np.float64).ravel()
+        ys += list(y - err) + list(y + err)
+    xlim = tuple(xlim) if xlim is not None else _data_range(xs)
+    ylim = tuple(ylim) if ylim is not None else _data_range(ys)
+    canvas = _Canvas(480, 360, xlim, ylim)
+    canvas.frame()
+    spec = {"png": os.path.basename(out_path), "xlim": list(xlim), "ylim": list(ylim),
+            "xlabel": xlabel, "ylabel": ylabel, "xticklabels": xticklabels, "series": [],
+            "legend": [s["label"] for s in series]}
+    for i, s in enumerate(series):
+        color = PALETTE[i % len(PALETTE)]
+        x = np.asarray(s["x"], np.float64).ravel()
+        y = np.asarray(s["y"], np.float64).ravel()
+        px, py = canvas.to_px(x, y)
+        pts = np.c_[px, py]
+        canvas.segments(pts[:-1], pts[1:], color, dash=8 if s.get("dashed") else 0)
+        if s.get("marker"):
+            canvas.dots(px, py, color, radius=3)
+        entry = {"label": s["label"], "color": "#%02x%02x%02x" % color, "x": x.tolist(),
+                 "y": y.tolist(), "dashed": bool(s.get("dashed", False))}
+        if "yerr" in s:
+            err = np.asarray(s["yerr"], np.float64).ravel()
+            _, lo = canvas.to_px(x, y - err)
+            _, hi = canvas.to_px(x, y + err)
+            canvas.segments(np.c_[px, lo], np.c_[px, hi], color, radius=0)
+            for end in (lo, hi):  # caps
+                canvas.segments(np.c_[px - 4, end], np.c_[px + 4, end], color, radius=0)
+            entry["yerr"] = err.tolist()
+        spec["series"].append(entry)
+    write_png(canvas.img, out_path)
+    with open(out_path + ".json", "w") as f:
+        json.dump(spec, f)
+    return spec

@@ -1,8 +1,8 @@
-"""Which of the repo's MNIST-SVHN configs the port runs: every
-`configs/mnist_svhn/**/*.json` passes the train CLI's check of unported
-features, builds its model through the port's registry and resolves its
-objective. Models are built only, with no forward pass. The two
-`configs/ms_small/*gen*` configs are still refused, for `use_gen`.
+"""Which of the repo's configs the port runs: every
+`configs/mnist_svhn/**/*.json` and the two `configs/ms_small/*gen*` configs
+(use_gen) pass the train CLI's check of unported features, build their
+model through the port's registry and resolve their objective; over all of
+`configs/**`, 62 of 96 do. Models are built only, with no forward pass.
 """
 
 import glob
@@ -37,4 +37,31 @@ def test_mnist_svhn_config_builds(path):
 
 @pytest.mark.parametrize("path", GEN, ids=os.path.basename)
 def test_gen_configs_are_refused(path):
-    assert _not_yet_ported(ExperimentConfig.from_json(path)) == "use_gen not yet ported"
+    """The use_gen configs, refused until use_gen was ported, now pass the
+    check and build as the MNIST-SVHN ones do."""
+    cfg = ExperimentConfig.from_json(path)
+    assert cfg.use_gen and cfg.skip_warmup
+    test_mnist_svhn_config_builds(path)
+
+
+def _builds(path):
+    try:
+        cfg = ExperimentConfig.from_json(path)
+        if _not_yet_ported(cfg) is not None:
+            return False
+        registry.build(cfg)
+        resolve(cfg.obj, True, cfg.looser)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def test_census_of_every_config():
+    """62 of the repo's 96 configs pass the check, build and resolve: the 56
+    MNIST-SVHN ones, the 4 of ms_small, and medmnist's mmvae_nf.json and
+    moepoe.json, which name MNIST-SVHN builders. The rest name a model of a
+    dataset the port does not have yet."""
+    every = sorted(glob.glob("configs/**/*.json", recursive=True))
+    built = [p for p in every if _builds(p)]
+    assert len(every) == 96
+    assert len(built) == 62, sorted(set(every) - set(built))

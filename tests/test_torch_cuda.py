@@ -29,6 +29,11 @@ kernel.
 Evaluation: the forward kernel under no_grad at eval's row counts (no
 tape, one launch per call), and a tiny validate and compute_likelihoods on
 cuda with their launch counts.
+
+The k-means, the mixture EM, PRD and the Bernoulli family on the card in
+float64 against the CPU in float64 from the same inputs and starts, and the
+ms_small augmentation pipeline (train, generate_joint, use_gen retrain,
+validate --prd) at a tiny size on cuda with its launch counts.
 """
 
 import copy
@@ -41,7 +46,7 @@ import pytest
 import torch
 
 from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
-from mmvae_tpu_torch.cli import compute_likelihoods, validate
+from mmvae_tpu_torch.cli import compute_likelihoods, generate_joint, validate
 from mmvae_tpu_torch.cli import train as cli_train
 from mmvae_tpu_torch.cli.common import reload_model
 from mmvae_tpu_torch.core import distributions as Dist
@@ -50,6 +55,9 @@ from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.data import get_dataloaders
 from mmvae_tpu_torch.dcca import objectives as cca
 from mmvae_tpu_torch.eval import classifiers as Cl
+from mmvae_tpu_torch.eval import cluster as CL
+from mmvae_tpu_torch.eval import prd as PRD
+from mmvae_tpu_torch.eval.gmm import GaussianMixtureSampler
 from mmvae_tpu_torch.flows import MAF, build_masks
 from mmvae_tpu_torch.models import registry
 from mmvae_tpu_torch.nets import Conv2d, ConvTranspose2d, Linear
@@ -561,3 +569,135 @@ def test_eval_clis_on_card(card, tmp_path):
     # per batch: 2 conditioning modalities x 2 chunks x 2 blocks, for the
     # conditional likelihoods and again for the bis protocol's proposals
     assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (16 * nb, 0)
+
+
+# ---------------------------------------------------------------------------
+# k-means, EM, PRD and the Bernoulli family on the card
+# ---------------------------------------------------------------------------
+
+def _blob_data(seed=30, n_per=400, k=8, d=20):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, d)) * 4
+    lab = rng.integers(0, k, n_per * k)
+    return centers[lab] + rng.normal(size=(len(lab), d)), centers
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_matches_cpu(card):
+    """From the same start centers, float64: the same labels and the
+    inertia to rtol 1e-9; k-means++ restarts from a card generator give a
+    labelling of every cluster."""
+    x, centers = _blob_data()
+    init = centers + 0.5
+    cpu = CL.kmeans(torch.tensor(x), 8, init=init)
+    gpu = CL.kmeans(torch.tensor(x, device=card), 8, init=init)
+    assert gpu.labels.is_cuda and gpu.centers.dtype == torch.float64
+    assert torch.equal(gpu.labels.cpu(), cpu.labels) and gpu.n_iter == cpu.n_iter
+    np.testing.assert_allclose(gpu.inertia, cpu.inertia, rtol=1e-9)
+    seeded = CL.kmeans(torch.tensor(x, device=card), 8,
+                       generator=torch.Generator(device=card).manual_seed(0))
+    assert len(torch.unique(seeded.labels)) == 8
+
+
+@pytest.mark.cuda
+def test_em_on_card_matches_cpu(card):
+    """The mixture EM from the same start (one labelling's weights, means
+    and precisions), float64: the same iterations, the converged parameters
+    to rtol 1e-9 and the log-density of the data to rtol 1e-12."""
+    x, _ = _blob_data(seed=31, n_per=300, k=5, d=10)
+    xt = torch.tensor(x)
+    labels = CL.kmeans(xt, 5, n_init=1, generator=torch.Generator().manual_seed(0)).labels
+    start = CL.init_from_labels(xt, labels, 5)
+    init = (start.weights, start.means, torch.linalg.inv(start.covariances))
+    cpu = GaussianMixtureSampler(5).fit(xt, init=init)
+    gpu = GaussianMixtureSampler(5).fit(xt.to(card), init=tuple(a.to(card) for a in init))
+    assert gpu.fit_result.n_iter == cpu.fit_result.n_iter and gpu.params.means.is_cuda
+    for a, b in zip(gpu.params[:3], cpu.params[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(gpu.log_prob(xt.to(card)).cpu().numpy(), cpu.log_prob(xt).numpy(),
+                               rtol=1e-12)
+    z = gpu.sample(1000, torch.Generator(device=card).manual_seed(0))
+    assert z.is_cuda and tuple(z.shape) == (1000, 10) and torch.isfinite(z).all()
+
+
+@pytest.mark.cuda
+def test_prd_on_card_matches_cpu(card):
+    """compute_prd and the F-beta pair of the same bins, and the bins of the
+    same labels, on the card against the CPU: rtol 1e-12 and exact."""
+    rng = np.random.default_rng(32)
+    labels = torch.tensor(rng.integers(0, 20, 600))
+    cpu_bins = PRD._histogram_bins(labels, 250, 20)
+    gpu_bins = PRD._histogram_bins(labels.to(card), 250, 20)
+    for a, b in zip(gpu_bins, cpu_bins):
+        assert torch.equal(a.cpu(), b)
+    cpu = PRD.compute_prd(*cpu_bins)
+    gpu = PRD.compute_prd(*gpu_bins)
+    for a, b in zip(gpu, cpu):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-12, atol=0)
+    np.testing.assert_allclose(PRD.prd_to_max_f_beta_pair(*gpu), PRD.prd_to_max_f_beta_pair(*cpu),
+                               rtol=1e-12)
+    x, _ = _blob_data(seed=33, n_per=50)
+    p, r = PRD.compute_prd_from_embedding(x[:200], x[200:], device=card,
+                                          generator=torch.Generator(device=card).manual_seed(0))
+    assert p.is_cuda and 0.0 <= float(p.min()) and float(p.max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_bernoulli_on_card_matches_cpu(card):
+    """The Bernoulli log-density on the card against the CPU (float64, rtol
+    1e-12, probabilities at and beyond the clip), and draws from a card
+    generator with the right law."""
+    probs = torch.tensor([[-0.1, 0.0, 1e-9, 0.3, 0.5], [0.7, 1 - 1e-9, 1.0, 1.2, 0.05]],
+                         dtype=torch.float64)
+    x = torch.tensor(np.random.default_rng(34).uniform(size=(2, 5)))
+    p = Dist.LocScale(probs, torch.ones_like(probs))
+    want = Dist.log_prob("bernoulli", p, x)
+    got = Dist.log_prob("bernoulli", Dist.LocScale(probs.to(card), torch.ones_like(probs, device=card)),
+                        x.to(card))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12, atol=0)
+    draws = Dist.bernoulli_sample(torch.full((100_000,), 0.3, device=card),
+                                  generator=torch.Generator(device=card).manual_seed(0))
+    assert draws.is_cuda and abs(float(draws.mean()) - 0.3) < 0.01
+
+
+@pytest.mark.cuda
+def test_gen_pipeline_on_card(card, tmp_path):
+    """ms_small's augmentation pipeline at a tiny size on cuda: stage 1
+    (epochs 2, warmup 2; no_recon, so only the epoch-1 grids launch the
+    forward kernel, 4 times), generate_joint (no launch), stage 2 with
+    use_gen (4 launches, its grids), validate --prd (4 per conditional
+    sampling call), no backward launch anywhere."""
+    exp = tmp_path / "exp"
+    for key, shape in (("mnist", (1, 28, 28)), ("svhn", (3, 32, 32))):
+        Cl.save_classifier(Cl.ARCHS[key](in_shape=shape), str(exp / "classifiers" / f"{key}.pt"))
+
+    def config(path, **kw):
+        with open(path) as f:
+            raw = json.load(f)
+        raw.update(latent_dim=4, synthetic_n=64, batch_size=16, len_train=100,
+                   data_path=str(tmp_path / "data"), **kw)
+        out = tmp_path / os.path.basename(path)
+        out.write_text(json.dumps(raw))
+        return str(out)
+
+    def counted(fn, argv):
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return out, (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+
+    common = ["--experiments-dir", str(exp)]
+    run1, n1 = counted(cli_train.main, ["--config-path", config(
+        "configs/ms_small/jnf_synth.json", epochs=2, warmup=2), *common])
+    acc, n_gen = counted(generate_joint.main, ["--run-path", run1, "--n", "24", *common])
+    run2, n2 = counted(cli_train.main, ["--config-path", config(
+        "configs/ms_small/jnf_gen_synth.json", epochs=1, warmup=1, len_gen=24), *common])
+    nb = len(reload_model(run2, 500)[2][1])
+    summary, n_val = counted(validate.main, ["--run-path", run2, "--repeats", "1", "--prd",
+                                             "--fid-encoder", "classifier", *common])
+    assert (n1, n_gen, n2, n_val) == ((4, 0), (0, 0), (4, 0), (4 * (2 * nb + 1), 0))
+    assert 0.0 <= acc <= 1.0
+    for k in ("prd_f8_0", "prd_f8_1", "prd_f1_8_0", "prd_f1_8_1"):
+        assert 0.0 <= summary[k]["mean"] <= 1.0
+    assert os.path.exists(os.path.join(run2, "prd_curve_1.png"))

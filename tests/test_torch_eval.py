@@ -353,12 +353,13 @@ def test_cross_modal_fid_matches_jax(jax_models, monkeypatch):
 
 
 def test_unported_eval_options_raise():
+    """What evaluation still refuses: the InceptionV3 network (its weights
+    are not in the repository) and CelebA's attribute accuracies. PRD and
+    the fitted samplers are ported (tests/test_torch_gen.py)."""
     with pytest.raises(NotImplementedError, match="weights"):
         F.make_inception_fn()
-    with pytest.raises(NotImplementedError, match="PRD not yet ported"):
-        F.cross_modal_fid(None, [], None, [], compute_prd=True)
-    with pytest.raises(NotImplementedError, match="GMM"):
-        G.generate(None, None, None, 4, sampler=object())
+    with pytest.raises(NotImplementedError, match="CelebA"):
+        C.attribute_accuracies(None, None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -171,8 +171,8 @@ def test_unported_options_and_missing_card_raise(runs):
     base = ["--run-path", run, "--experiments-dir", exp, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="--fid-encoder classifier or --skip-fid"):
         validate.main(base)  # the JAX CLI's default encoder, Inception
-    with pytest.raises(NotImplementedError, match="--prd not yet ported"):
-        validate.main(base + ["--skip-fid", "--prd"])
+    with pytest.raises(NotImplementedError, match="--fid-weights not yet ported"):
+        validate.main(base + ["--skip-fid", "--fid-weights", "w.pth"])
     with pytest.raises(NotImplementedError, match="--mcmc-steps not yet ported"):
         validate.main(base + ["--skip-fid", "--mcmc-steps", "10"])
     if torch.cuda.is_available():

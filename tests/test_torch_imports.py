@@ -1,5 +1,7 @@
 """mmvae_tpu_torch stands alone: no file imports jax, flax, optax or the JAX
-package, and every module imports in a process where those are blocked."""
+package, and every module imports in a process where those are blocked. Nor
+does any file import scikit-learn, matplotlib or PIL, which the card's
+machine lacks: the port has its own k-means, mixture EM and PNG writer."""
 
 import ast
 import os
@@ -11,6 +13,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mmvae_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmvae_tpu")
+HOST_ONLY = ("sklearn", "matplotlib", "PIL")
 
 
 def _py_files():
@@ -33,6 +36,12 @@ def _imported(path):
 @pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _py_files()))
 def test_no_jax_imports(path):
     bad = [m for m in _imported(os.path.join(ROOT, path)) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(os.path.relpath(p, ROOT) for p in _py_files()))
+def test_no_host_only_imports(path):
+    bad = [m for m in _imported(os.path.join(ROOT, path)) if m.split(".")[0] in HOST_ONLY]
     assert not bad, f"{path} imports {bad}"
 
 

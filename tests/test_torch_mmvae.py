@@ -156,8 +156,10 @@ def test_distributions_match_jax(monkeypatch):
           JD.sample("laplace", jp, jax.random.PRNGKey(0), (4,)))
     with pytest.raises(ValueError):
         D.sample("laplace", p, (3,), noise=torch.tensor(u))
-    with pytest.raises(NotImplementedError):
-        D.sample("bernoulli", p)
+    # the Bernoulli family (its probabilities in loc): 1 where u < p
+    ub = rng.uniform(size=(4, 3, LATENT)).astype(np.float32)
+    np.testing.assert_array_equal(D.sample("bernoulli", p, (4,), noise=torch.tensor(ub)).numpy(),
+                                  (ub < loc).astype(np.float32))
 
 
 def test_laplace_generator_draws():

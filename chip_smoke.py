@@ -22,7 +22,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with the kernel alone beside it. Plain times, and the kernels' call
    times with the wrapper's host work, are events around 10 back-to-back
    calls (median of 20 runs). Then the bounds, and forward+backward
-   through the autograd Function.
+   through the autograd Function. Then both kernels at D=2, circles-
+   squares' latent width (phase_ar_solve_latent2): the forward at N=128,
+   37, 120, 1,000 and 10,000, the backward at N=128 and 37, both signs,
+   s_bound 0 and 8, and their times and bounds.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
    CLI (`mmvae_tpu_torch.cli.train.main`, device cuda, with the config's
    analytics, phase 16): 68 train steps and
@@ -124,7 +127,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
 22. gen_parity: k-means, EM, the mixture's density, PRD and the Bernoulli
    log-density on the card in float64 against the CPU in float64 from the
    same inputs and starts.
-23. The kernels line, and last the contract line
+23. circles_slice: circles-squares through the CLIs on cuda at full width
+   (one-channel 32x32 conv nets, latent 2): mmvae.json (MMVAE-DReG, K=10)
+   for 1 epoch of its published 200,000 pairs and jmvae_nf_dcca.json
+   (JMVAE-NF, no_recon) at its 10,000 pairs for 2 epochs with warmup 2,
+   each with its epoch-1 analytics (grids and the radius analytics); their
+   steady steps; validate on both (neg_entropy; the HMC product-of-
+   posteriors figure for JMVAE-NF); compute_likelihoods --bis on one test
+   batch of JMVAE-NF; dcca_train --dataset circles_squares; each path's
+   launches as predicted (phase_circles_slice).
+24. circles_parity: a circles MMVAE-DReG step and a JMVAE-NF step on cuda
+   against float64 on the CPU; one HMC step at the PoE figure's shape from
+   the same noise; neg_entropy and rayon_corr_* from the same noise, each
+   pixel within RADIUS_KINK_ATOL of the 0.5 threshold read on the card's
+   side.
+25. mnist1ch_slice: jnf_mnist_fashion and jnf_mnist_contour (2 epochs,
+   warmup 2) and mnist_fashion (1 epoch) through the CLIs from configs
+   written in the run's directory, their launches as predicted, the
+   fashion JMVAE-NF's steady post-warmup step, validate on each.
+26. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -277,22 +298,28 @@ def phase_build():
 
 
 def solve_flops(n, d, h, n_hidden):
-    """Flops of the forward solve: at each of the D steps one rank-1 term of
-    the first layer (y gained one feature), the other hidden layers and the
-    two head columns (mu_i, s_i) that the step uses,
-    2*n*d*(h + (L-1)*h*h + 2*h). The reverse chain does the same products
-    transposed: y's gradient at feature i is W0[i, :] . dsum, an O(h) term."""
-    return 2 * n * d * (h + (n_hidden - 1) * h * h + 2 * h)
+    """Flops of the forward solve. At step 0 no feature of y is known:
+    MADE's masks leave head columns 0 and D (mu_0, s_0) their biases alone,
+    so the step needs no product. Each of the other D-1 steps takes per row
+    one rank-1 term of the first layer (y gained one feature), the other
+    hidden layers and the two head columns (mu_i, s_i) that it uses:
+    2*n*(d-1)*(h + (L-1)*h*h + 2*h). The reverse chain does the same
+    products transposed: y's gradient at feature i is W0[i, :] . dsum, an
+    O(h) term."""
+    return 2 * n * (d - 1) * (h + (n_hidden - 1) * h * h + 2 * h)
 
 
 def vjp_flops(n, d, h, n_hidden):
     """Flops of the whole backward: the reverse chain, then the weight
     gradients, sums over rows and steps of outer products of each step's
-    layer inputs and deltas: the hidden layers in full, the head's two
-    nonzero delta columns per step, the first layer's i nonzero inputs at
-    step i (n*h*d*(d-1) in all); and the bias sums."""
-    weights = 2 * n * d * ((n_hidden - 1) * h * h + 2 * h) + n * h * d * (d - 1)
-    return solve_flops(n, d, h, n_hidden) + weights + n * d * (n_hidden * h + 2)
+    layer inputs and deltas. Step 0's delta reaches the head's biases
+    alone; each other step adds the hidden layers in full and the head's
+    two nonzero delta columns; the first layer has i nonzero inputs at step
+    i (n*h*d*(d-1) in all). Then the bias sums: the hidden biases over the
+    D-1 steps, the head's 2D over all."""
+    weights = 2 * n * (d - 1) * ((n_hidden - 1) * h * h + 2 * h) + n * h * d * (d - 1)
+    biases = n * ((d - 1) * n_hidden * h + 2 * d)
+    return solve_flops(n, d, h, n_hidden) + weights + biases
 
 
 def bound(flops, n_bytes):
@@ -497,8 +524,96 @@ def phase_ar_solve():
                 fwd_bwd_ms=fb_ms)
 
 
-def _slice_config(tmp, config=CONFIG, analytics=False, **overrides):
-    """`config` cut to the smoke's data scale and one epoch; its own
+# circles-squares' latent width: at D = 2 every MADE degree is 0, so each
+# hidden unit sees y_0 alone and only head columns 1 and 1 + D carry weights
+LATENT2_FWD_ROWS = (128, 37, 120, 1_000, EVAL_IS_ROWS)
+LATENT2_BWD_ROWS = (128, 37)
+LATENT2_TIME_ROWS = (128, 120, 1_000, EVAL_IS_ROWS)
+
+
+def phase_ar_solve_latent2():
+    """Both kernels at D = 2, the width circles-squares runs them at (latent
+    2, 3 hidden layers of 128): the forward against `unrolled_solve` at
+    N = 128, 37 (a ragged tile), 120 (HMC's start and the PoE figure's
+    samples, 4 rows x 30 chains), 1,000 (neg_entropy's 100 rows x 10
+    samples) and 10,000 (an IS call); the backward with the reduction
+    against autograd through `unrolled_solve` at N = 128 and 37; both
+    signs, s_bound 0 and 8. Then their device times and bounds, as in
+    phase ar_solve."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    d, h, n_hidden = 2, 128, 3
+    gen = torch.Generator().manual_seed(2)
+    ws, bs = _made_params(d, h, n_hidden, gen)
+    errs = {"forward": 0.0, "backward": 0.0}
+    for n in LATENT2_FWD_ROWS:
+        x = torch.randn(n, d, generator=gen).cuda()
+        for sign in (1, -1):
+            for s_bound in (0.0, 8.0):
+                with torch.no_grad():
+                    y_k, ld_k = ar_flow.kernel_forward(x, ws, bs, sign, s_bound)
+                    y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
+                torch.cuda.synchronize()
+                errs["forward"] = max(errs["forward"], _check_close(
+                    dict(kernel="forward", d=d, n=n, sign=sign, s_bound=s_bound),
+                    [(y_k, y_p), (ld_k, ld_p)]))
+    for n in LATENT2_BWD_ROWS:
+        x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+        gld = torch.randn(n, generator=gen).cuda()
+        for sign in (1, -1):
+            for s_bound in (0.0, 8.0):
+                tape = ar_flow.new_tape(x, ws)
+                y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+                gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+                gws, gbs = ar_flow.reduce_grads(tape, deltas)
+                want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+                torch.cuda.synchronize()
+                errs["backward"] = max(errs["backward"], _check_close(
+                    dict(kernel="backward", d=d, n=n, sign=sign, s_bound=s_bound),
+                    list(zip([gx, *gws, *gbs], want))))
+
+    n_w = sum(w.numel() for w in ws)
+    n_b = sum(b.numel() for b in bs)
+    results = {}
+    for n in LATENT2_TIME_ROWS:
+        x = torch.randn(n, d, generator=gen).cuda()
+        with torch.no_grad():
+            k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
+            p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0))
+        flops, n_bytes = solve_flops(n, d, h, n_hidden), 4 * (2 * n * d + n + n_w + n_b)
+        bound_ms, bound_by = bound(flops, n_bytes)
+        results[f"n{n}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "ar_solve_time", "kernel": "forward", "d": d, "n": n, "kernel_ms": k_ms,
+              "plain_ms": p_ms, "flops": flops, "bytes": n_bytes, "bound_ms": bound_ms,
+              "bound_by": bound_by, "roofline_share": bound_ms / k_ms})
+    n = 128
+    x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(n, generator=gen).cuda()
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
+
+    def bwd_reduce():
+        _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
+        ar_flow.reduce_grads(tape, deltas)
+
+    br_ms = device_time_ms(bwd_reduce)
+    b_ms = device_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld))
+    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), 4 * (4 * n * d + n + 2 * (n_w + n_b))
+    b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
+    results["backward_n128"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms,
+                                    bound_ms=b_bound_ms, bound_by=b_bound_by)
+    emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": br_ms,
+          "kernel_ms": b_ms, "plain_ms": pb_ms, "flops": b_flops, "bytes": b_bytes,
+          "bound_ms": b_bound_ms, "bound_by": b_bound_by, "roofline_share": b_bound_ms / br_ms})
+    return dict(results=results, errs=errs)
+
+
+def _slice_config(tmp, config=CONFIG, analytics=False, synthetic_n=2048, **overrides):
+    """`config` cut to the smoke's data scale (`synthetic_n`; None keeps
+    the config's own or the loader's default) and one epoch; its own
     "no_analytics" (false in every published config) where `analytics`,
     else no analytics."""
     with open(config) as f:
@@ -507,13 +622,26 @@ def _slice_config(tmp, config=CONFIG, analytics=False, **overrides):
     # synthetic stand-in and read nothing outside the run
     data_dir = os.path.join(tmp, "data")
     os.makedirs(data_dir, exist_ok=True)
-    raw.update({"synthetic_n": 2048, "epochs": 1, "data_path": data_dir, **overrides})
+    if synthetic_n is not None:
+        raw["synthetic_n"] = synthetic_n
+    raw.update({"epochs": 1, "data_path": data_dir, **overrides})
     if not analytics:
         raw["no_analytics"] = True
     path = os.path.join(tmp, "smoke_" + os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)
     return path, raw
+
+
+def _data_loaders(cfg):
+    """The (train, test, val) loaders that the train CLI builds for `cfg`:
+    its model's dataset, with the config's keys that the dataset takes."""
+    from mmvae_tpu_torch.cli.common import loader_kwargs
+    from mmvae_tpu_torch.data.loaders import get_dataloaders
+    from mmvae_tpu_torch.models import registry
+
+    dataset = registry.build(cfg).dataset
+    return get_dataloaders(dataset, batch_size=cfg.batch_size, **loader_kwargs(cfg, dataset))
 
 
 def _cli_epoch(tmp, config, analytics=False, **overrides):
@@ -527,16 +655,17 @@ def _cli_epoch(tmp, config, analytics=False, **overrides):
 
     from mmvae_tpu_torch.cli.train import main as train_main
     from mmvae_tpu_torch.core.config import ExperimentConfig
-    from mmvae_tpu_torch.data import get_dataloaders
     from mmvae_tpu_torch.ops import ar_flow
     from mmvae_tpu_torch.train import Trainer
 
     cfg_path, raw = _slice_config(tmp, config, analytics, **overrides)
     cfg = ExperimentConfig.from_json(cfg_path)
     bsz = cfg.batch_size
-    data_kw = dict(batch_size=bsz, data_path=cfg.data_path, synthetic_n=raw["synthetic_n"])
-    train_loader, _, val_loader = get_dataloaders("mnist_svhn", **data_kw)
-    steps, val_batches = train_loader.num_examples // bsz, val_loader.num_examples // bsz
+    train_loader, _, val_loader = _data_loaders(cfg)
+    # the device pipeline drops a ragged last batch, in validation too; a
+    # val set smaller than a batch runs as one batch from the host
+    n_val = val_loader.num_examples
+    steps, val_batches = train_loader.num_examples // bsz, max(n_val // bsz, int(n_val > 0))
 
     epochs, before_callbacks = [], []
 
@@ -1068,11 +1197,13 @@ class _ReluBranches:
         return x * mask.to(x.dtype)
 
 
-def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False, **details):
+def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
+                 grad_tol=STEP_GRAD_TOL, **details):
     """One training step of `config` (cut by `overrides`) at epoch
     max(warmup, 1), past any warmup, on cuda in float32 against
     the same step on the CPU in float64 (the CPU float32 step beside it),
-    the same weights and `n_noise` standard-normal draws: the objective and
+    the same weights and `n_noise` standard-normal draws of (B, latent), or
+    draws of the shapes `n_noise` lists: the objective and
     every trainable parameter's gradient (those of the phase's freezing),
     the loss, and one optimizer step taken, none skipped. With
     `align_relu` (for models whose every ReLU is a `torch.relu` call, on
@@ -1087,19 +1218,17 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False, 
 
     from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
     from mmvae_tpu_torch.core.config import ExperimentConfig
-    from mmvae_tpu_torch.data import get_dataloaders
     from mmvae_tpu_torch.models import registry
     from mmvae_tpu_torch.train import Trainer, freezing
 
     cfg_path, raw = _slice_config(tmp, config, **(overrides or {}))
     cfg = ExperimentConfig.from_json(cfg_path)
-    train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
-                                         data_path=cfg.data_path,
-                                         synthetic_n=raw["synthetic_n"])
+    train_loader, _, _ = _data_loaders(cfg)
     xs_np, _ = next(iter(train_loader))
     rng = np.random.default_rng(0)
-    eps_np = [rng.standard_normal((cfg.batch_size, cfg.latent_dim)).astype(np.float32)
-              for _ in range(n_noise)]
+    shapes = ([(cfg.batch_size, cfg.latent_dim)] * n_noise if isinstance(n_noise, int)
+              else n_noise)
+    eps_np = [rng.standard_normal(shape).astype(np.float32) for shape in shapes]
     epoch = max(cfg.warmup, 1)
 
     out, weights, trainable, branches = {}, None, None, {}
@@ -1136,7 +1265,7 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False, 
     ref = out["cpu_f64_on_cuda_branches" if align_relu else "cpu_f64"]
     cuda, cpu32 = (_step_errors(out[run], ref, trainable) for run in ("cuda_f32", "cpu_f32"))
     ok = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
-          and cuda["grad_max_rel_err"] <= STEP_GRAD_TOL
+          and cuda["grad_max_rel_err"] <= grad_tol
           and all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values()))
     aligned = {}
     if align_relu:
@@ -1153,7 +1282,7 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False, 
           "reference": "cpu float64" + (" on the cuda step's ReLU branches" if align_relu else ""),
           "objective_ref": ref["obj"], "objective_cuda": out["cuda_f32"]["obj"],
           "cuda_f32": cuda, "cpu_f32": cpu32, **aligned, "objective_rtol": STEP_OBJ_RTOL,
-          "grad_tol": STEP_GRAD_TOL, "ok": ok})
+          "grad_tol": grad_tol, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: the cuda step disagrees with the float64 cpu step")
 
@@ -2088,6 +2217,461 @@ def phase_gen_parity(run1):
         raise AssertionError(f"gen_parity: {out} {errs}")
 
 
+# ---------------------------------------------------------------------------
+# slice 8: circles-squares and the single-channel MNIST datasets
+# ---------------------------------------------------------------------------
+
+CIRCLES = {name: os.path.join(ROOT, "configs", "circles", f"{name}.json")
+           for name in ("mmvae", "jmvae_nf", "jmvae_nf_dcca")}
+# the JNF run: jmvae_nf_dcca.json at its published 10,000 pairs, 2 epochs
+# (published 30), the first in warmup (published 15): past_warmup is epoch
+# >= warmup, so warmup 1 would leave no warmup epoch
+CIRCLES_JNF_RUN = dict(epochs=2, warmup=2)
+CIRCLES_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence",
+                                "neg_entropy"])
+MS_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence"])
+DCCA_CIRCLES_EPOCHS = 2
+# (train steps, val batches) of one epoch: mmvae.json's 140,000 train and
+# 30,000 val pairs, jmvae_nf_dcca.json's 7,000 and 1,500, at B=128
+CIRCLES_MMVAE_BATCHES, CIRCLES_JNF_BATCHES = (1093, 234), (54, 11)
+# the single-channel MNIST runs: configs/mnist_svhn/jmvae_nf.json (MMVAE:
+# mmvae.json) with their model swapped and no DCCA; JMVAE-NF 2 epochs with
+# the first in warmup at the loaders' default scale, MMVAE 1 epoch at a
+# quarter of it (synthetic_n 1,024: 8,235 train pairs)
+MNIST1CH_JNF_RUN = dict(synthetic_n=None, epochs=2, warmup=2, skip_warmup=False)
+MNIST1CH = {"jnf_mnist_fashion": (JNF, MNIST1CH_JNF_RUN),
+            "jnf_mnist_contour": (JNF, MNIST1CH_JNF_RUN),
+            "mnist_fashion": (os.path.join(ROOT, "configs", "mnist_svhn", "mmvae.json"),
+                              dict(synthetic_n=1024))}
+# HMC on the card against float64 on the CPU: one step of 10 leapfrogs from
+# the same start, momenta and accept-uniforms; the samples to this share of
+# their largest entry (float32 round-off through the flows' density and
+# its gradient, 10 leapfrogs of 0.01), the accept decisions equal
+HMC_RTOL = 1e-4
+# radius read-outs on the card against float64 on the CPU: a decoded pixel
+# whose float64 value lies within this of the 0.5 threshold may be lit on
+# one side only (a kink, as ReLU's in `_step_parity`); the float64 radii are
+# read on the card's side of such pixels
+RADIUS_KINK_ATOL = 1e-5
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def _tee_call(fn, *args, **kwargs):
+    """fn's result and what it printed, still printed."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args, **kwargs)
+    return out, tee.text()
+
+
+def _rayon_line(text, epoch=1):
+    """The rayon metrics the train CLI's analytics printed at `epoch`."""
+    import ast
+
+    tag = f"[analytics] rayon metrics epoch {epoch}: "
+    lines = [l.split(tag, 1)[1] for l in text.splitlines() if tag in l]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one '{tag}' line, found {len(lines)}")
+    return ast.literal_eval(lines[0])
+
+
+def _check_rayon(name, rayon, run):
+    """The analytics' rayon_corr_ij is there unless direction ij's radii
+    are all equal (the JAX package's rule: a correlation needs spread),
+    which its histogram's JSON shows."""
+    constant = {}
+    for ij in ("01", "10"):
+        with open(os.path.join(run, f"hist_rayon_{ij}_001.png.json")) as f:
+            h = json.load(f)
+        constant[ij] = h["min"] == h["max"]
+        if (f"rayon_corr_{ij}" in rayon) == constant[ij]:
+            raise AssertionError(f"{name}: rayon metrics {rayon}, direction {ij}'s radii "
+                                 f"from {h['min']} to {h['max']}")
+    return constant
+
+
+def _run_pngs(run, names):
+    missing = [n for n in names if not os.path.exists(os.path.join(run, n))]
+    if missing:
+        raise AssertionError(f"{run}: missing {missing}")
+    return {n: _png_ok(os.path.join(run, n)) for n in names if n.endswith(".png")}
+
+
+def _validate_counted(run, exp, expected, keys):
+    """validate --repeats 1 --fid-encoder classifier on cuda: its metrics,
+    launches (checked against `expected`) and times."""
+    from mmvae_tpu_torch.cli import validate
+
+    summary, lines, launches, wall = _counted(validate.main, [
+        "--run-path", run, "--experiments-dir", exp, "--repeats", "1",
+        "--fid-encoder", "classifier", "--device", "cuda"])
+    marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines if l.startswith("[")}
+    values = {k: v["mean"] for k, v in summary.items()}
+    ok = (launches == expected and sorted(values) == keys
+          and all(0.0 <= values[k] <= 1.0 for k in ("acc_0_1", "acc_1_0", "joint_coherence"))
+          and all(math.isfinite(v) for v in values.values()))
+    return ok, dict(metrics=values, launches=list(launches), expected_launches=list(expected),
+                    validate_s=wall, marks=marks)
+
+
+def phase_circles_slice(tmp):
+    """circles-squares through the CLIs on cuda at full width (1x32x32
+    one-channel SVHN nets, latent 2, B=128): mmvae.json (MMVAE, DReG at
+    K=10) for 1 epoch of its published 200,000 pairs, and
+    jmvae_nf_dcca.json (JMVAE-NF, no_recon) at its published 10,000 pairs
+    for 2 epochs with warmup 2, each with its own epoch-1 analytics (grids,
+    rayon_corr_01/_10 and their histograms); `validate --repeats 1` on both
+    (neg_entropy, and for JMVAE-NF the HMC product-of-posteriors figure);
+    `compute_likelihoods --bis` on the first test batch of JMVAE-NF; and
+    `dcca_train --dataset circles_squares` for 2 epochs. Each path's
+    ar_solve launches from 0, against the counts worked out from the code:
+    MMVAE none anywhere; JMVAE-NF's training none (no_recon: the flows run
+    their density direction only), its epoch-1 analytics 8 (2 modalities x
+    2 MAF blocks for the grids, as many for the radii); validate 4 per
+    conditional sampling call: coherence and FID per test batch, the grids,
+    neg_entropy, and 8 for the PoE figure (the unimodal samples and HMC's
+    start); the likelihoods 400; DCCA none; none backward anywhere."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli import compute_likelihoods
+    from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
+
+    exp = os.path.join(tmp, "experiments")
+    launches, runs = {}, {}
+
+    # MMVAE-DReG at the published 200,000 pairs
+    (cfg, train_loader, info, _), text = _tee_call(
+        _cli_epoch, tmp, CIRCLES["mmvae"], analytics=True, synthetic_n=None)
+    rayon = _rayon_line(text)
+    grids = [f"cond_samples_{r}x{o}_001.png" for r in (0, 1) for o in (0, 1)] + \
+        ["generate_001.png"] + [f"hist_rayon_{ij}_001.png{e}" for ij in ("01", "10")
+                                for e in ("", ".json")]
+    pngs = _run_pngs(info["run_path"], grids)
+    got = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    constant = _check_rayon("circles MMVAE", rayon, info["run_path"])
+    emit({"phase": "circles_mmvae_slice", "objective": "m_dreg", "K": cfg.K,
+          "latent_dim": cfg.latent_dim,
+          "analytics": {"rayon": rayon, "constant_radii": constant, "pngs": pngs},
+          "expected_launches": [0, 0], **info})
+    if got != (0, 0) or (info["train_steps"], info["val_batches"]) != CIRCLES_MMVAE_BATCHES:
+        raise AssertionError(f"circles MMVAE: {info['train_steps']}+{info['val_batches']} "
+                             f"batches (expected {CIRCLES_MMVAE_BATCHES}), launches {got} "
+                             f"(expected none)")
+    if not info["losses_finite"] or info["nan_skipped_fraction"] or not info["params_on_cuda"]:
+        raise AssertionError(f"circles MMVAE: finite {info['losses_finite']}, skipped "
+                             f"{info['nan_skipped_fraction']}, on cuda {info['params_on_cuda']}")
+    launches["circles_mmvae"], runs["mmvae"] = got, info["run_path"]
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader)
+    emit({"phase": "circles_mmvae_slice_time", "train_step_ms": step_s * 1e3,
+          "pairs_per_s": cfg.batch_size / step_s, "eval_batch_ms": eval_ms, **prof})
+
+    # JMVAE-NF at the published 10,000 pairs, over the warmup boundary
+    (cfg, train_loader, info, _), text = _tee_call(
+        _cli_epoch, tmp, CIRCLES["jmvae_nf_dcca"], analytics=True, synthetic_n=None,
+        **CIRCLES_JNF_RUN)
+    rayon = _rayon_line(text)
+    pngs = _run_pngs(info["run_path"], grids)
+    got = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    expected_by_epoch = [(8, 0), (8, 0)]
+    constant = _check_rayon("circles JNF", rayon, info["run_path"])
+    emit({"phase": "circles_jnf_slice", "config": "jmvae_nf_dcca.json", "dcca": cfg.dcca,
+          "no_recon": cfg.no_recon,
+          "analytics": {"rayon": rayon, "constant_radii": constant, "pngs": pngs},
+          "expected_launches_by_epoch": expected_by_epoch,
+          "expected_analytics_launches_by_epoch": [8, 0], **info})
+    if (info["launches_by_epoch"] != expected_by_epoch
+            or info["callback_launches_by_epoch"] != [8, 0]
+            or (info["train_steps"], info["val_batches"]) != CIRCLES_JNF_BATCHES):
+        raise AssertionError(f"circles JNF: launches by epoch {info['launches_by_epoch']} "
+                             f"(analytics {info['callback_launches_by_epoch']}), batches "
+                             f"{info['train_steps']}+{info['val_batches']}")
+    if not info["losses_finite"] or info["nan_skipped_fraction"] or cfg.dcca:
+        raise AssertionError(f"circles JNF: finite {info['losses_finite']}, "
+                             f"skipped {info['nan_skipped_fraction']}, dcca {cfg.dcca}")
+    launches["circles_jnf"], runs["jnf"] = got, info["run_path"]
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader, epoch=2)
+    emit({"phase": "circles_jnf_slice_time", "epoch": 2, "train_step_ms": step_s * 1e3,
+          "eval_batch_ms": eval_ms, **prof})
+
+    # validate on both: the classifier pool's empty/full net trains on first use
+    from mmvae_tpu_torch.cli.common import reload_model
+
+    nb = len(reload_model(runs["jnf"], 500, "cuda")[2][1])
+    for name, run in runs.items():
+        expected = (0 if name == "mmvae" else 4 * (2 * nb + 1) + 4 + 8, 0)
+        ok, res = _validate_counted(run, exp, expected, CIRCLES_VALIDATE_KEYS)
+        files = ["hist_000.png", "hist_000.png.json"] + (
+            ["product_of_posteriors.png", "product_of_posteriors.png.json"] if name == "jnf" else [])
+        res["pngs"] = _run_pngs(run, files)
+        m = res.pop("marks")
+        res["repeat_s"] = m["repeat 0: fid done"] - m["classifiers ready"]
+        res["classifiers_s"] = m["classifiers ready"] - m["model reloaded"]
+        if name == "jnf":
+            res["poe_figure_s"] = m["product of posteriors done"] - m["repeat 0: fid done"]
+        emit({"phase": "circles_validate", "run": name, "test_batches": nb, **res, "ok": ok})
+        if not ok:
+            raise AssertionError(f"circles validate on {name}: {res}")
+        launches[f"validate_circles_{name}"] = tuple(res["launches"])
+
+    # the likelihoods of JMVAE-NF on its first test batch
+    summary, _, got, wall = _counted(compute_likelihoods.main, [
+        "--run-path", runs["jnf"], "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK),
+        "--repeats", "1", "--max-batches", "1", "--bis", "--device", "cuda"])
+    calls = -(-500 // (EVAL_IS_ROWS // EVAL_BK))
+    expected = (2 * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
+    values = {k: v["mean"] for k, v in summary.items()}
+    ok = got == expected and all(math.isfinite(v) for v in values.values()) and len(values) == 5
+    emit({"phase": "circles_likelihoods", "run": "jnf", "K": EVAL_K, "metrics": values,
+          "launches": list(got), "expected_launches": list(expected), "wall_s_incl_reload": wall,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"circles likelihoods: launches {got} (expected {expected}), {values}")
+    launches["likelihoods_circles_jnf"] = got
+
+    # DCCA pretraining on circles-squares
+    path, lines, got, wall = _counted(dcca_main, [
+        "--dataset", "circles_squares", "--device", "cuda", "--epochs", str(DCCA_CIRCLES_EPOCHS),
+        "--batch-size", str(DCCA_BATCH), "--data-path", os.path.join(tmp, "data"),
+        "--out", os.path.join(tmp, "dcca")])
+    losses = [l.split() for l in lines if l.startswith("DCCA epoch")]
+    losses = [(float(w[w.index("train") + 1]), float(w[w.index("val") + 1])) for w in losses]
+    with np.load(path) as npz:
+        shapes = {k: list(npz[k].shape) for k in ("m0", "m1", "w0", "w1")}
+        finite = all(np.isfinite(npz[k]).all() for k in ("m0", "m1", "w0", "w1", "D"))
+    ok = (got == (0, 0) and len(losses) == DCCA_CIRCLES_EPOCHS and finite
+          and all(math.isfinite(v) for pair in losses for v in pair)
+          and shapes == {"m0": [16], "m1": [16], "w0": [16, 16], "w1": [16, 16]})
+    emit({"phase": "circles_dcca", "trunks": "dcca_encoders_circles", "outdim": 16,
+          "losses_train_val": losses, "artifact_shapes": shapes, "launches": list(got),
+          "cli_wall_s_incl_setup": wall, "ok": ok})
+    if not ok:
+        raise AssertionError(f"circles DCCA: launches {got}, losses {losses}, shapes {shapes}")
+    launches["dcca_circles"] = got
+    return launches, runs
+
+
+class _GivenNoise:
+    """A Noise that hands out the given numpy arrays in turn, broadcast to
+    each draw's shape, on `device` in `dtype`."""
+
+    def __init__(self, arrays, device, dtype):
+        self.arrays, self.device, self.dtype, self.i = list(arrays), device, dtype, 0
+
+    def draw(self, dist, shape):
+        import numpy as np
+        import torch
+
+        a = np.broadcast_to(self.arrays[self.i], tuple(shape))
+        self.i += 1
+        return torch.tensor(a, device=self.device, dtype=self.dtype)
+
+
+def _radius_parity(models, data_np, n, noise_np, true_radii=None):
+    """Radii read off cross-modal samples (n per row, both directions) of
+    the cuda float32 model and the CPU float64 one from the same noise:
+    pixels lit on one side only must lie within RADIUS_KINK_ATOL of 0.5 in
+    float64; with them taken on the card's side the float64 radii equal the
+    card's. Returns (neg_entropy or rayon_corr metrics on the card, the
+    float64 ones on their own side, pixels on the other side, the largest
+    |x - 0.5| among them)."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.eval.generation import sample_from_conditional
+    from mmvae_tpu_torch.eval.latent_analysis import negative_entropy
+    from mmvae_tpu_torch.vis import extract_rayon
+
+    imgs = {}
+    for key, (model, dev, dtype) in models.items():
+        xs = [torch.tensor(x, device=dev, dtype=dtype) for x in data_np]
+        with torch.no_grad():
+            s = sample_from_conditional(model, xs, _GivenNoise(noise_np, dev, dtype), n=n)
+        imgs[key] = [s[0][1].double().cpu().numpy(), s[1][0].double().cpu().numpy()]
+    flips, kink = 0, 0.0
+    radii = {key: [] for key in imgs}
+    for d in range(2):
+        a32, a64 = imgs["cuda_f32"][d], imgs["cpu_f64"][d]
+        other = (a32[..., 0, :, :] > 0.5) != (a64[..., 0, :, :] > 0.5)
+        flips += int(other.sum())
+        if other.any():
+            kink = max(kink, float(np.abs(a64[..., 0, :, :][other] - 0.5).max()))
+        for key in imgs:
+            radii[key].append(extract_rayon(imgs[key][d]))
+
+    def metrics(r):
+        if true_radii is None:  # (n, B) per direction -> rows = datapoints
+            return {"neg_entropy": negative_entropy(np.concatenate([r[0].T, r[1].T]), (0, 1), 10)}
+        out = {}
+        for (i, j), r_est, r_true in zip(((0, 1), (1, 0)), r, true_radii):
+            r_est = r_est[0]
+            if np.std(r_est) > 0 and np.std(r_true) > 0:
+                out[f"rayon_corr_{i}{j}"] = float(np.corrcoef(r_true, r_est)[0, 1])
+        return out
+
+    return metrics(radii["cuda_f32"]), metrics(radii["cpu_f64"]), flips, kink
+
+
+def phase_circles_parity(tmp, jnf_run):
+    """circles-squares on the card against float64 on the CPU: one
+    MMVAE-DReG training step (K=10, B=128; its two modalities' (K, B, 2)
+    noise), one post-warmup JMVAE-NF step (frozen joint, no_recon); on the
+    trained JMVAE-NF run, one HMC step over the product of experts at the
+    PoE figure's shape (4 test pairs x 30 chains) from the same modality
+    choice, start noise, momenta and accept-uniforms, whose start runs the
+    forward kernel on the card (4 launches); and the radius read-outs:
+    neg_entropy at validate's shape (100 rows x 10 samples) and
+    rayon_corr_01/_10 at the analytics' (64 val rows)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.eval import hmc as H
+    from mmvae_tpu_torch.ops import ar_flow
+
+    cut = dict(synthetic_n=None, dataset_size=500)  # 10,000 pairs: one batch is needed
+    _step_parity(tmp, CIRCLES["mmvae"], [(10, 128, 2)] * 2, "circles_mmvae_parity", cut,
+                 grad_tol=MMVAE_GRAD_TOL)
+    _step_parity(tmp, CIRCLES["jmvae_nf"], 2, "circles_jnf_parity", {**cut, **CIRCLES_JNF_RUN},
+                 frozen_joint=True, no_recon=True)
+
+    cfg, bundle, (_, test_l, val_l) = reload_model(jnf_run, 500, "cuda")
+    models = {"cuda_f32": (bundle.model, "cuda", torch.float32),
+              "cpu_f64": (copy.deepcopy(bundle.model).to("cpu", torch.float64), "cpu",
+                          torch.float64)}
+    xs_np = [np.asarray(x) for x in next(iter(test_l))[0]]
+    rng = np.random.default_rng(3)
+    n_data, chains, latent = 4, 30, cfg.latent_dim
+    n = n_data * chains
+    choice = rng.integers(0, 2, n)
+    eps = [rng.standard_normal((n, latent)) for _ in range(2)]
+    rho, u = rng.standard_normal((1, n, latent)), rng.uniform(size=(1, n))
+    hmc = {}
+    for key, (model, dev, dtype) in models.items():
+        t = lambda a: torch.tensor(a, device=dev, dtype=dtype)  # noqa: E731
+        data = [t(x[:n_data]) for x in xs_np]
+        torch.cuda.synchronize()
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        with torch.no_grad():
+            z0 = H.sample_from_moe_subset(model, [0, 1], [torch.cat([d] * chains) for d in data],
+                                          choice=torch.tensor(choice), eps=[t(e) for e in eps])
+            z, acc = H.sample_from_poe_subset(model, [0, 1], data, mcmc_steps=1, n_lf=10,
+                                              eps_lf=0.01, K=chains, divide_prior=False,
+                                              return_acceptance=True, z0=z0, rho=t(rho), u=t(u))
+        torch.cuda.synchronize()
+        hmc[key] = dict(z0=z0.double().cpu(), z=z.reshape(n, -1).double().cpu(), acc=float(acc),
+                        launches=(ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches))
+    ref, got = hmc["cpu_f64"], hmc["cuda_f32"]
+    moved = {k: (v["z"] != v["z0"]).any(1) for k, v in hmc.items()}
+    scale = ref["z"].abs().max().item()
+    z0_err = (got["z0"] - ref["z0"]).abs().max().item() / scale
+    z_err = (got["z"] - ref["z"]).abs().max().item() / scale
+    same_moves = bool(torch.equal(moved["cuda_f32"], moved["cpu_f64"]))
+    ok = (same_moves and z0_err <= HMC_RTOL and z_err <= HMC_RTOL
+          and got["launches"] == (4, 0) and ref["launches"] == (0, 0))
+    emit({"phase": "circles_hmc_parity", "chains": chains, "rows": n_data, "steps": 1,
+          "leapfrogs": 10, "eps_lf": 0.01, "reference": "cpu float64",
+          "acceptance_cuda": got["acc"], "acceptance_ref": ref["acc"],
+          "accept_decisions_equal": same_moves, "z0_rel_err": z0_err, "z_rel_err": z_err,
+          "rtol": HMC_RTOL, "launches_cuda": list(got["launches"]), "expected_launches": [4, 0],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"circles HMC: cuda vs float64 {z0_err}, {z_err}, moves equal "
+                             f"{same_moves}, launches {got['launches']}")
+
+    # neg_entropy at validate's shape, rayon_corr at the analytics'
+    noise = [rng.standard_normal((10, 100, latent)) for _ in range(2)]
+    ent = _radius_parity(models, [x[:100] for x in xs_np], 10, noise)
+    val = val_l.dataset
+    rows = [np.asarray(m[:64]) for m in val.modalities]
+    true = (val.extras["r_circles"][:64], val.extras["r_squares"][:64])
+    ray = _radius_parity(models, rows, 1, [rng.standard_normal((64, latent)) for _ in range(2)],
+                         true_radii=true)
+    out = {}
+    for what, (cuda, own, flips, kink) in (("neg_entropy", ent), ("rayon_corr", ray)):
+        out[what] = {"cuda": cuda, "cpu_f64_own_side": own, "pixels_on_other_side": flips,
+                     "their_max_abs_from_threshold": kink}
+    ok = all(v["their_max_abs_from_threshold"] <= RADIUS_KINK_ATOL for v in out.values()) \
+        and sorted(ray[0]) == sorted(ray[1])
+    emit({"phase": "circles_radius_parity", **out, "kink_atol": RADIUS_KINK_ATOL,
+          "reference": "cpu float64, each pixel within kink_atol of 0.5 on the card's side",
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"circles radius parity: {out}")
+
+
+def phase_mnist1ch_slice(tmp):
+    """The single-channel MNIST datasets through the CLIs on cuda at full
+    width (conv MNIST nets with BatchNorm, latent 20, B=128), from
+    configs/mnist_svhn/jmvae_nf.json with the model swapped (mmvae.json for
+    MMVAE), no DCCA, at the loaders' default synthetic scale:
+    jnf_mnist_fashion and jnf_mnist_contour for 2 epochs (warmup 2: the
+    first trains the joint encoder, the second the unimodal encoders and
+    flows with their reconstructions), mnist_fashion (MMVAE-DReG) for 1 at
+    a quarter of the data;
+    then `validate --repeats 1` on each. Launches from the code: epoch 1
+    only its grids' 4 (2 modalities x 2 MAF blocks); epoch 2 4 forward per
+    train step and val batch and 4 backward per train step (compute_kld's
+    unimodal VAE forwards, under autograd); validate 4 x (2 x test batches
+    + 1); MMVAE none."""
+    from mmvae_tpu_torch.cli.common import reload_model
+
+    exp = os.path.join(tmp, "experiments")
+    launches = {}
+    for model, (base, run) in MNIST1CH.items():
+        with open(base) as f:
+            raw = json.load(f)
+        raw.update(model=model, dcca=False, experiment=f"smoke/{model}")
+        path = os.path.join(tmp, f"{model}.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        jnf = model.startswith("jnf")
+        cfg, train_loader, info, epochs = _cli_epoch(tmp, path, analytics=True, **run)
+        steps, val_b = info["train_steps"], info["val_batches"]
+        expected = ([(4, 0), (4 + 4 * (steps + val_b), 4 * steps)] if jnf else [(0, 0)])
+        got = info["launches_by_epoch"]
+        emit({"phase": "mnist1ch_slice", "model": model, "latent_dim": cfg.latent_dim,
+              "no_recon": cfg.no_recon, "expected_launches_by_epoch": expected, **info})
+        if got != expected or not info["losses_finite"] or not info["params_on_cuda"]:
+            raise AssertionError(f"{model}: launches by epoch {got} (expected {expected}), "
+                                 f"finite {info['losses_finite']}")
+        launches[model] = got[-1]
+        if model == "jnf_mnist_fashion":
+            _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader, epoch=2)
+            emit({"phase": "mnist1ch_slice_time", "model": model, "epoch": 2,
+                  "train_step_ms": step_s * 1e3, "eval_batch_ms": eval_ms, **prof})
+        run = info["run_path"]
+        nb = len(reload_model(run, 500, "cuda")[2][1])
+        ok, res = _validate_counted(run, exp, (4 * (2 * nb + 1) if jnf else 0, 0),
+                                    MS_VALIDATE_KEYS)
+        res.pop("marks")
+        emit({"phase": "mnist1ch_validate", "model": model, "test_batches": nb, **res, "ok": ok})
+        if not ok:
+            raise AssertionError(f"validate on {model}: {res}")
+        launches[f"validate_{model}"] = tuple(res["launches"])
+    return launches
+
+
 def main():
     import torch
 
@@ -2110,33 +2694,45 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
-    solve = phase_ar_solve()
+    walls = {}  # each phase's wall seconds
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    solve = timed("ar_solve", phase_ar_solve)
+    solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        sl = phase_slice(tmp)
-        phase_parity(tmp)
-        train_loader, flagship_run = phase_mmvae_slice(tmp)
+        sl = timed("slice", phase_slice, tmp)
+        timed("parity", phase_parity, tmp)
+        train_loader, flagship_run = timed("mmvae_slice", phase_mmvae_slice, tmp)
         for config in (FLAGSHIP, FLAGSHIP_BF16):
-            phase_mmvae_time(tmp, config, train_loader)
-        phase_mmvae_parity(tmp)
-        jnf_loader, jnf = phase_jnf_slice(tmp)
-        phase_jnf_time(tmp, jnf_loader)
-        phase_jnf_parity(tmp)
-        dcca_path = phase_dcca(tmp)
-        jnf_dcca = phase_jnf_dcca_slice(tmp, dcca_path)
-        telbo = phase_telbo_slice(tmp)
-        mvae, mvae_run = phase_poe_slice(tmp, MVAE, "mvae")
-        moepoe, moepoe_run = phase_poe_slice(tmp, MOEPOE, "moepoe")
-        analytics = phase_analytics(sl)
+            timed("mmvae_slice_time", phase_mmvae_time, tmp, config, train_loader)
+        timed("mmvae_parity", phase_mmvae_parity, tmp)
+        jnf_loader, jnf = timed("jnf_slice", phase_jnf_slice, tmp)
+        timed("jnf_slice_time", phase_jnf_time, tmp, jnf_loader)
+        timed("jnf_parity", phase_jnf_parity, tmp)
+        dcca_path = timed("dcca", phase_dcca, tmp)
+        jnf_dcca = timed("jnf_dcca_slice", phase_jnf_dcca_slice, tmp, dcca_path)
+        telbo = timed("telbo_nf_slice", phase_telbo_slice, tmp)
+        mvae, mvae_run = timed("mvae_slice", phase_poe_slice, tmp, MVAE, "mvae")
+        moepoe, moepoe_run = timed("moepoe_slice", phase_poe_slice, tmp, MOEPOE, "moepoe")
+        analytics = timed("analytics", phase_analytics, sl)
         runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"],
                 "mvae": mvae_run, "moepoe": moepoe_run}
-        validate = phase_eval_validate(tmp, runs)
-        likelihoods = phase_eval_likelihoods(tmp, runs)
-        phase_eval_parity(tmp, runs)
-        phase_eval_memory(runs)
-        gen, gen_run1 = phase_gen_slice(tmp, runs["jnf"])
-        phase_gen_parity(gen_run1)
+        validate = timed("eval_validate", phase_eval_validate, tmp, runs)
+        likelihoods = timed("eval_likelihoods", phase_eval_likelihoods, tmp, runs)
+        timed("eval_parity", phase_eval_parity, tmp, runs)
+        timed("eval_memory", phase_eval_memory, runs)
+        gen, gen_run1 = timed("gen_slice", phase_gen_slice, tmp, runs["jnf"])
+        timed("gen_parity", phase_gen_parity, gen_run1)
+        circles, circles_runs = timed("circles_slice", phase_circles_slice, tmp)
+        timed("circles_parity", phase_circles_parity, tmp, circles_runs["jnf"])
+        mnist1ch = timed("mnist1ch_slice", phase_mnist1ch_slice, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2148,7 +2744,7 @@ def main():
                "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
-               **{f"gen_{k}": v for k, v in gen.items()}}
+               **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -2165,13 +2761,19 @@ def main():
     # reduction replace: its `ms` is both, the kernel alone beside it. The
     # forward's times at eval's rows stand beside its main-path time.
     at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
-    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start, "phase_seconds": walls})
+    # and at circles-squares' latent 2, with its rows
+    at2 = solve2["results"]
     emit({"kernels": [
         entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
-              at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"]),
+              at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"],
+              at_latent_2={k: v for k, v in at2.items() if not k.startswith("backward")},
+              max_abs_err_at_latent_2=solve2["errs"]["forward"]),
         entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
               solve["bwd_err"],
-              kernel_ms=solve["results"]["backward"]["kernel_ms"])]})
+              kernel_ms=solve["results"]["backward"]["kernel_ms"],
+              at_latent_2=at2["backward_n128"],
+              max_abs_err_at_latent_2=solve2["errs"]["backward"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

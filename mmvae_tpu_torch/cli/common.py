@@ -15,7 +15,7 @@ import torch
 
 # streams of the eval generators, the first key after the config's seed
 STREAM_CLASSIFIER, STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_LIKELIHOOD, \
-    STREAM_ANALYTICS, STREAM_PRD, STREAM_GMM = range(1, 9)
+    STREAM_ANALYTICS, STREAM_PRD, STREAM_GMM, STREAM_RADIUS, STREAM_POE = range(1, 11)
 
 
 def torch_device(name) -> torch.device:
@@ -53,31 +53,41 @@ def find_latest_run(experiments_dir: str, experiment: str) -> str:
     return max(runs, key=os.path.getmtime)
 
 
+def loader_kwargs(cfg, dataset: str) -> dict:
+    """The keyword arguments, beside batch_size, with which the train CLI
+    and a reload build `dataset`'s loaders from `cfg`: its data_path, the
+    config's other keys that the dataset's constructor takes, and len_train
+    where it takes one (the reference re-reads it on reload,
+    jmvae_nf_mnist_svhn_dcca.py:104-106)."""
+    from ..data.loaders import DATASETS
+
+    sig = inspect.signature(DATASETS[dataset]).parameters
+    kw = {k: v for k, v in cfg.extra.items() if k in sig}
+    if cfg.len_train and "len_train" in sig:
+        kw["len_train"] = cfg.len_train
+    return dict(data_path=cfg.data_path, **kw)
+
+
 def reload_model(run_path: str, batch_size: Optional[int] = None, device="cuda"):
     """-> (cfg, bundle, loaders): the run's config, its model with the
     best-val checkpoint model.pt on `device` (`torch_device`) in eval mode,
     and the loaders rebuilt at `batch_size` (validate.py:79 reloads at 500)."""
     from ..core.config import ExperimentConfig
-    from ..data.loaders import DATASETS, get_dataloaders
+    from ..data.loaders import get_dataloaders
     from ..models import registry
 
     device = torch_device(device)
     with open(os.path.join(run_path, "args.json")) as f:
         cfg = ExperimentConfig.from_dict(json.load(f))
     bundle = registry.build(cfg)
-    sig = inspect.signature(DATASETS[bundle.dataset]).parameters
-    extra = {k: v for k, v in cfg.extra.items() if k in sig}
-    # the reference re-reads len_train on reload (jmvae_nf_mnist_svhn_dcca.py:104-106)
-    if cfg.len_train and "len_train" in sig:
-        extra["len_train"] = cfg.len_train
+    kw = loader_kwargs(cfg, bundle.dataset)
     bs = batch_size or cfg.batch_size
-    loaders = get_dataloaders(bundle.dataset, batch_size=bs, data_path=cfg.data_path, **extra)
+    loaders = get_dataloaders(bundle.dataset, batch_size=bs, **kw)
     # clamp the eval batch to the smallest split, so that tiny (smoke)
     # datasets still yield a batch in every split
     n_min = min(l.num_examples for l in loaders)
     if 0 < n_min < bs:
-        loaders = get_dataloaders(bundle.dataset, batch_size=n_min, data_path=cfg.data_path,
-                                  **extra)
+        loaders = get_dataloaders(bundle.dataset, batch_size=n_min, **kw)
     state = torch.load(os.path.join(run_path, "model.pt"), map_location=device, weights_only=True)
     bundle.model.load_state_dict(state)
     bundle.model.to(device).eval()

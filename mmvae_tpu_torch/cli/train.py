@@ -20,7 +20,8 @@ is adopted, with the epochs and warmup of both configs added, and its
 model.pt is reloaded before training.
 With "no_analytics": false, as every published config has it, image grids
 are written every "freq_analytics" epochs and at epoch 1
-(`analytics_callback`).
+(`analytics_callback`); on circles-squares, with the radius analytics
+(rayon_corr_01, rayon_corr_10 and their histograms).
 
 Float32 by default: on CUDA, TF32 is switched off for both matrix products
 and cuDNN convolutions (cuDNN's default is on). The config keys
@@ -33,7 +34,6 @@ from __future__ import annotations
 import argparse
 import datetime
 import functools
-import inspect
 import json
 import os
 import traceback
@@ -56,16 +56,27 @@ def analytics_callback(cfg, bundle, val_loader, run_path, device):
     epochs and at epoch 1: cond_samples_{r}x{o}_{epoch:03d}.png, 8
     conditional samples of modality o for each of the first 8 val rows of
     modality r beside those rows, and generate_{epoch:03d}.png, 32 prior
-    samples. The noise comes from a generator seeded from (seed, epoch). A
-    failure to write the images is reported and does not stop training, as
-    in the JAX CLI; a failure of the sampling itself (a kernel's launch
-    among them) does."""
+    samples. Where the val set has the true radii (circles-squares), also
+    the radius analytics on its first 64 rows (jmvae_nf_circles.py:82-132):
+    rayon_corr_01 and rayon_corr_10, printed, and
+    hist_rayon_{ij}_{epoch:03d}.png. The noise comes from generators seeded
+    from (seed, epoch). A failure to write the images is reported and does
+    not stop training, as in the JAX CLI; a failure of the sampling itself
+    (a kernel's launch among them) does."""
     from ..eval.generation import Noise, generate, sample_from_conditional
+    from ..eval.latent_analysis import rayon_metrics, write_rayon_hists
     from ..vis import adjust_shape, save_image, save_samples
-    from .common import STREAM_ANALYTICS, generator
+    from .common import STREAM_ANALYTICS, STREAM_RADIUS, generator
 
     xs, _ = next(iter(val_loader))
     val_xs = [torch.as_tensor(x[:8]).to(device, torch.float32) for x in xs]
+    ds = val_loader.dataset
+    radii_rows = None
+    if {"r_squares", "r_circles"} <= set(ds.extras):
+        n_an = min(64, len(ds))
+        radii_rows = ([torch.as_tensor(np.asarray(m[:n_an])).to(device, torch.float32)
+                       for m in ds.modalities],
+                      ds.extras["r_squares"][:n_an], ds.extras["r_circles"][:n_an])
 
     @torch.no_grad()
     def analytics(trainer, epoch, *args, **kwargs):
@@ -79,11 +90,18 @@ def analytics_callback(cfg, bundle, val_loader, run_path, device):
                          .cpu().numpy())
                 for r, x in enumerate(val_xs) for o in range(len(val_xs))}
         gen = [g.cpu().numpy() for g in generate(model, noise, bundle.spec, N=32)[:2]]
+        radii = None
+        if radii_rows is not None:
+            rm, radii = rayon_metrics(
+                model, *radii_rows, Noise([generator(device, cfg.seed, STREAM_RADIUS, epoch)]))
+            print(f"[analytics] rayon metrics epoch {epoch}: {rm}")
         try:
             for (r, o), (x, recon) in cond.items():
                 save_image(np.concatenate(adjust_shape(x, recon)),
                            os.path.join(run_path, f"cond_samples_{r}x{o}_{epoch:03d}.png"))
             save_samples(gen, os.path.join(run_path, f"generate_{epoch:03d}.png"))
+            if radii is not None:
+                write_rayon_hists(radii, run_path, epoch)
         except Exception as e:  # writing the grids must never kill training
             traceback.print_exc()
             print(f"[analytics] skipped at epoch {epoch}: {e!r}")
@@ -102,11 +120,11 @@ def main(argv=None):
 
     from ..core.config import ExperimentConfig
     from ..data import get_dataloaders
-    from ..data.loaders import DATASETS, ArrayLoader, PairedDataset
+    from ..data.loaders import ArrayLoader, PairedDataset
     from ..models import registry
     from ..train import Trainer, checkpoints
     from ..utils import Tracker
-    from .common import torch_device
+    from .common import loader_kwargs, torch_device
 
     cfg = ExperimentConfig.from_json(info.config_path)
     problem = _not_yet_ported(cfg)
@@ -137,13 +155,8 @@ def main(argv=None):
     with open(os.path.join(run_path, "args.json"), "w") as f:
         json.dump(cfg.to_dict(), f)
 
-    kw = dict(batch_size=cfg.batch_size, data_path=cfg.data_path)
-    if cfg.len_train and bundle.dataset == "mnist_svhn":
-        kw["len_train"] = cfg.len_train
-    # forward unknown config keys that the dataset constructor accepts
-    sig = inspect.signature(DATASETS[bundle.dataset]).parameters
-    kw.update({k: v for k, v in cfg.extra.items() if k in sig})
-    train_loader, test_loader, val_loader = get_dataloaders(bundle.dataset, **kw)
+    train_loader, test_loader, val_loader = get_dataloaders(
+        bundle.dataset, batch_size=cfg.batch_size, **loader_kwargs(cfg, bundle.dataset))
 
     # use_gen warm start: append the joint-encoder pool's generated samples
     # to the train set (main.py:123-127)

@@ -11,6 +11,13 @@ cross-coherences acc_i_j and the joint coherence from the eval classifiers
 conditional FID fid_j on the classifiers' penultimate features, and with
 --prd the PRD pair prd_f8_j / prd_f1_8_j from the same features, its curves
 prd_curve_j.npz, .png and .png.json written on repeat 0.
+On circles-squares also `neg_entropy`, the negative entropy of the
+conditional radius distribution on the first test batch (min(100, batch)
+rows, min(100, 10 ns) samples each; its histogram hist_000.png on repeat
+0), and for models with a joint encoder the product-of-posteriors figure
+product_of_posteriors.png from Hamiltonian Monte Carlo (4 test rows, 30
+chains, 100 steps). A failure of that sampling stops the run, where the JAX
+CLI prints it and goes on.
 Writes metrics.json (mean and std per metric over the repeats), one
 metrics.jsonl row per repeat, and the grids generate_val.png and
 gen_from_cond_{0,1}.png.
@@ -75,11 +82,12 @@ def main(argv=None):
     from ..eval.coherence import compute_accuracies, compute_accuracies_dataset
     from ..eval.fid import cross_modal_fid
     from ..eval.generation import Noise, generate, generate_from_conditional
+    from ..eval.latent_analysis import conditional_rdist_metrics, visualize_poe
     from ..utils import Tracker
     from ..vis import save_samples
     from .common import (
-        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_PRD, find_latest_run, generator,
-        get_or_train_classifiers, reload_model, torch_device,
+        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_POE, STREAM_PRD, STREAM_RADIUS,
+        find_latest_run, generator, get_or_train_classifiers, reload_model, torch_device,
     )
 
     device = torch_device(info.device)
@@ -102,6 +110,17 @@ def main(argv=None):
     def noise(*keys):
         return Noise([generator(device, cfg.seed, *keys)], dtype=dtype)
 
+    circles = bundle.dataset == "circles_squares"
+
+    def radius_metrics(xs, r):
+        """neg_entropy on one test batch (jmvae_nf_circles.py:107-129)."""
+        return conditional_rdist_metrics(
+            model, xs, noise(STREAM_RADIUS, r), run_path=run_path if r == 0 else None,
+            n=min(100, info.ns * 10), n_data=min(100, len(xs[0])))
+
+    def batch(xs):
+        return [torch.as_tensor(np.asarray(x)).to(device, dtype) for x in xs]
+
     all_metrics = []
     with torch.no_grad():
         for r in range(info.repeats):
@@ -109,20 +128,25 @@ def main(argv=None):
                 metrics = compute_accuracies_dataset(
                     model, classifiers, test_l, lambda bi: noise(STREAM_COHERENCE, r, bi), spec,
                     ns=info.ns)
+                if circles:
+                    metrics.update(radius_metrics(batch(next(iter(test_l))[0]), r))
             else:
                 # explicit subsets: per-batch means weighted by the rows
-                # scored, so that a ragged last batch counts as its rows
-                sums, total = {}, 0
+                # scored, so that a ragged last batch counts as its rows; a
+                # metric of the first batch alone (neg_entropy) is its value
+                sums, weights = {}, {}
                 for bi, (xs, labs) in enumerate(test_l):
-                    xs = [torch.as_tensor(x).to(device, dtype) for x in xs]
+                    xs = batch(xs)
                     n_data = min(int(info.n_data), len(xs[0]))
                     m = compute_accuracies(model, classifiers, xs, labs,
                                            noise(STREAM_COHERENCE, r, bi), spec,
                                            n_data=n_data, ns=info.ns)
+                    if circles and bi == 0:
+                        m.update(radius_metrics(xs, r))
                     for k, v in m.items():
                         sums[k] = sums.get(k, 0.0) + v * n_data
-                    total += n_data
-                metrics = {k: v / total for k, v in sums.items()}
+                        weights[k] = weights.get(k, 0) + n_data
+                metrics = {k: v / weights[k] for k, v in sums.items()}
             _mark(f"repeat {r}: accuracies done")
             if encoders is not None:
                 metrics.update(cross_modal_fid(
@@ -156,6 +180,11 @@ def main(argv=None):
                      os.path.join(run_path, "gen_from_cond_0.png"))
         save_samples([cond[1][0][0].cpu().numpy(), data[1].cpu().numpy()],
                      os.path.join(run_path, "gen_from_cond_1.png"))
+        if circles and hasattr(model, "joint_encoder"):
+            # the PoE figure (jmvae_nf_circles.py:138-214), JAX's defaults
+            visualize_poe(model, batch(next(iter(test_l))[0]), run_path,
+                          generator(device, cfg.seed, STREAM_POE))
+            _mark("product of posteriors done")
     return summary
 
 

@@ -1,18 +1,19 @@
-"""Paired-dataset containers and batch iterators for the MNIST-SVHN path
-(own copy of mmvae_tpu/data/loaders.py, numpy only apart from torch's
-randperm for the reference's seeded val split). Same pairing, splits and
-batch order as the JAX package, bit for bit.
+"""Paired-dataset containers, batch iterators and the dataset constructors
+of MNIST-SVHN, circles-squares, MNIST-Fashion and MNIST-Contour (own copy
+of mmvae_tpu/data/loaders.py, numpy only apart from torch's randperm for
+the reference's seeded val splits). Same pairing, splits and batch order as
+the JAX package, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import pairing, sources
+from . import pairing, sources, synthetic
 
 
 class LazyGather:
@@ -59,10 +60,13 @@ class LazyGather:
 
 @dataclasses.dataclass
 class PairedDataset:
-    """Aligned multimodal rows: modalities[m][i] pairs with modalities[m'][i]."""
+    """Aligned multimodal rows: modalities[m][i] pairs with modalities[m'][i].
+    `extras` are per-row arrays beside them (circles-squares' true radii
+    r_squares and r_circles), which `subset` takes along."""
 
     modalities: List
     labels: List[np.ndarray]
+    extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     def __len__(self):
         return len(self.modalities[0])
@@ -72,6 +76,7 @@ class PairedDataset:
             [m.lazy_subset(idx) if isinstance(m, LazyGather) else m[idx]
              for m in self.modalities],
             [l[idx] for l in self.labels],
+            {k: v[idx] for k, v in self.extras.items()},
         )
 
 
@@ -130,6 +135,35 @@ def _loaders(train: PairedDataset, test: PairedDataset, val: PairedDataset,
     )
 
 
+def circles_squares(data_path: str = "", batch_size: int = 64, shuffle: bool = True,
+                    dataset_size: int = 1000, n_repeat: int = 10, seed: int = 0):
+    """CIRCLES_SQUARES_DL (dataloaders.py:169-192): modalities (squares,
+    circles), labels 1 = full, 0 = empty, the true radii as extras; val and
+    test are the seed-42 split of the test set into [half, rest]. The data
+    are always synthetic: `data_path` is not read."""
+    d = synthetic.make_circles_squares(dataset_size=dataset_size, n_repeat=n_repeat, seed=seed)
+
+    def split(name):
+        return PairedDataset(
+            [d[f"squares_{name}"], d[f"circles_{name}"]],
+            [d[f"labels_{name}"], d[f"labels_{name}"]],
+            {"r_squares": d[f"r_squares_{name}"], "r_circles": d[f"r_circles_{name}"]})
+
+    test_full = split("test")
+    n = len(test_full)
+    val_idx, test_idx = torch_split_indices(n, [n // 2, n - n // 2])
+    return _loaders(split("train"), test_full.subset(test_idx), test_full.subset(val_idx),
+                    batch_size, shuffle)
+
+
+def _train_val_test(train_full: PairedDataset, test: PairedDataset, batch_size, shuffle):
+    """The reference's seeded val split of the train set (dataloaders.py:279-282)."""
+    len_val = min(10000, len(train_full) // 10)
+    tr_idx, val_idx = torch_split_indices(len(train_full), [len(train_full) - len_val, len_val])
+    return _loaders(train_full.subset(tr_idx), test, train_full.subset(val_idx),
+                    batch_size, shuffle)
+
+
 def _paired_from_sources(mods_train, mods_test, max_d, dm, len_train, batch_size,
                          shuffle, seed_pair=0):
     """Shared pairing/split logic of the MNIST-SVHN loaders
@@ -154,11 +188,7 @@ def _paired_from_sources(mods_train, mods_test, max_d, dm, len_train, batch_size
         [LazyGather(x, i, base_labels=l) for (x, l), i in zip(mods_test, idx_te)],
         [l[i] for (_, l), i in zip(mods_test, idx_te)],
     )
-    # deterministic val split (dataloaders.py:279-282)
-    len_val = min(10000, len(train_full) // 10)
-    tr_idx, val_idx = torch_split_indices(len(train_full), [len(train_full) - len_val, len_val])
-    return _loaders(train_full.subset(tr_idx), test, train_full.subset(val_idx),
-                    batch_size, shuffle)
+    return _train_val_test(train_full, test, batch_size, shuffle)
 
 
 def mnist_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
@@ -187,8 +217,48 @@ def mnist_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool 
     )
 
 
+def mnist_fashion(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                  synthetic_n: int = 4096, difficulty: float = 0.0):
+    """MNIST_FASHION_DL with the unbalanced correspondence pairing
+    (bin/make-mnist-fashion.py:10-11): MNIST digits 0-2, each paired with
+    one of three Fashion classes, 30 times over."""
+    def load(train, fashion, seed, proto_seed):
+        return sources.load_or_synthesize(
+            lambda: sources.load_mnist(data_path, train, fashion=fashion), (1, 28, 28),
+            synthetic_n if train else synthetic_n // 4, seed, proto_seed=proto_seed,
+            difficulty=difficulty)
+
+    def build(m, f, seed):
+        i1, i2 = pairing.rand_match_on_correspondence(
+            m[1], f[1], pairing.MNIST_FASHION_CORRESPONDENCE, max_d=5000, dm=30, seed=seed)
+        return PairedDataset([m[0][i1], f[0][i2]], [m[1][i1], f[1][i2]])
+
+    train_full = build(load(True, False, 1, 1), load(True, True, 5, 5), 0)
+    test = build(load(False, False, 2, 1), load(False, True, 6, 5), 1)
+    return _train_val_test(train_full, test, batch_size, shuffle)
+
+
+def mnist_contour(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                  synthetic_n: int = 2048, difficulty: float = 0.0):
+    """MNIST_CONTOUR_DL (dataloaders.py:445-479): each MNIST image paired
+    with its Canny contour (data_utils/transforms.py:6-21)."""
+    from .transforms import canny_contour
+
+    def build(train, seed):
+        img, lab, _ = sources.load_or_synthesize(
+            lambda: sources.load_mnist(data_path, train), (1, 28, 28),
+            synthetic_n if train else synthetic_n // 4, seed, proto_seed=1,
+            difficulty=difficulty)
+        return PairedDataset([img, canny_contour(img)], [lab, lab])
+
+    return _train_val_test(build(True, 1), build(False, 2), batch_size, shuffle)
+
+
 DATASETS = {
     "mnist_svhn": mnist_svhn,
+    "circles_squares": circles_squares,
+    "mnist_fashion": mnist_fashion,
+    "mnist_contour": mnist_contour,
 }
 
 

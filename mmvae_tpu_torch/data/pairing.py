@@ -38,3 +38,32 @@ def rand_match_on_idx(
             for m in range(n_mod):
                 out[m].append(per_mod[m][rng.permutation(n)])
     return tuple(np.concatenate(o) for o in out)
+
+
+def rand_match_on_correspondence(
+    l1: np.ndarray,
+    l2: np.ndarray,
+    correspondence: Sequence[Sequence[int]],
+    max_d: int = 5000,
+    dm: int = 30,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Unbalanced label-correspondence pairing (bin/make-mnist-fashion.py:
+    10-37): class l of the first modality pairs with any class of the
+    second in correspondence[l]."""
+    rng = np.random.default_rng(seed)
+    i1_out, i2_out = [], []
+    for l, fset in enumerate(correspondence):
+        l_idx1 = np.where(l1 == l)[0]
+        l_idx2 = np.where(np.isin(l2, np.asarray(fset)))[0]
+        n = min(len(l_idx1), len(l_idx2), max_d)
+        l_idx1 = l_idx1[rng.permutation(len(l_idx1))][:n]
+        l_idx2 = l_idx2[rng.permutation(len(l_idx2))][:n]
+        for _ in range(dm):
+            i1_out.append(l_idx1[rng.permutation(n)])
+            i2_out.append(l_idx2[rng.permutation(n)])
+    return np.concatenate(i1_out), np.concatenate(i2_out)
+
+
+# MNIST classes 0, 1, 2 pair with Fashion classes {1, 2, 3}, {4, 5, 6}, {7, 8, 9}
+MNIST_FASHION_CORRESPONDENCE = [[1, 2, 3], [4, 5, 6], [7, 8, 9]]

@@ -1,6 +1,6 @@
-"""Raw dataset readers for the MNIST-SVHN path (own copy of
-mmvae_tpu/data/sources.py, numpy only): MNIST IDX files and SVHN .mat
-files, with the class-structured synthetic fallback when they are absent."""
+"""Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy only):
+MNIST and FashionMNIST IDX files and SVHN .mat files, with the
+class-structured synthetic fallback when they are absent."""
 
 from __future__ import annotations
 
@@ -30,16 +30,18 @@ def read_idx(path: str) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8, offset=4 + 4 * ndim).reshape(dims)
 
 
-def _mnist_dir(data_path: str) -> str:
-    for cand in [os.path.join(data_path, "MNIST", "raw"), os.path.join(data_path, "MNIST")]:
+def _mnist_dir(data_path: str, fashion: bool) -> str:
+    sub = "FashionMNIST" if fashion else "MNIST"
+    for cand in [os.path.join(data_path, sub, "raw"), os.path.join(data_path, sub)]:
         if os.path.isdir(cand):
             return cand
-    raise FileNotFoundError(f"no MNIST under {data_path}")
+    raise FileNotFoundError(f"no {sub} under {data_path}")
 
 
-def load_mnist(data_path: str, train: bool):
-    """-> (images float32 (N,1,28,28) in [0,1], labels int64)."""
-    d = _mnist_dir(data_path)
+def load_mnist(data_path: str, train: bool, fashion: bool = False):
+    """-> (images float32 (N,1,28,28) in [0,1], labels int64); with
+    `fashion`, FashionMNIST's files."""
+    d = _mnist_dir(data_path, fashion)
     split = "train" if train else "t10k"
     imgs = read_idx(os.path.join(d, f"{split}-images-idx3-ubyte"))
     labs = read_idx(os.path.join(d, f"{split}-labels-idx1-ubyte"))

@@ -1,12 +1,80 @@
-"""Class-structured synthetic stand-ins for MNIST/SVHN-shaped data (own copy
-of mmvae_tpu/data/synthetic.py:synthetic_labeled_images, numpy only). The
-output is bit-identical to the JAX package's for the same arguments."""
+"""Synthetic datasets (own copy of mmvae_tpu/data/synthetic.py, numpy
+only): the circles-squares dataset and the class-structured stand-ins for
+MNIST/SVHN-shaped data. The output is bit-identical to the JAX package's
+for the same arguments."""
 
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+
+def make_circles_squares(
+    dataset_size: int = 10000,
+    size_image: int = 32,
+    min_rayon: float = 0.3,
+    max_rayon: float = 0.9,
+    circle_thickness: float = 0.25,
+    n_repeat: int = 10,
+    test_size: float = 0.3,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Paired squares and circles rasterized from random radii
+    (bin/make-circles-squares.py): label 1 pairs a full square with a disc,
+    label 0 a square outline with a ring. Returns squares_{train,test},
+    circles_{train,test}, labels_*, r_squares_* and r_circles_*.
+
+    The (radius, image, label) tuples come in two contiguous blocks, the
+    full shapes first, where the reference alternates them per index: the
+    same samples, which the split below shuffles anyway. Rasterized in
+    chunks to bound the boolean temporaries, into np.zeros arrays (fresh
+    pages, not np.empty's reused arena, whose first touch is slow on some
+    hosts)."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-1, 1, size_image)
+    X, Y = np.meshgrid(xs, xs)
+    rr2 = X ** 2 + Y ** 2
+    rl1 = np.abs(X) + np.abs(Y)
+
+    n = dataset_size * n_repeat
+    r_circles = rng.uniform(min_rayon, max_rayon, size=n)
+    r_squares = rng.uniform(min_rayon, max_rayon, size=n)
+    squares = np.zeros((n, 1, size_image, size_image), dtype=np.float32)
+    circles = np.zeros((n, 1, size_image, size_image), dtype=np.float32)
+    half = circle_thickness / 2
+    rc_e, rc_o = r_circles[0::2], r_circles[1::2]
+    rs_e, rs_o = r_squares[0::2], r_squares[1::2]
+    n_even = len(rc_e)
+    r_circles = np.concatenate([rc_e, rc_o])
+    r_squares = np.concatenate([rs_e, rs_o])
+    labels = np.concatenate([np.ones(n_even, np.int64), np.zeros(n - n_even, np.int64)])
+
+    def _r3(r):  # (k,) radii -> (k, 1, 1), against the grid
+        return r[:, None, None]
+
+    step = 20000
+    for s in range(0, n_even, step):
+        e = min(s + step, n_even)
+        circles[s:e, 0] = rr2[None] <= _r3(rc_e[s:e]) ** 2
+        squares[s:e, 0] = rl1[None] <= _r3(rs_e[s:e])
+    for s in range(0, n - n_even, step):
+        e = min(s + step, n - n_even)
+        circles[n_even + s: n_even + e, 0] = (
+            rr2[None] <= _r3(rc_o[s:e] + half) ** 2) & (rr2[None] >= _r3(rc_o[s:e] - half) ** 2)
+        squares[n_even + s: n_even + e, 0] = (
+            rl1[None] <= _r3(rs_o[s:e] + half)) & (rl1[None] >= _r3(rs_o[s:e] - half))
+
+    perm = rng.permutation(n)
+    n_test = int(round(n * test_size))
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    out = {}
+    for name, arr in [("squares", squares), ("circles", circles), ("labels", labels),
+                      ("r_squares", r_squares.astype(np.float32)),
+                      ("r_circles", r_circles.astype(np.float32))]:
+        out[f"{name}_train"] = arr[train_idx]
+        out[f"{name}_test"] = arr[test_idx]
+    return out
 
 
 def synthetic_labeled_images(

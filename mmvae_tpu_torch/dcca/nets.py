@@ -3,8 +3,8 @@
 
 A trunk pair is trained with the CCA loss (dcca/train.py), then wrapped
 with the fitted linear-CCA projection h -> ((h - m) @ w)[:, :dim] for use
-inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). Only the
-MNIST-SVHN pair is ported.
+inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). The MNIST-SVHN,
+circles-squares and MNIST-Contour pairs are ported.
 """
 
 from __future__ import annotations
@@ -65,20 +65,32 @@ def dcca_encoders_mnist_svhn(outdim: int = 16):
             EncoderSVHN(latent_dim=outdim)]
 
 
+def dcca_encoders_circles(outdim: int = 16):
+    """The circles-squares trunk pair (dcca/models/circles.py): two
+    one-channel SVHN conv encoders for 1x32x32."""
+    return [EncoderSVHN(latent_dim=outdim, n_channels=1),
+            EncoderSVHN(latent_dim=outdim, n_channels=1)]
+
+
+def dcca_encoders_mnist_contour(outdim: int = 15):
+    """DeepCCA_MNIST_CONTOUR (dcca/models/mnist_contour.py:12-15): two MLPs."""
+    return [MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28),
+            MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28)]
+
+
 def _later(dataset: str):
     def build(outdim: int):
-        raise NotImplementedError(
-            f"DCCA trunks for {dataset!r} not yet ported (slice 6: the other datasets)")
+        raise NotImplementedError(f"DCCA trunks for {dataset!r} not yet ported")
     return build
 
 
 # dataset key -> (builder, default trunk outdim), the JAX package's table
 DCCA_BUILDERS = {
     "mnist_svhn": (dcca_encoders_mnist_svhn, 16),
-    "circles_squares": (_later("circles_squares"), 16),
+    "circles_squares": (dcca_encoders_circles, 16),
     "celeba": (_later("celeba"), 40),
     "medmnist": (_later("medmnist"), 16),
     "chest_svhn": (_later("chest_svhn"), 16),
-    "mnist_contour": (_later("mnist_contour"), 15),
+    "mnist_contour": (dcca_encoders_mnist_contour, 15),
     "mnist_svhn_fashion": (_later("mnist_svhn_fashion"), 16),
 }

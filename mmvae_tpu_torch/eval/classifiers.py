@@ -1,7 +1,8 @@
 """Evaluation classifiers (mmvae_tpu/eval/classifiers.py; reference
 analysis/classifiers/*): the MNIST classifier (also used for Fashion) and
 the SVHN classifier, valid-padding 4x4 convs with BatchNorm and dropout MLP
-heads, their training loop and the classifier pool's files.
+heads, the circles-squares classifier (an MLP), their training loop and
+the classifier pool's files.
 
 Submodule names follow the JAX tree (`Conv2d_0`, `BatchNorm2d_0`,
 `BatchNorm_0`, `Linear_0`, ...), so that bridge.py maps a JAX classifier's
@@ -79,6 +80,23 @@ class SVHNClassifier(nn.Module):
         return self.Linear_2(self.Dropout_1(h, generator))
 
 
+class CirclesClassifier(nn.Module):
+    """Flatten -> Linear 512, ReLU -> a 10-way head
+    (classifier_empty_full.py:65-89): trained on full (1) / empty (0), with
+    the reference's 10-way head."""
+
+    def __init__(self, num_classes: int = 10, in_shape: Sequence[int] = (1, 32, 32)):
+        super().__init__()
+        self.Linear_0 = Linear(int(np.prod(in_shape)), 512)
+        self.Linear_1 = Linear(512, num_classes)
+
+    def forward(self, x, features: bool = False, generator=None):
+        h = torch.relu(self.Linear_0(x.reshape(x.shape[0], -1)))
+        if features:
+            return h
+        return self.Linear_1(h)
+
+
 def _not_yet_ported(key: str):
     def build(**_):
         raise NotImplementedError(f"the {key!r} eval classifier is not yet ported")
@@ -89,8 +107,8 @@ ARCHS = {
     "mnist": MnistClassifier,
     "fashion": MnistClassifier,
     "svhn": SVHNClassifier,
-    **{k: _not_yet_ported(k)
-       for k in ("empty_full", "pneumonia", "blood", "celeba_img", "celeba_attr")},
+    "empty_full": CirclesClassifier,
+    **{k: _not_yet_ported(k) for k in ("pneumonia", "blood", "celeba_img", "celeba_attr")},
 }
 
 

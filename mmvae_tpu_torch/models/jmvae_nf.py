@@ -132,12 +132,20 @@ class JMVAE_NF(nn.Module):
     def decode_all(self, z):
         return [vae.decode(z) for vae in self.vaes]
 
-    def poe_log_density(self, subset, z, x, divide_prior: bool = True):
-        """Log density of the product of the flow-posterior experts in
-        `subset`, for Hamiltonian sampling (jmvae_nf.py:294-329)."""
-        lnqzs = z.new_zeros(z.shape[:-1])
-        if divide_prior:
-            lnqzs = lnqzs + torch.sum(0.5 * (z ** 2 + LOG2PI), dim=-1)
-        for m in subset:
-            lnqzs = lnqzs + self.unimodal_log_q(m, x[m], z)
-        return lnqzs
+    def poe_density(self, subset, x, divide_prior: bool = True):
+        """z -> the log density of the product of the flow-posterior experts
+        in `subset` given x, for Hamiltonian sampling (jmvae_nf.py:294-329).
+        The experts' encoders run once, here, not at each evaluation: their
+        outputs do not depend on z."""
+        experts = [(m, self.vaes[m].encode(x[m])) for m in subset]
+
+        def log_density(z):
+            lnqzs = z.new_zeros(z.shape[:-1])
+            if divide_prior:
+                lnqzs = lnqzs + torch.sum(0.5 * (z ** 2 + LOG2PI), dim=-1)
+            for m, (mu, log_var) in experts:
+                z0, ldj = self.vaes[m].flow_forward(z)
+                lnqzs = lnqzs + gaussian_log_q_z0(mu, log_var, z0) + ldj
+            return lnqzs
+
+        return log_density

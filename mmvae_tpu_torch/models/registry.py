@@ -1,7 +1,9 @@
 """Model registry: config -> built model + spec + dataset wiring
-(mmvae_tpu/models/registry.py). The MNIST-SVHN models are ported: MMVAE,
-MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE; every other model name of the
-JAX registry raises NotImplementedError.
+(mmvae_tpu/models/registry.py). Ported: the MNIST-SVHN models (MMVAE,
+MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE), circles-squares' MMVAE and
+JMVAE-NF(-DCCA), MNIST-Fashion's MMVAE and JMVAE-NF, and MNIST-Contour's
+JMVAE-NF; every other model name of the JAX registry raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,10 +17,13 @@ import torch
 from torch import nn
 
 from ..core.config import ExperimentConfig
-from ..dcca.nets import LCCAWrappedEncoder, dcca_encoders_mnist_svhn, identity_lcca
+from ..dcca.nets import (
+    LCCAWrappedEncoder, dcca_encoders_circles, dcca_encoders_mnist_svhn, identity_lcca,
+)
 from ..flows import IAF, MAF
 from ..nets import (
-    DecoderSVHN, DoubleHeadJoint, EncoderSVHN, MLPDecoder, MLPEncoder, TwoStepsEncoder,
+    DecoderMNIST, DecoderSVHN, DoubleHeadJoint, DoubleHeadMLP, EncoderMNIST, EncoderSVHN,
+    MLPDecoder, MLPEncoder, TwoStepsEncoder,
 )
 from ..objectives import ModelSpec
 from .jmvae_nf import JMVAE_NF
@@ -209,8 +214,111 @@ def graft_dcca_params(model: nn.Module, dcca_npz_path: str) -> None:
                 site.w.copy_(torch.as_tensor(npz[f"w{i}"]))
 
 
+# ---------------------------------------------------------------------------
+# circles-squares, MNIST-Fashion, MNIST-Contour: one-channel images
+# ---------------------------------------------------------------------------
+
+_CIRCLES = dict(shape_mods=((1, 32, 32), (1, 32, 32)),
+                classifier_keys=("empty_full", "empty_full"))
+
+
+def _circles_vae(cfg, encoder, name, with_flow=False):
+    """A circles-squares VAE: 1x32x32 SVHN-style conv nets, normal posterior."""
+    return _vae(cfg, encoder, DecoderSVHN(latent_dim=cfg.latent_dim, n_channels=1), name,
+                posterior="normal", with_flow=with_flow)
+
+
+def _jnf_spec(cfg) -> ModelSpec:
+    """JMVAE-NF's spec on the one-channel datasets: likelihood scaling (1, 1)."""
+    return ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=(1.0, 1.0),
+                     no_recon=cfg.no_recon, linear_warmup=cfg.linear_warmup)
+
+
+def circles_squares(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on circles-squares (mmvae/mmvae_circles.py): one-channel SVHN
+    conv encoders and decoders, normal posteriors, likelihood scaling (1, 1)."""
+    vaes = [_circles_vae(cfg, EncoderSVHN(latent_dim=cfg.latent_dim, n_channels=1), name)
+            for name in ("squares", "circles")]
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=(1.0, 1.0))
+    return ModelBundle(MMVAE(vaes, posterior=cfg.dist), spec, "circles_squares", "mmvae_circles",
+                       **_CIRCLES)
+
+
+def jnf_circles_squares(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF on circles-squares (jmvae_nf_circles.py:40-70): the
+    DoubleHeadMLP joint encoder on the flattened images; with `dcca`, each
+    unimodal encoder is a TwoStepsEncoder on a DCCA trunk. The reference
+    passes num_hidden=1 to it, which TwoStepsEncoder ignores: it builds 3
+    hidden layers of 512 (nn/encoders.py:183-184), as here."""
+    joint = DoubleHeadMLP(latent_dim=cfg.latent_dim, hidden_dim=512, in_features=(1024, 1024),
+                          num_hidden_layers=cfg.num_hidden_layers)
+    if cfg.dcca:
+        dcca = _dcca_pair(cfg, dcca_encoders_circles, 16,
+                          _load_dcca_artifacts(cfg, "circles_squares"))
+        encs = [TwoStepsEncoder(d, latent_dim=cfg.latent_dim, in_features=cfg.dim_dcca)
+                for d in dcca]
+    else:
+        dcca = None
+        encs = [EncoderSVHN(latent_dim=cfg.latent_dim, n_channels=1) for _ in range(2)]
+    vaes = [_circles_vae(cfg, enc, name, with_flow=True)
+            for enc, name in zip(encs, ("squares", "circles"))]
+    model = JMVAE_NF(joint, vaes, posterior=cfg.dist, dcca_encoders=dcca)
+    return ModelBundle(model, _jnf_spec(cfg), "circles_squares", "jmvae_nf_circles", **_CIRCLES)
+
+
+def _mnist1ch_vaes(cfg, names, posterior=None, with_flow=False):
+    """Conv MNIST VAEs (EncoderMNIST, DecoderMNIST) for 1x28x28 modalities."""
+    return [_vae(cfg, EncoderMNIST(latent_dim=cfg.latent_dim),
+                 DecoderMNIST(latent_dim=cfg.latent_dim), name, posterior=posterior,
+                 with_flow=with_flow) for name in names]
+
+
+def mnist_fashion(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on MNIST-Fashion (mmvae/mmave_mnist.py): conv MNIST nets;
+    likelihood scaling (1, 1), or (llik_scaling, 1) where it is set
+    (mmave_mnist.py:57)."""
+    ls = (1.0, 1.0) if cfg.llik_scaling == 0 else (cfg.llik_scaling, 1.0)
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=ls)
+    model = MMVAE(_mnist1ch_vaes(cfg, ("mnist", "fashion")), posterior=cfg.dist)
+    return ModelBundle(model, spec, "mnist_fashion", "mmvae_mnist_fashion",
+                       shape_mods=((1, 28, 28), (1, 28, 28)), classifier_keys=("mnist", "fashion"))
+
+
+def _jnf_mnist1ch(cfg, names, num_hidden_layers: int):
+    joint = DoubleHeadMLP(latent_dim=cfg.latent_dim, hidden_dim=512, in_features=(784, 784),
+                          num_hidden_layers=num_hidden_layers)
+    vaes = _mnist1ch_vaes(cfg, names, posterior="normal", with_flow=True)
+    return JMVAE_NF(joint, vaes, posterior=cfg.dist)
+
+
+def jnf_mnist_fashion(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF on MNIST-Fashion (jmvae_nf_mnist.py:40-60): the
+    DoubleHeadMLP joint encoder with one hidden layer whatever the config
+    says, conv MNIST VAEs."""
+    return ModelBundle(_jnf_mnist1ch(cfg, ("mnist", "fashion"), 1), _jnf_spec(cfg),
+                       "mnist_fashion", "jmvae_nf_mnist_fashion",
+                       shape_mods=((1, 28, 28), (1, 28, 28)), classifier_keys=("mnist", "fashion"))
+
+
+def jnf_mnist_contour(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF on MNIST image <-> Canny contour pairs
+    (jmvae_nf/mnist_contour.py); both modalities scored by the MNIST
+    classifier."""
+    return ModelBundle(_jnf_mnist1ch(cfg, ("mnist", "contour"), cfg.num_hidden_layers),
+                       _jnf_spec(cfg), "mnist_contour", "jmvae_nf_mnist_contour",
+                       shape_mods=((1, 28, 28), (1, 28, 28)), classifier_keys=("mnist", "mnist"))
+
+
 REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
     "mnist_svhn": mnist_svhn,
+    "circles_squares": circles_squares,
+    "jnf_circles_squares": jnf_circles_squares,
+    "mnist_fashion": mnist_fashion,
+    "jnf_mnist_fashion": jnf_mnist_fashion,
+    "jnf_mnist_contour": jnf_mnist_contour,
     "mmvae_nf_mnist_svhn": mmvae_nf_mnist_svhn,
     "jnf_mnist_svhn_dcca": jnf_mnist_svhn_dcca,
     "mvae_mnist_svhn": mvae_mnist_svhn,

@@ -133,6 +133,12 @@ class _BatchNorm(nn.Module):
         return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
+def batchnorm_stats(model: nn.Module):
+    """The running means and variances of every BatchNorm in `model`, which
+    a training-mode forward updates in place."""
+    return [t for m in model.modules() if isinstance(m, _BatchNorm) for t in (m.mean, m.var)]
+
+
 class BatchNorm2d(_BatchNorm):
     """torch.nn.BatchNorm2d's place on NCHW (momentum 0.1, eps 1e-5), with
     flax's statistics (JAX nets/conv.py BatchNorm2d, a flax BatchNorm named

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .conv import Conv2d, ConvTranspose2d, Linear
+from .conv import BatchNorm2d, Conv2d, ConvTranspose2d, Linear
 
 
 def hidden_stack(module: nn.Module, in_features: int, hidden_dim: int, n: int) -> None:
@@ -57,6 +57,54 @@ class MLPDecoder(nn.Module):
         h = torch.relu(self.Linear_0(z.reshape(-1, z.shape[-1])))
         out = torch.sigmoid(self.Linear_1(h))
         return out.reshape(*lead, *self.output_shape)
+
+
+class EncoderMNIST(nn.Module):
+    """3 conv(BN, ReLU) -> 2 linear heads (encoders.py:8-41). Input
+    (B, 1, 28, 28). The BatchNorms follow the module's mode: batch
+    statistics in training, running ones in eval."""
+
+    def __init__(self, latent_dim: int, f_base: int = 32):
+        super().__init__()
+        f = f_base
+        self.Conv2d_0, self.BatchNorm2d_0 = Conv2d(1, f, 4, 2, padding=1), BatchNorm2d(f)  # 14x14
+        self.Conv2d_1, self.BatchNorm2d_1 = Conv2d(f, 2 * f, 4, 2, padding=1), BatchNorm2d(2 * f)  # 7x7
+        self.Conv2d_2, self.BatchNorm2d_2 = Conv2d(2 * f, 4 * f, 5, 2, padding=1), BatchNorm2d(4 * f)  # 3x3
+        self.embedding = Linear(4 * f * 3 * 3, latent_dim)
+        self.log_var = Linear(4 * f * 3 * 3, latent_dim)
+
+    def forward(self, x):
+        h = torch.relu(self.BatchNorm2d_0(self.Conv2d_0(x)))
+        h = torch.relu(self.BatchNorm2d_1(self.Conv2d_1(h)))
+        h = torch.relu(self.BatchNorm2d_2(self.Conv2d_2(h)))
+        h = h.reshape(h.shape[0], -1)
+        return self.embedding(h), self.log_var(h)
+
+
+class DecoderMNIST(nn.Module):
+    """fc -> 3 deconv (BN, ReLU on the first two) -> sigmoid
+    (encoders.py:44-68). Output (B, n_channels, 28, 28)."""
+
+    def __init__(self, latent_dim: int, f_base: int = 32, n_channels: int = 1):
+        super().__init__()
+        f = f_base
+        self.f_base = f
+        self.fc = Linear(latent_dim, f * 4 * 4 * 4)
+        self.ConvTranspose2d_0 = ConvTranspose2d(4 * f, 2 * f, 3, 2, padding=1)  # 7x7
+        self.BatchNorm2d_0 = BatchNorm2d(2 * f)
+        self.ConvTranspose2d_1 = ConvTranspose2d(2 * f, f, 3, 2, padding=1, output_padding=1)  # 14x14
+        self.BatchNorm2d_1 = BatchNorm2d(f)
+        # head: the sigmoid output is the likelihood's parameter
+        self.ConvTranspose2d_2 = ConvTranspose2d(f, n_channels, 3, 2, padding=1, output_padding=1,
+                                                 head=True)  # 28x28
+
+    def forward(self, z):
+        lead = z.shape[:-1]
+        h = self.fc(z.reshape(-1, z.shape[-1])).reshape(-1, 4 * self.f_base, 4, 4)
+        h = torch.relu(self.BatchNorm2d_0(self.ConvTranspose2d_0(h)))
+        h = torch.relu(self.BatchNorm2d_1(self.ConvTranspose2d_1(h)))
+        h = torch.sigmoid(self.ConvTranspose2d_2(h))
+        return h.reshape(*lead, *h.shape[1:])
 
 
 class EncoderSVHN(nn.Module):

@@ -27,6 +27,7 @@ import torch
 from ..core import distributions as D
 from ..core.distributions import LocScale
 from ..core.math import log_mean_exp
+from ..nets.conv import batchnorm_stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +256,8 @@ def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
         past_warmup = epoch >= warmup
     frozen_joint = bool(frozen_joint) and bool(past_warmup)
     noise = [None] * (2 + len(x)) if noise is None else list(noise)
+    bn_stats = batchnorm_stats(model) if model.training else []
+    bn_before = [t.clone() for t in bn_stats]
     with torch.no_grad() if frozen_joint else nullcontext():
         loss, details = _joint_terms(model, x, spec, noise[0], generator)
     if spec.linear_warmup:
@@ -262,6 +265,12 @@ def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
     else:
         beta_reg = 1.0
     if past_warmup or spec.linear_warmup:
+        # the JAX package keeps the BatchNorm statistics of compute_kld's
+        # pass alone, which starts from the step's old ones: the joint
+        # forward's updates (of the decoders') are dropped
+        with torch.no_grad():
+            for t, old in zip(bn_stats, bn_before):
+                t.copy_(old)
         reg, det = model.compute_kld(x, no_recon=spec.no_recon, beta_kl=beta_kl,
                                      stop_joint_grad=frozen_joint, noise=noise[1:],
                                      generator=generator)

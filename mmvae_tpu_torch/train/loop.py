@@ -27,7 +27,7 @@ import torch
 
 from ..core import precision
 from ..core.config import ExperimentConfig
-from ..nets.conv import init_parameters
+from ..nets.conv import batchnorm_stats, init_parameters
 from ..objectives import objectives as obj_mod
 from . import checkpoints, freezing
 from .optim import Adam
@@ -49,6 +49,8 @@ class Trainer:
         self.log = log_fn
         self.obj_name, self.obj_fn = obj_mod.resolve(cfg.obj, multimodal, cfg.looser)
         self.guard = bool(cfg.nan_guard)
+        # BatchNorm running statistics, which a train step updates in place
+        self._bn_stats = batchnorm_stats(self.model)
         self.compute_dtype = precision.parse(cfg.extra.get("compute_dtype"))
         self.activation_dtype = precision.parse(cfg.extra.get("activation_dtype"))
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -95,6 +97,7 @@ class Trainer:
         draw it from the trainer's generator."""
         self.model.train()
         named = list(self.model.named_parameters())
+        bn_before = [t.clone() for t in self._bn_stats] if self.guard else []
         with self._policy():
             obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
                                        generator=self.gen, **self._obj_kwargs(beta_kl, epoch))
@@ -109,6 +112,10 @@ class Trainer:
             for g in grads:
                 finite = finite & torch.isfinite(g).all()
             details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
+            # nor the BatchNorm statistics, as the JAX Trainer keeps its batch_stats
+            with torch.no_grad():
+                for t, old in zip(self._bn_stats, bn_before):
+                    t.copy_(torch.where(finite, t, old))
         self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr, finite)
         return loss.detach(), details
 

@@ -1,13 +1,15 @@
-"""Sample grids (mmvae_tpu/vis.py:16-66; reference vis.py:194-204) and line
-plots.
+"""Sample grids (mmvae_tpu/vis.py:16-66; reference vis.py:194-204), line
+plots, histograms, scatter panels and the circles' radius estimate.
 
 The PNG writer uses zlib and struct from the standard library: 8-bit gray
 for one channel, 8-bit RGB for three, the grid clamped to [0, 1] and cast
 as (grid * 255).astype(uint8), as the JAX package's PIL path does.
 
-The line plots stand in for the JAX package's matplotlib figures (PRD
-curves, plot_results): the same series on the same axes, drawn without text
-or font. The labels, limits and legend order go beside each PNG as JSON.
+The line plots, histograms and scatter panels stand in for the JAX
+package's matplotlib figures (PRD curves, plot_results, the circles' radius
+histograms and product-of-posteriors figure): the same series on the same
+axes, drawn without text or font. The series, bins, labels, limits and
+legend order go beside each PNG as <out>.json.
 """
 
 from __future__ import annotations
@@ -216,3 +218,89 @@ def line_plot(series, out_path: str, xlim=None, ylim=None, xlabel: str = "", yla
     with open(out_path + ".json", "w") as f:
         json.dump(spec, f)
     return spec
+
+
+def plot_hist(values, path: str, bins: int = 30):
+    """A histogram of `values` as a text-free 480x360 PNG (the JAX package's
+    matplotlib `ax.hist(values, bins=30)`, vis.py:137-147): `bins` equal
+    bins over the values' range, bars in the first palette color. Beside it,
+    <path>.json holds the bin edges, the counts and the limits. Returns
+    that dict."""
+    import json
+    import os
+
+    values = np.asarray(values, np.float64).ravel()
+    counts, edges = np.histogram(values, bins=bins)
+    xlim = (float(edges[0]), float(edges[-1])) if edges[-1] > edges[0] else (edges[0] - 0.5,
+                                                                            edges[0] + 0.5)
+    ylim = (0.0, 1.05 * max(int(counts.max()), 1))
+    canvas = _Canvas(480, 360, xlim, ylim)
+    for c, lo, hi in zip(counts, edges[:-1], edges[1:]):
+        (x0, x1), (y0, y1) = canvas.to_px([lo, hi], [0.0, c])
+        ys, ye = int(np.rint(min(y0, y1))), int(np.rint(max(y0, y1)))
+        xs, xe = int(np.rint(x0)), max(int(np.rint(x1)) - 1, int(np.rint(x0)))
+        canvas.img[ys: ye + 1, xs: xe + 1] = PALETTE[0]
+    canvas.frame()
+    spec = {"png": os.path.basename(path), "bins": edges.tolist(), "counts": counts.tolist(),
+            "xlim": list(map(float, xlim)), "ylim": list(ylim), "n": int(values.size),
+            "min": float(values.min()), "max": float(values.max())}
+    write_png(canvas.img, path)
+    with open(path + ".json", "w") as f:
+        json.dump(spec, f)
+    return spec
+
+
+def scatter_panels(panels, path: str, panel_size: int = 240):
+    """Rows of 2-D scatter panels with shared axes as one text-free PNG (the
+    JAX package's matplotlib `subplots(..., sharex=True, sharey=True)` of
+    `scatter`s). `panels[r][c]` is a list of series, each a dict with
+    "label" and "points" ((n, 2)); a series' color is its index in its panel
+    (matplotlib's color cycle). Beside it, <path>.json holds the limits, the
+    legend of each panel and its points. Returns that dict."""
+    import json
+    import os
+
+    pts = np.concatenate([np.asarray(s["points"], np.float64).reshape(-1, 2)
+                          for row in panels for panel in row for s in panel])
+    xlim, ylim = _data_range(pts[:, 0]), _data_range(pts[:, 1])
+    n_rows, n_cols = len(panels), max(len(row) for row in panels)
+    img = np.full((n_rows * panel_size, n_cols * panel_size, 3), 255, np.uint8)
+    spec = {"png": os.path.basename(path), "xlim": list(xlim), "ylim": list(ylim), "panels": []}
+    for r, row in enumerate(panels):
+        spec_row = []
+        for c, panel in enumerate(row):
+            canvas = _Canvas(panel_size, panel_size, xlim, ylim, margin=12)
+            canvas.frame()
+            entries = []
+            for i, s in enumerate(panel):
+                p = np.asarray(s["points"], np.float64).reshape(-1, 2)
+                color = PALETTE[i % len(PALETTE)]
+                canvas.dots(*canvas.to_px(p[:, 0], p[:, 1]), color, radius=1)
+                entries.append({"label": s["label"], "color": "#%02x%02x%02x" % color,
+                                "points": p.tolist()})
+            img[r * panel_size:(r + 1) * panel_size, c * panel_size:(c + 1) * panel_size] = \
+                canvas.img
+            spec_row.append({"legend": [s["label"] for s in panel], "series": entries})
+        spec["panels"].append(spec_row)
+    write_png(img, path)
+    with open(path + ".json", "w") as f:
+        json.dump(spec, f)
+    return spec
+
+
+def extract_rayon(images) -> np.ndarray:
+    """The radius of a rasterized circle or ring: the largest distance from
+    the centre, on the [-1, 1] grid, of a pixel above 0.5 in the first
+    channel, 0 where none is (mmvae_tpu/vis.py:150-164, bit for bit). Any
+    leading axes before (C, H, W) are kept."""
+    images = np.asarray(images)
+    lead = images.shape[:-3]
+    images = images.reshape(-1, *images.shape[-3:])
+    n, c, h, w = images.shape
+    xs = np.linspace(-1, 1, w)
+    X, Y = np.meshgrid(xs, xs)
+    r = np.sqrt(X ** 2 + Y ** 2).astype(np.float32)
+    mask = images[:, 0] > 0.5
+    out = np.where(mask.any(axis=(1, 2)), (mask * r[None]).max(axis=(1, 2)),
+                   0.0).astype(np.float32)
+    return out.reshape(lead) if lead else out

@@ -72,10 +72,14 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.fixture
 def card():
+    """The card, with TF32 off for matmuls and cuDNN convolutions while the
+    test runs (float32 parity needs both) and restored after it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
 
 
 def _weights(dev, seed=5, d=D, h=H, n_hidden=N_HIDDEN):
@@ -701,3 +705,157 @@ def test_gen_pipeline_on_card(card, tmp_path):
     for k in ("prd_f8_0", "prd_f8_1", "prd_f1_8_0", "prd_f1_8_1"):
         assert 0.0 <= summary[k]["mean"] <= 1.0
     assert os.path.exists(os.path.join(run2, "prd_curve_1.png"))
+
+
+# ---------------------------------------------------------------------------
+# circles-squares (latent 2) and the single-channel MNIST datasets
+# ---------------------------------------------------------------------------
+
+CIRCLES_JNF = "configs/circles/jmvae_nf.json"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 37])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_kernels_at_latent_2(card, n, sign, s_bound):
+    """Both kernels at D = 2, circles-squares' width, where every MADE
+    degree is 0 (each hidden unit sees y_0 alone, only head columns 1 and 3
+    carry weights, the solve is two steps long): the forward against
+    `unrolled_solve`, the backward with the reduction against autograd
+    through it, for x, every weight and every bias."""
+    ws, bs = _weights(card, seed=20, d=2)
+    gen = torch.Generator().manual_seed(21)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((n, 2), (n, 2), (n,)))
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
+                                  sign, s_bound)
+    want = torch.autograd.grad(outs, inputs, (gy, gld))
+    for got, ref in zip([y, ld, gx, *gws, *gbs], [*outs, *want]):
+        torch.testing.assert_close(got, ref.detach(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [120, 1_000, 10_000])  # HMC's start; neg_entropy's; an IS call
+def test_forward_kernel_at_latent_2_eval_rows(card, n):
+    ws, bs = _weights(card, seed=22, d=2)
+    x = torch.randn(n, 2, generator=torch.Generator().manual_seed(23)).to(card)
+    with torch.no_grad():
+        for sign in (1, -1):
+            got = ar_flow.kernel_forward(x, ws, bs, sign, 8.0)
+            want = ar_flow.unrolled_solve(x, ws, bs, sign, 8.0)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, **TOL)
+
+
+def _circles_jnf(dev, dtype, seed=1):
+    cfg = ExperimentConfig.from_json(CIRCLES_JNF)
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device="cpu")
+    trainer.init_parameters(seed)
+    return cfg, bundle.model.to(dev, dtype).eval()
+
+
+@pytest.mark.cuda
+def test_hmc_step_on_card_matches_f64_cpu(card):
+    """One HMC step over the product of the circles JMVAE-NF's experts (4
+    rows x 30 chains, 10 leapfrogs of 0.01) on the card in float32 against
+    the CPU in float64, from the same modality choice, start noise, momenta
+    and accept-uniforms: the same accept decisions, the samples within 1e-4
+    of their largest entry; the start runs the forward kernel, 2
+    modalities x 2 MAF blocks, and the density none."""
+    from mmvae_tpu_torch.data import synthetic
+    from mmvae_tpu_torch.eval import hmc as H
+
+    d = synthetic.make_circles_squares(dataset_size=8, n_repeat=1, seed=3)
+    xs_np = [d["squares_train"][:4], d["circles_train"][:4]]
+    rng = np.random.default_rng(4)
+    choice = rng.integers(0, 2, 120)
+    eps = [rng.standard_normal((120, 2)) for _ in range(2)]
+    rho, u = rng.standard_normal((1, 120, 2)), rng.uniform(size=(1, 120))
+    out = {}
+    for dev, dtype in ((card, torch.float32), (torch.device("cpu"), torch.float64)):
+        _, model = _circles_jnf(dev, dtype)
+
+        def t(a):
+            return torch.tensor(a, device=dev, dtype=dtype)
+
+        data = [t(x) for x in xs_np]
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        with torch.no_grad():
+            z0 = H.sample_from_moe_subset(model, [0, 1], [torch.cat([x] * 30) for x in data],
+                                          choice=torch.tensor(choice), eps=[t(e) for e in eps])
+            z = H.sample_from_poe_subset(model, [0, 1], data, mcmc_steps=1, K=30,
+                                         divide_prior=False, z0=z0, rho=t(rho), u=t(u))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (4, 0)
+        out[dev.type] = (z0.double().cpu(), z.reshape(120, 2).double().cpu())
+    (z0_c, z_c), (z0_r, z_r) = out["cuda"], out["cpu"]
+    assert torch.equal((z_c != z0_c).any(1), (z_r != z0_r).any(1))
+    scale = z_r.abs().max()
+    assert ((z0_c - z0_r).abs().max() / scale).item() <= 1e-4
+    assert ((z_c - z_r).abs().max() / scale).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_circles_jnf_step_on_card_matches_f64_cpu(card):
+    """A post-warmup step of jmvae_nf.json (frozen joint, no_recon) at
+    latent 2, B=16, on the card against float64 on the CPU with the same
+    weights and noise: the objective rtol 1e-5, every trainable gradient
+    within 1e-4 of its leaf's largest entry; no kernel launch (no_recon:
+    the flows run their density direction only)."""
+    from mmvae_tpu_torch.data import synthetic
+    from mmvae_tpu_torch.objectives import m_jmvae_nf
+
+    d = synthetic.make_circles_squares(dataset_size=32, n_repeat=1, seed=5)
+    xs_np = [d["squares_train"][:16], d["circles_train"][:16]]
+    eps_np = [np.random.default_rng(6).standard_normal((16, 2)) for _ in range(2)]
+    res = {}
+    for dev, dtype in ((card, torch.float32), (torch.device("cpu"), torch.float64)):
+        cfg, model = _circles_jnf(dev, dtype)
+        model.train()
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        obj, _ = m_jmvae_nf(model, [torch.tensor(x, device=dev, dtype=dtype) for x in xs_np],
+                            registry.build(cfg).spec,
+                            noise=[torch.tensor(e, device=dev, dtype=dtype) for e in eps_np],
+                            epoch=16, warmup=15, past_warmup=True, frozen_joint=True)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if "joint_encoder" not in n and "decoder" not in n]
+        grads = torch.autograd.grad(obj, [p for _, p in named])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (0, 0)
+        res[dev.type] = (obj.item(), [g.double().cpu() for g in grads])
+    assert math.isclose(res["cuda"][0], res["cpu"][0], rel_tol=1e-5)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_jnf_mnist_fashion_step_on_card(card):
+    """A post-warmup jnf_mnist_fashion train step on the card (conv MNIST
+    nets with BatchNorm, latent 20, B=16): 4 forward and 4 backward
+    launches, a finite loss, no skipped step, and the BatchNorm statistics
+    moved (the unimodal encoders' and the decoders' through compute_kld)."""
+    cfg = ExperimentConfig.from_json(JNF)
+    cfg.model = "jnf_mnist_fashion"
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device=card)
+    trainer.init_parameters()
+    trainer.init_opt_state(past_warmup=True, amsgrad=False)
+    gen = torch.Generator().manual_seed(24)
+    xs = [torch.rand(16, 1, 28, 28, generator=gen).to(card) for _ in range(2)]
+    stats = {n: b.clone() for n, b in bundle.model.named_buffers() if n.endswith(".var")}
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=cfg.warmup)
+    torch.cuda.synchronize()
+    assert (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches) == (4, 4)
+    assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
+    moved = [n for n, b in bundle.model.named_buffers() if n in stats and not torch.equal(b, stats[n])]
+    assert any("vaes.0.encoder" in n for n in moved) and any("decoder" in n for n in moved)

@@ -1,7 +1,8 @@
 """The flagship MMVAE-DReG slice of the port against the JAX package:
 MMVAE on MNIST-SVHN with Laplace posteriors (softmax-std trick), the six
-MMVAE objectives, the bf16 mixed-precision policy and the train CLI, at
-B=8, K=5 and latent 20 with the registry's full-width nets.
+MMVAE objectives and the bf16 mixed-precision policy, at B=8, K=5 and
+latent 20 with the registry's full-width nets (the train CLI:
+test_torch_mmvae_cli.py).
 
 Noise is drawn with numpy: a uniform u per modality, injected on the JAX
 side by replacing the `jax.random.uniform` that the JAX package's
@@ -10,9 +11,6 @@ handed to the port as `noise=[u_0, u_1]`.
 """
 
 import contextlib
-import json
-import math
-import os
 import types
 
 import jax
@@ -29,7 +27,6 @@ from mmvae_tpu.nets import conv as jconv
 from mmvae_tpu.nets import encoders as jenc
 from mmvae_tpu.objectives import objectives as jobj
 from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
-from mmvae_tpu_torch.cli import train as cli_train
 from mmvae_tpu_torch.core import distributions as D
 from mmvae_tpu_torch.core import precision
 from mmvae_tpu_torch.core.config import ExperimentConfig
@@ -455,33 +452,3 @@ def test_precision_names():
     with precision.use("bfloat16", "bfloat16"):
         assert precision.compute_dtype() is precision.activation_dtype() is torch.bfloat16
     assert precision.compute_dtype() is None
-
-
-# ---------------------------------------------------------------------------
-# the CLI
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("config", [CONFIG, CONFIG_BF16])
-def test_cli_one_epoch_cpu(tmp_path, capsys, config):
-    """mmvae_synth.json (and its bf16 twin) through the port's CLI on the
-    CPU at a tiny size: finite losses, no skipped step, the policy in the
-    startup line."""
-    with open(config) as f:
-        raw = json.load(f)
-    # an empty data dir inside tmp_path: the synthetic stand-in, nothing read outside
-    raw.update(synthetic_n=64, batch_size=16, K=3, epochs=1, no_analytics=True,
-               data_path=str(tmp_path / "data"))
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(raw))
-    run_path = cli_train.main(["--config-path", str(path), "--experiments-dir",
-                               str(tmp_path / "exp"), "--device", "cpu"])
-    out = capsys.readouterr().out
-    dtype = raw.get("compute_dtype", "float32")
-    assert f"objective: m_dreg_looser on cpu (compute {dtype}" in out
-    with open(os.path.join(run_path, "losses.json")) as f:
-        losses = json.load(f)
-    assert all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"])
-    with open(os.path.join(run_path, "metrics.jsonl")) as f:
-        assert json.loads(f.readline())["train_nan_skipped"] == 0.0
-    state = torch.load(os.path.join(run_path, "model.pt"), weights_only=True)
-    assert all(t.dtype == torch.float32 for t in state.values())

@@ -25,7 +25,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    through the autograd Function. Then both kernels at D=2, circles-
    squares' latent width (phase_ar_solve_latent2): the forward at N=128,
    37, 120, 1,000 and 10,000, the backward at N=128 and 37, both signs,
-   s_bound 0 and 8, and their times and bounds.
+   s_bound 0 and 8, and their times and bounds. Then both at D=16
+   (MedMNIST) and D=64 (CelebA; phase_ar_solve_latent64): the forward at
+   N=128, 256 and 7,680 (CelebA MMVAE-NF's K*B), the backward at N=128 and
+   256, both signs, s_bound 0 and 8, their times and bounds.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
    CLI (`mmvae_tpu_torch.cli.train.main`, device cuda, with the config's
    analytics, phase 16): 68 train steps and
@@ -96,9 +99,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    a flow family (coherence and FID per test batch, the grids once), none
    backward, none at all for the families without a flow.
 18. eval_likelihoods: `mmvae_tpu_torch.cli.compute_likelihoods --bis` on
-   cuda at K=1000 in chunks of 100 over the first 2 test batches of 500
-   (MVAE and MoE-PoE: the first one), cut from the full test set, one
-   repeat, for the same runs: finite values, peak memory, seconds per
+   cuda at K=1000 in chunks of 100 over the first test batch of 500, cut
+   from the full test set, one repeat, for the same runs: finite values, peak memory, seconds per
    batch, the forward launches (200 per batch for the conditional
    likelihoods, as many for JMVAE-NF's bis proposals), none backward;
    MVAE's and MoE-PoE's metric names; and the share of one JMVAE-NF
@@ -130,7 +132,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 23. circles_slice: circles-squares through the CLIs on cuda at full width
    (one-channel 32x32 conv nets, latent 2): mmvae.json (MMVAE-DReG, K=10)
    for 1 epoch of its published 200,000 pairs and jmvae_nf_dcca.json
-   (JMVAE-NF, no_recon) at its 10,000 pairs for 2 epochs with warmup 2,
+   (JMVAE-NF, no_recon) at its 10,000 pairs for 2 epochs with warmup 2
+   (the MMVAE epoch at a tenth of its 200,000 pairs),
    each with its epoch-1 analytics (grids and the radius analytics); their
    steady steps; validate on both (neg_entropy; the HMC product-of-
    posteriors figure for JMVAE-NF); compute_likelihoods --bis on one test
@@ -142,10 +145,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pixel within RADIUS_KINK_ATOL of the 0.5 threshold read on the card's
    side.
 25. mnist1ch_slice: jnf_mnist_fashion and jnf_mnist_contour (2 epochs,
-   warmup 2) and mnist_fashion (1 epoch) through the CLIs from configs
-   written in the run's directory, their launches as predicted, the
-   fashion JMVAE-NF's steady post-warmup step, validate on each.
-26. The kernels line, and last the contract line
+   warmup 2; MNIST-Fashion at a quarter of its default data) and
+   mnist_fashion (1 epoch) through the CLIs from configs written in the
+   run's directory, their launches as predicted, the fashion JMVAE-NF's
+   steady post-warmup step, validate on each.
+26. medmnist_slice: MedMNIST (ResNet nets, pneumonia <-> blood) and
+   chest-SVHN through the CLIs at the loaders' default scale:
+   jnf_sbound.json (latent 16, s_bound 8) 2 epochs with warmup 2 (0
+   launches, then 4 forward per step and val batch and 4 backward per
+   step), validate and one likelihood batch on it; mmvae.json and
+   mvae.json for 6 steps; dcca_train --dataset medmnist and
+   jmvae_nf_dcca.json on its artifact; chest_svhn/jmvae_exact_synth.json 1
+   epoch; no launch on the paths without a flow.
+27. celeba_slice: CelebA (64x64 ResNet image <-> 40 Bernoulli attributes):
+   jmvae_nf.json (latent 64) 2 epochs with warmup 2, launches counted as
+   above, validate with the attribute metrics and one likelihood batch of
+   100 rows; mmvae_nf.json's steady step at K=30, B=256 (the solve at
+   7,680 rows); mvae.json and moepoe.json 1 epoch each.
+28. resnet_parity: a post-warmup JMVAE-NF step of MedMNIST and of CelebA
+   on cuda in float32 against the float64 CPU step.
+29. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -178,10 +197,10 @@ NO_FLOW_RUNS = ("flagship", "mvae", "moepoe")
 # 100 samples (eval/likelihoods.py ROWS_PER_CALL)
 EVAL_IS_ROWS = 10_000
 # the eval phases: the likelihood protocol at K=1000 in chunks of 100 over
-# the first 2 test batches of 500, one repeat; the parity check's cut of one
+# the first test batch of 500, one repeat; the parity check's cut of one
 # test batch (16 rows, K=200 in chunks of 100, so the float64 CPU run stays
 # short)
-EVAL_K, EVAL_BK, EVAL_MAX_BATCHES = 1000, 100, 2
+EVAL_K, EVAL_BK, EVAL_MAX_BATCHES = 1000, 100, 1
 # MVAE's and MoE-PoE's likelihood runs: one test batch of 500
 POE_EVAL_BATCHES = 1
 PARITY_ROWS, PARITY_K = 16, 200
@@ -1197,6 +1216,48 @@ class _ReluBranches:
         return x * mask.to(x.dtype)
 
 
+class _SolveBranches:
+    """Inside a `_ReluBranches` recording on the card: the ar_solve kernels'
+    hidden ReLUs recorded as the plain solve (`unrolled_solve`) would call
+    torch.relu on the CPU: at each forward launch with a tape, the branch of
+    every hidden unit at every step, step by step and layer by layer, read
+    from the tape (each layer's output after its ReLU); at each backward
+    launch the same again, since the CPU's backward re-runs the plain solve.
+    A float64 CPU run replaying the recording then takes the kernels'
+    branches as well."""
+
+    def __init__(self, relu):
+        self.relu = relu
+
+    def __enter__(self):
+        from mmvae_tpu_torch.ops import ar_flow
+
+        self._fwd, self._bwd = ar_flow.kernel_forward, ar_flow._backward
+
+        def forward(x, ws, bs, sign, s_bound=0.0, tape=None):
+            if tape is None:
+                raise AssertionError("a solve without a tape: its ReLUs cannot be recorded")
+            out = self._fwd(x, ws, bs, sign, s_bound, tape=tape)
+            self._record(tape)
+            return out
+
+        def backward(x, y, gy, gld, tape, *args):
+            self._record(tape)
+            return self._bwd(x, y, gy, gld, tape, *args)
+
+        ar_flow.kernel_forward, ar_flow._backward = forward, backward
+        return self
+
+    def __exit__(self, *exc):
+        from mmvae_tpu_torch.ops import ar_flow
+
+        ar_flow.kernel_forward, ar_flow._backward = self._fwd, self._bwd
+
+    def _record(self, tape):
+        for i in range(tape.s.shape[0]):
+            self.relu.masks.extend((a[i] > 0).cpu() for a in tape.acts[1:])
+
+
 def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
                  grad_tol=STEP_GRAD_TOL, **details):
     """One training step of `config` (cut by `overrides`) at epoch
@@ -1206,11 +1267,11 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
     draws of the shapes `n_noise` lists: the objective and
     every trainable parameter's gradient (those of the phase's freezing),
     the loss, and one optimizer step taken, none skipped. With
-    `align_relu` (for models whose every ReLU is a `torch.relu` call, on
-    the card as on the CPU: no flow kernel) the reference is the float64
-    step on the float32 cuda step's ReLU branches (`_ReluBranches`), each
-    element on another branch than its own within RELU_KINK_ATOL of 0; the
-    errors against the float64 step on its own branches stand beside."""
+    `align_relu` the reference is the float64 step on the float32 cuda
+    step's ReLU branches (`_ReluBranches`; the ar_solve kernels' hidden
+    ReLUs read from their tapes, `_SolveBranches`), each element on another
+    branch than its own within RELU_KINK_ATOL of 0; the errors against the
+    float64 step on its own branches stand beside."""
     import contextlib
 
     import numpy as np
@@ -1253,7 +1314,9 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
         eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
         replay = branches["cuda_f32"].masks if run.endswith("branches") else None
         branches[run] = _ReluBranches(replay) if align_relu else contextlib.nullcontext()
-        with branches[run]:
+        kernels = (_SolveBranches(branches[run]) if align_relu and run == "cuda_f32"
+                   else contextlib.nullcontext())
+        with branches[run], kernels:
             obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps,
                                     **trainer._obj_kwargs(1.0, epoch))
             grads = torch.autograd.grad(obj, [named[n] for n in trainable])
@@ -1434,40 +1497,25 @@ def phase_jnf_dcca_slice(tmp, dcca_path):
     """JMVAE-NF-DCCA through the CLI for 2 epochs, warmup 2, grafting the
     dcca phase's artifact: the trunks and their projection equal the
     artifact's after both epochs, no ar_solve launch, finite losses."""
-    import numpy as np
     import torch
 
-    from mmvae_tpu_torch.dcca.train import load_trunk_params
+    from mmvae_tpu_torch.models import registry
 
     cfg, _, info, epochs = _cli_epoch(tmp, JNF_DCCA, dcca_path=dcca_path, **JNF_RUN)
-    trunks = load_trunk_params(dcca_path)
-    final = epochs[-1]["params"]
-    mismatched, compared = [], 0
-    for i in (0, 1):
-        prefix = f"vaes.{i}.encoder.first_encoder.encoder."
-        for name, p in final.items():
-            if not name.startswith(prefix):
-                continue
-            layer, kind = name[len(prefix):].split(".")
-            want = trunks[f"encoders_{i}"][layer]["kernel" if kind == "weight" else "bias"]
-            want = torch.tensor(want.T if (kind == "weight" and want.ndim == 2) else want)
-            compared += 1
-            if not torch.equal(p.cpu(), want):
-                mismatched.append(name)
-    state = torch.load(os.path.join(info["run_path"], "model.pt"), weights_only=True)
-    with np.load(dcca_path) as npz:
-        proj_ok = all(torch.equal(state[f"vaes.{i}.encoder.first_encoder.{b}"].cpu(),
-                                  torch.tensor(npz[f"{b}{i}"], dtype=torch.float32))
-                      for i in (0, 1) for b in "mw")
+    bundle = registry.build(cfg)
+    bundle.model.load_state_dict(torch.load(os.path.join(info["run_path"], "model.pt"),
+                                            weights_only=True))
+    mismatched, compared = _trunks_off_artifact(bundle.model, dcca_path)
     launches = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
     emit({"phase": "jnf_dcca_slice", "model": cfg.model, "dcca": cfg.dcca,
           "dim_dcca": cfg.dim_dcca, "no_recon": cfg.no_recon,
           **{k: v for k, v in info.items() if k != "launches_by_epoch"},
-          "launches_by_epoch": info["launches_by_epoch"], "trunk_params_compared": compared,
-          "trunk_params_off_artifact": mismatched, "projection_from_artifact": proj_ok})
-    if mismatched or compared != 16 or not proj_ok:
-        raise AssertionError(f"JNF-DCCA: trunks off the artifact after training: "
-                             f"{mismatched[:5]} ({compared} compared), projection {proj_ok}")
+          "launches_by_epoch": info["launches_by_epoch"], "trunk_leaves_compared": compared,
+          "trunk_leaves_off_artifact": mismatched})
+    # 8 trunk leaves and the projection's m and w for each modality
+    if mismatched or compared != 20:
+        raise AssertionError(f"JNF-DCCA: trunks or projections off the artifact after "
+                             f"training: {mismatched[:5]} ({compared} compared)")
     if launches != (0, 0) or len(epochs) != 2:
         raise AssertionError(f"JNF-DCCA: {len(epochs)} epochs, ar_solve launched {launches} "
                              f"(expected none)")
@@ -1585,8 +1633,8 @@ def phase_eval_validate(tmp, runs):
 
 def phase_eval_likelihoods(tmp, runs):
     """`cli/compute_likelihoods.py --bis` on cuda at K=1000 in chunks of 100
-    over the first 2 test batches of 500 (MVAE and MoE-PoE: the first one),
-    one repeat, for each run: finite values, the peak memory, the seconds
+    over the first test batch of 500 (EVAL_MAX_BATCHES), one repeat, for
+    each run: finite values, the peak memory, the seconds
     per test batch, and the forward
     launches: per test batch and conditioning modality one per MAF block,
     IS chunk and model call of ROWS_PER_CALL rows (2 x 2 x 10 x 5 = 200 for
@@ -2231,15 +2279,18 @@ CIRCLES_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_c
                                 "neg_entropy"])
 MS_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence"])
 DCCA_CIRCLES_EPOCHS = 2
-# (train steps, val batches) of one epoch: mmvae.json's 140,000 train and
-# 30,000 val pairs, jmvae_nf_dcca.json's 7,000 and 1,500, at B=128
-CIRCLES_MMVAE_BATCHES, CIRCLES_JNF_BATCHES = (1093, 234), (54, 11)
+# mmvae.json's epoch at a tenth of its published 200,000 pairs (dataset_size
+# 1,000 of 10,000); (train steps, val batches) of one epoch: its 14,000
+# train and 3,000 val pairs, jmvae_nf_dcca.json's 7,000 and 1,500, at B=128
+CIRCLES_MMVAE_RUN = dict(synthetic_n=None, dataset_size=1_000)
+CIRCLES_MMVAE_BATCHES, CIRCLES_JNF_BATCHES = (109, 23), (54, 11)
 # the single-channel MNIST runs: configs/mnist_svhn/jmvae_nf.json (MMVAE:
 # mmvae.json) with their model swapped and no DCCA; JMVAE-NF 2 epochs with
-# the first in warmup at the loaders' default scale, MMVAE 1 epoch at a
-# quarter of it (synthetic_n 1,024: 8,235 train pairs)
+# the first in warmup, MNIST-Contour at the loaders' default scale,
+# MNIST-Fashion's JMVAE-NF and MMVAE (1 epoch) at a quarter of it
+# (synthetic_n 1,024: 8,235 train pairs)
 MNIST1CH_JNF_RUN = dict(synthetic_n=None, epochs=2, warmup=2, skip_warmup=False)
-MNIST1CH = {"jnf_mnist_fashion": (JNF, MNIST1CH_JNF_RUN),
+MNIST1CH = {"jnf_mnist_fashion": (JNF, dict(MNIST1CH_JNF_RUN, synthetic_n=1024)),
             "jnf_mnist_contour": (JNF, MNIST1CH_JNF_RUN),
             "mnist_fashion": (os.path.join(ROOT, "configs", "mnist_svhn", "mmvae.json"),
                               dict(synthetic_n=1024))}
@@ -2326,7 +2377,8 @@ def _validate_counted(run, exp, expected, keys):
     marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines if l.startswith("[")}
     values = {k: v["mean"] for k, v in summary.items()}
     ok = (launches == expected and sorted(values) == keys
-          and all(0.0 <= values[k] <= 1.0 for k in ("acc_0_1", "acc_1_0", "joint_coherence"))
+          and all(0.0 <= v <= 1.0 for k, v in values.items()
+                  if k.startswith("acc") or k == "joint_coherence")
           and all(math.isfinite(v) for v in values.values()))
     return ok, dict(metrics=values, launches=list(launches), expected_launches=list(expected),
                     validate_s=wall, marks=marks)
@@ -2350,9 +2402,7 @@ def phase_circles_slice(tmp):
     neg_entropy, and 8 for the PoE figure (the unimodal samples and HMC's
     start); the likelihoods 400; DCCA none; none backward anywhere."""
     import numpy as np
-    import torch
 
-    from mmvae_tpu_torch.cli import compute_likelihoods
     from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
 
     exp = os.path.join(tmp, "experiments")
@@ -2360,7 +2410,7 @@ def phase_circles_slice(tmp):
 
     # MMVAE-DReG at the published 200,000 pairs
     (cfg, train_loader, info, _), text = _tee_call(
-        _cli_epoch, tmp, CIRCLES["mmvae"], analytics=True, synthetic_n=None)
+        _cli_epoch, tmp, CIRCLES["mmvae"], analytics=True, **CIRCLES_MMVAE_RUN)
     rayon = _rayon_line(text)
     grids = [f"cond_samples_{r}x{o}_001.png" for r in (0, 1) for o in (0, 1)] + \
         ["generate_001.png"] + [f"hist_rayon_{ij}_001.png{e}" for ij in ("01", "10")
@@ -2433,19 +2483,7 @@ def phase_circles_slice(tmp):
         launches[f"validate_circles_{name}"] = tuple(res["launches"])
 
     # the likelihoods of JMVAE-NF on its first test batch
-    summary, _, got, wall = _counted(compute_likelihoods.main, [
-        "--run-path", runs["jnf"], "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK),
-        "--repeats", "1", "--max-batches", "1", "--bis", "--device", "cuda"])
-    calls = -(-500 // (EVAL_IS_ROWS // EVAL_BK))
-    expected = (2 * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
-    values = {k: v["mean"] for k, v in summary.items()}
-    ok = got == expected and all(math.isfinite(v) for v in values.values()) and len(values) == 5
-    emit({"phase": "circles_likelihoods", "run": "jnf", "K": EVAL_K, "metrics": values,
-          "launches": list(got), "expected_launches": list(expected), "wall_s_incl_reload": wall,
-          "ok": ok})
-    if not ok:
-        raise AssertionError(f"circles likelihoods: launches {got} (expected {expected}), {values}")
-    launches["likelihoods_circles_jnf"] = got
+    launches["likelihoods_circles_jnf"] = _likelihood_batch(runs["jnf"], "circles")
 
     # DCCA pretraining on circles-squares
     path, lines, got, wall = _counted(dcca_main, [
@@ -2672,6 +2710,390 @@ def phase_mnist1ch_slice(tmp):
     return launches
 
 
+# the ResNet datasets (MedMNIST, chest-X-ray-SVHN, CelebA): their published
+# configs at full width, at the loaders' default synthetic scale
+# (synthetic_n 2,048) unless said otherwise
+MEDMNIST = {name: os.path.join(ROOT, "configs", "medmnist", f"{name}.json")
+            for name in ("jnf_sbound", "mmvae", "mvae", "jmvae_nf_dcca")}
+CHEST = os.path.join(ROOT, "configs", "chest_svhn", "jmvae_exact_synth.json")
+CELEBA = {name: os.path.join(ROOT, "configs", "celeba", f"{name}.json")
+          for name in ("jmvae_nf", "mmvae_nf", "mvae", "moepoe")}
+CELEBA_VALIDATE_KEYS = sorted(["accuracy1", "accuracy2", "fid_0", "fid_1", "joint_coherence"])
+# MedMNIST's JMVAE-NF runs at half that scale (3,012 train pairs, 23
+# steps), MMVAE and MVAE "a few steps" at an eighth (762 pairs, 5 steps)
+MEDMNIST_JNF_RUN = dict(JNF_RUN, synthetic_n=1024)
+MEDMNIST_FEW_STEPS = dict(synthetic_n=256)
+# CelebA's likelihood batch: 100 test rows at K=1000 (its 64x64 decoder
+# makes 500 rows cost several times MNIST-SVHN's batch)
+CELEBA_LL_ROWS = 100
+# the kernels at MedMNIST's latent 16 and CelebA's 64: rows of a train step
+# (B=128), of a ragged tile, MMVAE-NF's K*B = 30*256 on CelebA (forward and
+# backward) and an importance-sampling call of the likelihoods (forward only)
+LATENT64_BWD_ROWS = (128, 256, 7_680)
+LATENT64_ROWS = LATENT64_BWD_ROWS + (EVAL_IS_ROWS,)
+# the backward is timed at a train step's rows and at MMVAE-NF's
+LATENT64_BWD_TIME_ROWS = (128, 7_680)
+
+
+def _kernel_branches(tape):
+    """The forward kernel's hidden ReLU branches, read from its tape (each
+    layer's input is the layer before's output after its ReLU), in the
+    order the plain solve calls torch.relu: step by step, layer by layer."""
+    return [a[i] > 0 for i in range(tape.s.shape[0]) for a in tape.acts[1:]]
+
+
+def phase_ar_solve_latent64():
+    """Both kernels at D = 16 (MedMNIST's latent) and D = 64 (CelebA's), MADE
+    widths [D, 128, 128, 128, 2D], where the first layer and the head are
+    read per step from device memory (shared memory holds the two hidden
+    128x128 layers only): the forward against `unrolled_solve` at N = 128,
+    256, 7,680 and 10,000, the backward with the reduction against autograd
+    through it at N = 128, 256 and 7,680, both signs, s_bound 0 and 8; then
+    the forward's device time at each N and the backward's at N = 128 and
+    7,680, beside their plain versions and their bounds (D - 1 per-row
+    passes, `solve_flops`, `vjp_flops`). The backward's reference takes the
+    forward kernel's hidden ReLU branches (`_ReluBranches` replaying
+    `_kernel_branches`), each one off its own branch within RELU_KINK_ATOL
+    of 0: over 7,680 rows the solve evaluates millions of hidden ReLUs, and
+    one whose pre-activation lies within float32 round-off of 0 may take
+    the other branch in either version, a jump in its row's gradient. Where
+    no branch differs, that reference is autograd through `unrolled_solve`
+    as it is; the error against it on its own branches stands beside."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    h, n_hidden = 128, 3
+    out, errs = {}, {}
+    for d in (16, 64):
+        gen = torch.Generator().manual_seed(d)
+        ws, bs = _made_params(d, h, n_hidden, gen)
+        errs[d] = {"forward": 0.0, "backward": 0.0}
+        smem = {k: ar_flow._check_smem(tuple([d] + [w.shape[1] for w in ws]), 0, k == "backward")
+                for k in ("forward", "backward")}
+        for n in LATENT64_ROWS:
+            x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+            gld = torch.randn(n, generator=gen).cuda()
+            for sign in (1, -1):
+                for s_bound in (0.0, 8.0):
+                    what = dict(d=d, n=n, sign=sign, s_bound=s_bound)
+                    with torch.no_grad():
+                        y_k, ld_k = ar_flow.kernel_forward(x, ws, bs, sign, s_bound)
+                        y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
+                    torch.cuda.synchronize()
+                    errs[d]["forward"] = max(errs[d]["forward"], _check_close(
+                        dict(kernel="forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
+                    if n not in LATENT64_BWD_ROWS:
+                        continue
+                    tape = ar_flow.new_tape(x, ws)
+                    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+                    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+                    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+                    got = [gx, *gws, *gbs]
+                    own = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+                    with _ReluBranches(replay=_kernel_branches(tape)) as rb:
+                        want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+                    torch.cuda.synchronize()
+                    if rb.flip_max_abs > RELU_KINK_ATOL:
+                        raise AssertionError(f"ar_solve forward kernel at {what}: a hidden ReLU "
+                                             f"off its branch at |x| = {rb.flip_max_abs}")
+                    errs[d]["backward"] = max(errs[d]["backward"], _check_close(
+                        dict(kernel="backward", **what, relu_flips=rb.flips,
+                             relu_flip_max_abs=rb.flip_max_abs,
+                             max_abs_err_own_branches=max(
+                                 (a - b).abs().max().item() for a, b in zip(got, own))),
+                        list(zip(got, want))))
+
+        n_w = sum(w.numel() for w in ws)
+        n_b = sum(b.numel() for b in bs)
+        res = {}
+        for n in LATENT64_ROWS:
+            x = torch.randn(n, d, generator=gen).cuda()
+            with torch.no_grad():
+                k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
+                p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
+            flops, n_bytes = solve_flops(n, d, h, n_hidden), 4 * (2 * n * d + n + n_w + n_b)
+            bound_ms, bound_by = bound(flops, n_bytes)
+            res[f"n{n}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "ar_solve_time", "kernel": "forward", "d": d, "n": n,
+                  "kernel_ms": k_ms, "plain_ms": p_ms, "flops": flops, "bytes": n_bytes,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / k_ms,
+                  "smem_bytes": smem["forward"]})
+        for n in LATENT64_BWD_TIME_ROWS:
+            x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+            gld = torch.randn(n, generator=gen).cuda()
+            tape = ar_flow.new_tape(x, ws)
+            y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
+
+            def bwd_reduce():
+                _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
+                ar_flow.reduce_grads(tape, deltas)
+
+            br_ms = device_time_ms(bwd_reduce)
+            b_ms = device_time_ms(
+                lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+            pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
+            b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), 4 * (4 * n * d + n + 2 * (n_w + n_b))
+            b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
+            res[f"backward_n{n}"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms,
+                                         bound_ms=b_bound_ms, bound_by=b_bound_by)
+            emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": br_ms,
+                  "kernel_ms": b_ms, "plain_ms": pb_ms, "flops": b_flops, "bytes": b_bytes,
+                  "bound_ms": b_bound_ms, "bound_by": b_bound_by,
+                  "roofline_share": b_bound_ms / br_ms, "smem_bytes": smem["backward"]})
+        out[d] = res
+    return dict(results=out, errs=errs)
+
+
+def _check_run(name, info, expected_by_epoch):
+    """A CLI run's launches by epoch against the code's count, its finite
+    losses, no skipped step, parameters on cuda."""
+    got = info["launches_by_epoch"]
+    if got != expected_by_epoch or not info["losses_finite"] or not info["params_on_cuda"] \
+            or info["nan_skipped_fraction"]:
+        raise AssertionError(f"{name}: launches by epoch {got} (expected {expected_by_epoch}), "
+                             f"finite {info['losses_finite']}, on cuda {info['params_on_cuda']}, "
+                             f"skipped {info['nan_skipped_fraction']}")
+    return info["ar_solve_launches"], info["ar_solve_backward_launches"]
+
+
+def _jnf_expected(info):
+    """JMVAE-NF over the warmup boundary without analytics: epoch 1 no
+    launch; epoch 2 4 forward per train step and val batch (compute_kld's
+    unimodal VAE forwards: 2 modalities x 2 MAF blocks) and 4 backward per
+    train step; counts read at each epoch's end, so cumulative."""
+    steps, val_b = info["train_steps"], info["val_batches"]
+    return [(0, 0), (4 * (steps + val_b), 4 * steps)]
+
+
+def _likelihood_batch(run, name, rows=500):
+    """compute_likelihoods --bis on cuda at EVAL_K on the first test batch
+    of `rows`: finite values, JAX's names, 2 modalities x 2 MAF blocks x 2
+    estimators x the K-chunks x the IS calls of the batch forward launches,
+    none backward."""
+    from mmvae_tpu_torch.cli import compute_likelihoods
+
+    summary, _, got, wall = _counted(compute_likelihoods.main, [
+        "--run-path", run, "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK), "--repeats", "1",
+        "--batch-size", str(rows), "--max-batches", "1", "--bis", "--device", "cuda"])
+    calls = -(-rows // (EVAL_IS_ROWS // EVAL_BK))
+    expected = (2 * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
+    values = {k: v["mean"] for k, v in summary.items()}
+    ok = got == expected and all(math.isfinite(v) for v in values.values()) and len(values) == 5
+    emit({"phase": f"{name}_likelihoods", "K": EVAL_K, "rows": rows, "metrics": values,
+          "launches": list(got), "expected_launches": list(expected),
+          "wall_s_incl_reload": wall, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} likelihoods: launches {got} (expected {expected}), {values}")
+    return got
+
+
+def _trunks_off_artifact(model, dcca_path):
+    """Leaves of the TwoStepsEncoders' DCCA trunks and projections that
+    differ from the artifact's, and how many were compared."""
+    import numpy as np
+
+    from mmvae_tpu_torch.bridge import _flatten, export_jax_params
+    from mmvae_tpu_torch.dcca.train import load_trunk_params
+
+    trunks = load_trunk_params(dcca_path)
+    off, compared = [], 0
+    with np.load(dcca_path) as npz:
+        for i, vae in enumerate(model.vaes):
+            site = vae.encoder.first_encoder
+            want = _flatten(trunks[f"encoders_{i}"])
+            for k, a in _flatten(export_jax_params(site.encoder)).items():
+                compared += 1
+                if not np.array_equal(a, want[k]):
+                    off.append(f"vaes.{i}/{'/'.join(k)}")
+            for b in "mw":
+                compared += 1
+                if not np.array_equal(getattr(site, b).cpu().numpy(),
+                                      npz[f"{b}{i}"].astype(np.float32)):
+                    off.append(f"vaes.{i}/{b}")
+    return off, compared
+
+
+def phase_medmnist_slice(tmp):
+    """MedMNIST (pneumonia <-> blood, ResNet nets) and chest-X-ray <-> SVHN
+    through the CLIs on cuda at full width: jnf_sbound.json (latent 16, MAF
+    with s_bound 8, gradient clipping at 40,000) for 2 epochs with warmup 2,
+    its launches as `_jnf_expected` counts them; `validate --repeats 1`
+    (pneumonia's and blood's classifiers trained into the pool first) and
+    one `compute_likelihoods --bis` test batch of 500 on it; mmvae.json
+    (Laplace, DReG-looser, K=10) and mvae.json for a few steps, no launch;
+    `dcca_train --dataset medmnist` (2 epochs) and jmvae_nf_dcca.json
+    grafting its artifact (2 epochs, warmup 2, no_recon: no launch; trunks
+    and projections equal to the artifact after training); chest-SVHN's
+    jmvae_exact_synth.json for one epoch (linear warmup, no flow, nothing
+    frozen in either phase: the joint trunk and decoders moved; no launch)."""
+    import torch
+
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer, freezing
+
+    exp = os.path.join(tmp, "experiments")
+    launches = {}
+    cfg, _, info, _ = _cli_epoch(tmp, MEDMNIST["jnf_sbound"], **MEDMNIST_JNF_RUN)
+    expected = _jnf_expected(info)
+    emit({"phase": "medmnist_jnf_slice", "config": "jnf_sbound.json", "latent_dim": cfg.latent_dim,
+          "s_bound_flow": cfg.s_bound_flow, "clip_grad_norm": cfg.clip_grad_norm,
+          "expected_launches_by_epoch": expected, **info})
+    if cfg.s_bound_flow != 8.0 or cfg.latent_dim != 16:
+        raise AssertionError(f"jnf_sbound.json: s_bound {cfg.s_bound_flow}, "
+                             f"latent {cfg.latent_dim}")
+    launches["medmnist_jnf"] = _check_run("medmnist JNF", info, expected)
+    run = info["run_path"]
+    nb = len(reload_model(run, 500, "cuda")[2][1])
+    ok, res = _validate_counted(run, exp, (4 * (2 * nb + 1), 0), MS_VALIDATE_KEYS)
+    res.pop("marks")
+    emit({"phase": "medmnist_validate", "test_batches": nb, **res, "ok": ok})
+    if not ok:
+        raise AssertionError(f"medmnist validate: {res}")
+    launches["validate_medmnist_jnf"] = tuple(res["launches"])
+    launches["likelihoods_medmnist_jnf"] = _likelihood_batch(run, "medmnist")
+
+    for name in ("mmvae", "mvae"):
+        cfg, _, info, _ = _cli_epoch(tmp, MEDMNIST[name], **MEDMNIST_FEW_STEPS)
+        emit({"phase": f"medmnist_{name}_slice", "model": cfg.model, "K": cfg.K,
+              "posterior": cfg.dist, **info})
+        launches[f"medmnist_{name}"] = _check_run(f"medmnist {name}", info, [(0, 0)])
+
+    path, lines, got, wall = _counted(dcca_main, [
+        "--dataset", "medmnist", "--device", "cuda", "--epochs", "2", "--batch-size",
+        str(DCCA_BATCH), "--synthetic-n", str(MEDMNIST_JNF_RUN["synthetic_n"]), "--data-path",
+        os.path.join(tmp, "data"), "--out", os.path.join(tmp, "dcca")])
+    emit({"phase": "medmnist_dcca", "trunks": "dcca_encoders_medmnist", "launches": list(got),
+          "epochs": [l for l in lines if l.startswith("DCCA epoch")], "cli_wall_s": wall})
+    if got != (0, 0):
+        raise AssertionError(f"medmnist DCCA launched {got}")
+    launches["dcca_medmnist"] = got
+    cfg, _, info, epochs = _cli_epoch(tmp, MEDMNIST["jmvae_nf_dcca"], dcca_path=path,
+                                      **MEDMNIST_JNF_RUN)
+    bundle = registry.build(cfg)
+    bundle.model.load_state_dict(torch.load(os.path.join(info["run_path"], "model.pt"),
+                                            weights_only=True))
+    off, compared = _trunks_off_artifact(bundle.model, path)
+    emit({"phase": "medmnist_jnf_dcca_slice", "dcca": cfg.dcca, "no_recon": cfg.no_recon,
+          "trunk_leaves_compared": compared, "trunk_leaves_off_artifact": off, **info})
+    if off or not compared or not cfg.dcca:
+        raise AssertionError(f"medmnist JNF-DCCA: {off[:5]} of {compared} off the artifact")
+    launches["medmnist_jnf_dcca"] = _check_run("medmnist JNF-DCCA", info, [(0, 0), (0, 0)])
+
+    cfg, _, info, epochs = _cli_epoch(tmp, CHEST)
+    bundle = registry.build(cfg)
+    fresh = Trainer(bundle.model, bundle.spec, cfg, device="cuda")
+    fresh.init_parameters()  # the run's start: the Trainer draws it from the config's seed
+    start = dict(fresh.model.named_parameters())
+    # nothing frozen in either phase; the epoch moves the joint encoder's
+    # trunk and both decoders (the unimodal encoders' KL weight is 0 in the
+    # linear warmup's first epoch)
+    frozen = {freezing.frozen_prefixes_for_phase(fresh.obj_name, past, cfg.fix_jencoder,
+                                                 cfg.fix_decoders) for past in (False, True)}
+    trained = [n for n in start if n.startswith("joint_encoder.Linear") or ".decoder." in n]
+    unmoved = [n for n in trained if torch.equal(epochs[-1]["params"][n], start[n].detach())]
+    emit({"phase": "chest_svhn_slice", "linear_warmup": cfg.linear_warmup, "no_nf": cfg.no_nf,
+          "frozen_prefixes": sorted(frozen), "trained_leaves": len(trained),
+          "trained_leaves_unmoved": unmoved, **info})
+    if unmoved or not trained or frozen != {("first_encoder",)} or not cfg.linear_warmup:
+        raise AssertionError(f"chest-SVHN: unmoved {unmoved[:5]}, frozen {frozen}, "
+                             f"linear_warmup {cfg.linear_warmup}")
+    launches["chest_svhn_jnf"] = _check_run("chest-SVHN", info, [(0, 0)])
+    return launches
+
+
+def phase_celeba_slice(tmp):
+    """CelebA (ResNet image at 64x64 <-> 40 Bernoulli attributes) through
+    the CLIs on cuda at full width: jmvae_nf.json (latent 64, B=128, both
+    kernels at D = 64) for 2 epochs with warmup 2, its launches as
+    `_jnf_expected` counts them; `validate --repeats 1` with the attribute
+    metrics (the per-batch loop, 4 forward launches per conditional
+    sampling call) and one likelihood batch of CELEBA_LL_ROWS rows;
+    mmvae_nf.json's steady step at K=30, B=256 (the forward kernel at
+    7,680 rows; 4 forward and 4 backward launches a step); one epoch each of
+    mvae.json and moepoe.json, no launch."""
+    import torch
+
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.ops import ar_flow
+    from mmvae_tpu_torch.train import Trainer
+
+    exp = os.path.join(tmp, "experiments")
+    launches = {}
+    cfg, _, info, _ = _cli_epoch(tmp, CELEBA["jmvae_nf"], **JNF_RUN)
+    expected = _jnf_expected(info)
+    emit({"phase": "celeba_jnf_slice", "latent_dim": cfg.latent_dim,
+          "recon_losses": cfg.recon_losses, "expected_launches_by_epoch": expected, **info})
+    launches["celeba_jnf"] = _check_run("celeba JNF", info, expected)
+    run = info["run_path"]
+    nb = len(reload_model(run, 500, "cuda")[2][1])
+    ok, res = _validate_counted(run, exp, (4 * (2 * nb + 1), 0), CELEBA_VALIDATE_KEYS)
+    res.pop("marks")
+    ok = ok and all(0.0 <= res["metrics"][k] <= 1.0 for k in ("accuracy1", "accuracy2"))
+    emit({"phase": "celeba_validate", "test_batches": nb, **res, "ok": ok})
+    if not ok:
+        raise AssertionError(f"celeba validate: {res}")
+    launches["validate_celeba_jnf"] = tuple(res["launches"])
+    launches["likelihoods_celeba_jnf"] = _likelihood_batch(run, "celeba", CELEBA_LL_ROWS)
+
+    # MMVAE-NF's steady step at its published K=30, B=256
+    cfg_path, _ = _slice_config(tmp, CELEBA["mmvae_nf"])
+    cfg = ExperimentConfig.from_json(cfg_path)
+    train_loader = _data_loaders(cfg)[0]
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device="cuda")
+    trainer.init_parameters()
+    trainer.init_opt_state(past_warmup=True, amsgrad=True)  # warmup 0: AMSGrad throughout
+    pipeline = trainer.make_device_pipeline(train_loader)
+    batches = [pipeline.gather(torch.from_numpy(r).cuda())
+               for r in list(pipeline.epoch_index_batches())[:5]]
+    for xs in batches[:2]:
+        trainer.train_step(xs, cfg.learning_rate)
+    torch.cuda.synchronize()
+    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    t0 = time.perf_counter()
+    for xs in batches[2:]:
+        loss, _ = trainer.train_step(xs, cfg.learning_rate)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / len(batches[2:])
+    got = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    want = (4 * len(batches[2:]), 4 * len(batches[2:]))
+    emit({"phase": "celeba_mmvae_nf_step", "K": cfg.K, "batch": cfg.batch_size,
+          "solve_rows": cfg.K * cfg.batch_size, "train_step_ms": step_s * 1e3,
+          "steps_timed": len(batches[2:]), "launches": list(got), "expected_launches": list(want),
+          "loss": loss.item()})
+    if got != want or not math.isfinite(loss.item()):
+        raise AssertionError(f"celeba MMVAE-NF: launches {got} (expected {want}), loss {loss}")
+    launches["celeba_mmvae_nf_steps"] = got
+
+    for name in ("mvae", "moepoe"):
+        cfg, _, info, _ = _cli_epoch(tmp, CELEBA[name])
+        emit({"phase": f"celeba_{name}_slice", "model": cfg.model, "K": cfg.K,
+              "lik_scaling": list(registry.build(cfg).spec.lik_scaling), **info})
+        launches[f"celeba_{name}"] = _check_run(f"celeba {name}", info, [(0, 0)])
+    return launches
+
+
+def phase_resnet_parity(tmp):
+    """A post-warmup JMVAE-NF step of MedMNIST (jnf_sbound.json: latent 16,
+    s_bound 8) and of CelebA (jmvae_nf.json: latent 64) on cuda in float32
+    against the float64 CPU step (frozen joint forward, unimodal
+    reconstructions on; noise: the joint forward's, compute_kld's joint
+    sample, each unimodal forward), the reference on the cuda step's ReLU
+    branches, the kernels' included: at D = 16 and 64 over 128 rows the
+    solves evaluate millions of hidden ReLUs, and one whose pre-activation
+    lies within float32 round-off of 0 flips (one moved a MADE kernel's
+    gradient by 1.5e-4 of its largest entry on an H100)."""
+    for name, config, run in (("medmnist", MEDMNIST["jnf_sbound"], MEDMNIST_JNF_RUN),
+                              ("celeba", CELEBA["jmvae_nf"], JNF_RUN)):
+        _step_parity(tmp, config, 4, f"{name}_jnf_parity", run, align_relu=True,
+                     frozen_joint=True, no_recon=False)
+
+
 def main():
     import torch
 
@@ -2705,6 +3127,7 @@ def main():
     timed("build", phase_build)
     solve = timed("ar_solve", phase_ar_solve)
     solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
+    solve64 = timed("ar_solve_latent64", phase_ar_solve_latent64)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sl = timed("slice", phase_slice, tmp)
@@ -2733,6 +3156,9 @@ def main():
         circles, circles_runs = timed("circles_slice", phase_circles_slice, tmp)
         timed("circles_parity", phase_circles_parity, tmp, circles_runs["jnf"])
         mnist1ch = timed("mnist1ch_slice", phase_mnist1ch_slice, tmp)
+        medmnist = timed("medmnist_slice", phase_medmnist_slice, tmp)
+        celeba = timed("celeba_slice", phase_celeba_slice, tmp)
+        timed("resnet_parity", phase_resnet_parity, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2744,7 +3170,8 @@ def main():
                "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
-               **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch}
+               **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
+               **celeba}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -2762,18 +3189,33 @@ def main():
     # forward's times at eval's rows stand beside its main-path time.
     at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
     emit({"phase": "smoke", "seconds": time.perf_counter() - t_start, "phase_seconds": walls})
-    # and at circles-squares' latent 2, with its rows
-    at2 = solve2["results"]
+    # and at circles-squares' latent 2, MedMNIST's 16 and CelebA's 64, with
+    # their rows
+    at2, at64 = solve2["results"], solve64["results"]
+
+    def fwd_at(res):
+        return {k: v for k, v in res.items() if not k.startswith("backward")}
+
+    def bwd_at(res):
+        return {k[len("backward_"):]: v for k, v in res.items() if k.startswith("backward")}
+
     emit({"kernels": [
         entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
               at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"],
-              at_latent_2={k: v for k, v in at2.items() if not k.startswith("backward")},
-              max_abs_err_at_latent_2=solve2["errs"]["forward"]),
+              at_latent_2=fwd_at(at2), max_abs_err_at_latent_2=solve2["errs"]["forward"],
+              at_latent_16=fwd_at(at64[16]),
+              max_abs_err_at_latent_16=solve64["errs"][16]["forward"],
+              at_latent_64=fwd_at(at64[64]),
+              max_abs_err_at_latent_64=solve64["errs"][64]["forward"]),
         entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
               solve["bwd_err"],
               kernel_ms=solve["results"]["backward"]["kernel_ms"],
               at_latent_2=at2["backward_n128"],
-              max_abs_err_at_latent_2=solve2["errs"]["backward"])]})
+              max_abs_err_at_latent_2=solve2["errs"]["backward"],
+              at_latent_16=bwd_at(at64[16]),
+              max_abs_err_at_latent_16=solve64["errs"][16]["backward"],
+              at_latent_64=bwd_at(at64[64]),
+              max_abs_err_at_latent_64=solve64["errs"][64]["backward"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,10 @@ rows, min(100, 10 ns) samples each; its histogram hist_000.png on repeat
 0), and for models with a joint encoder the product-of-posteriors figure
 product_of_posteriors.png from Hamiltonian Monte Carlo (4 test rows, 30
 chains, 100 steps). A failure of that sampling stops the run, where the JAX
-CLI prints it and goes on.
+CLI prints it and goes on. On CelebA the coherences are the attribute
+metrics instead (eval/modalities.py, `BATCH_COHERENCE`): accuracy1,
+accuracy2 and joint_coherence, always from the per-batch loop, even at
+--n-data all.
 Writes metrics.json (mean and std per metric over the repeats), one
 metrics.jsonl row per repeat, and the grids generate_val.png and
 gen_from_cond_{0,1}.png.
@@ -83,6 +86,7 @@ def main(argv=None):
     from ..eval.fid import cross_modal_fid
     from ..eval.generation import Noise, generate, generate_from_conditional
     from ..eval.latent_analysis import conditional_rdist_metrics, visualize_poe
+    from ..eval.modalities import BATCH_COHERENCE
     from ..utils import Tracker
     from ..vis import save_samples
     from .common import (
@@ -111,6 +115,8 @@ def main(argv=None):
         return Noise([generator(device, cfg.seed, *keys)], dtype=dtype)
 
     circles = bundle.dataset == "circles_squares"
+    batch_only = BATCH_COHERENCE.get(bundle.dataset)
+    batch_coherence = batch_only or compute_accuracies
 
     def radius_metrics(xs, r):
         """neg_entropy on one test batch (jmvae_nf_circles.py:107-129)."""
@@ -124,23 +130,26 @@ def main(argv=None):
     all_metrics = []
     with torch.no_grad():
         for r in range(info.repeats):
-            if info.n_data == "all":
+            if info.n_data == "all" and batch_only is None:
                 metrics = compute_accuracies_dataset(
                     model, classifiers, test_l, lambda bi: noise(STREAM_COHERENCE, r, bi), spec,
                     ns=info.ns)
                 if circles:
                     metrics.update(radius_metrics(batch(next(iter(test_l))[0]), r))
             else:
-                # explicit subsets: per-batch means weighted by the rows
-                # scored, so that a ragged last batch counts as its rows; a
-                # metric of the first batch alone (neg_entropy) is its value
+                # explicit subsets and batch-only coherences (CelebA's):
+                # per-batch means weighted by the rows scored, so that a ragged last batch counts as its
+                # rows; a metric of the first batch alone (neg_entropy) is
+                # its value
                 sums, weights = {}, {}
                 for bi, (xs, labs) in enumerate(test_l):
                     xs = batch(xs)
-                    n_data = min(int(info.n_data), len(xs[0]))
-                    m = compute_accuracies(model, classifiers, xs, labs,
-                                           noise(STREAM_COHERENCE, r, bi), spec,
-                                           n_data=n_data, ns=info.ns)
+                    n_data = len(xs[0])
+                    if info.n_data != "all":
+                        n_data = min(int(info.n_data), n_data)
+                    m = batch_coherence(model, classifiers, xs, labs,
+                                        noise(STREAM_COHERENCE, r, bi), spec,
+                                        n_data=n_data, ns=info.ns)
                     if circles and bi == 0:
                         m.update(radius_metrics(xs, r))
                     for k, v in m.items():

@@ -17,7 +17,8 @@
 // Widths: every hidden layer is kHidden = 128 wide, the only width the
 // port's MADE blocks have and the only one the kernels are tested at; the
 // launchers refuse others. D and the number of hidden layers are free, up
-// to what shared memory holds.
+// to what shared memory holds (ar_solve_smem_bytes computes it): three
+// hidden layers at every D up to 256, five at none.
 //
 // What bounds it: latency. Each chain needs 2*N*D*(H + (L-1)*H*H + 2*H)
 // flops (170 MFLOP at N=128, D=20, H=128, L=3 hidden layers), 2.5 us at the
@@ -28,11 +29,19 @@
 //
 // Design, both kernels:
 // - A block owns kTile=4 rows (32 blocks, one per SM, at N=128) and has 16
-//   warps. Every weight (158 KB at the sizes above) is staged once into
-//   dynamic shared memory by cp.async, with row stride out+1 so that it
-//   reads without bank conflicts along either index, and stays there for
-//   all D steps. Activations are feature-major ([feature][row]): one float4
-//   broadcast read feeds the four rows.
+//   warps. The hidden kHidden x kHidden layers (132 KB with two of them)
+//   are staged once into dynamic shared memory by cp.async, with row
+//   stride out+1 so that they read without bank conflicts along either
+//   index, and stay there for all D steps. Activations are feature-major
+//   ([feature][row]): one float4 broadcast read feeds the four rows.
+// - Step i reads only one row of the first layer and two columns of the
+//   head, so those two weights stay in device memory (L2 after the first
+//   block): each thread loads the three values it needs for the next step
+//   into registers while the current step runs. Shared memory then grows
+//   with D only by the O(D) tiles and the backward's relu bits, and latent
+//   64 (MADE widths [64, 128, 128, 128, 128]) fits, where staging the first
+//   layer and the head as well needed 258 KB for the forward and 271 KB for
+//   the backward, over the H100's 227 KB.
 // - A hidden layer (hidden_layer) is spread over the block: warp s < 8
 //   sums input features 16s..16s+15 for all 128 output columns, four per
 //   thread, and the eight partial sums meet in shared memory. A warp's
@@ -93,17 +102,16 @@ struct Deltas {
   float* d[kMaxLayers];
 };
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
-// Every weight (in, out) is kept with row stride out + 1, so that reading
-// it along either index is free of bank conflicts.
-__host__ __device__ inline int padded(int in, int out) { return round4(in * (out + 1)); }
+// A staged hidden layer (kHidden, kHidden) is kept with row stride
+// kHidden + 1, so that reading it along either index is free of bank
+// conflicts.
+constexpr int kPadded = round4(kHidden * (kHidden + 1));
 
-inline int weight_floats(const int* width, int n) {
-  int total = 0;
-  for (int l = 0; l < n; ++l) total += padded(width[l], width[l + 1]);
-  return total;
-}
+// The staged weights: the n - 2 hidden kHidden x kHidden layers. The first
+// layer and the head stay in device memory.
+inline int weight_floats(int n) { return (n - 2) * kPadded; }
 
 // Whether the kernels take these widths: 1..kMaxLayers-1 hidden layers of
 // kHidden, a head of 2D.
@@ -116,15 +124,15 @@ bool takes(const int* width, int n) {
 }
 
 // Shared-memory layout, in floats; every segment is a multiple of four.
-// Forward: weights, biases, the x and y tiles, two activation buffers, the
-// first layer's pre-activation, the head's per-warp sums, the partial sums.
-// Backward: weights; the x, y, y-gradient, x-gradient and raw-s tiles; the
-// log-det gradient and the head gradients (4 * kTile); the relu bits of
-// every step; two activation buffers, dsum, the per-warp sums of y's
-// gradient, the partial sums.
+// Forward: the staged hidden weights, biases, the x and y tiles, two
+// activation buffers, the first layer's pre-activation, the head's per-warp
+// sums, the partial sums. Backward: the staged hidden weights; the x, y,
+// y-gradient, x-gradient and raw-s tiles; the log-det gradient and the head
+// gradients (4 * kTile); the relu bits of every step; two activation
+// buffers, dsum, the per-warp sums of y's gradient, the partial sums.
 inline int smem_floats(const int* width, int n, bool backward) {
   const int d = width[0];
-  const int common = weight_floats(width, n) + 2 * kHidden * kTile + kPartFloats;
+  const int common = weight_floats(n) + 2 * kHidden * kTile + kPartFloats;
   if (!backward) {
     int biases = 0;
     for (int l = 0; l < n; ++l) biases += round4(width[l + 1]);
@@ -132,6 +140,17 @@ inline int smem_floats(const int* width, int n, bool backward) {
   }
   const int mask = round4((n - 1) * d * kTile * kMaskWords);
   return common + 5 * d * kTile + 4 * kTile + mask + kHidden * kTile + kWarps * kTile;
+}
+
+// The head's weights, L.w[L.n - 1], read with static indices only (a
+// kernel parameter indexed at run time is copied to local memory).
+__device__ inline const float* head_weights(const Layers& L) {
+  const float* w = nullptr;
+#pragma unroll
+  for (int l = 1; l < kMaxLayers; ++l) {
+    if (l == L.n - 1) w = L.w[l];
+  }
+  return w;
 }
 
 __device__ inline void fma4(float4& acc, const float4& a, float w) {
@@ -148,23 +167,14 @@ __device__ inline void copy4_async(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
-// dst = src (rows, cols) with row stride cols + 1, by 4-byte cp.async:
-// neighbouring threads copy neighbouring floats of a row. Completed by
-// cp.async.wait_all.
-__device__ inline void stage_padded(float* dst, const float* __restrict__ src, int rows,
-                                    int cols) {
-  if (cols < kThreads) {
-    const int per = kThreads / cols, k0 = threadIdx.x / cols, j = threadIdx.x % cols;
-    if (k0 < per) {
-      for (int k = k0; k < rows; k += per)
-        copy4_async(dst + k * (cols + 1) + j, src + k * cols + j);
-    }
-  } else {
-    for (int k = 0; k < rows; ++k) {
-      for (int j = threadIdx.x; j < cols; j += kThreads)
-        copy4_async(dst + k * (cols + 1) + j, src + k * cols + j);
-    }
-  }
+// dst = src (kHidden, kHidden) with row stride kHidden + 1, by 4-byte
+// cp.async: neighbouring threads copy neighbouring floats of a row.
+// Completed by cp.async.wait_all.
+__device__ inline void stage_padded(float* dst, const float* __restrict__ src) {
+  constexpr int per = kThreads / kHidden;
+  const int k0 = threadIdx.x / kHidden, j = threadIdx.x % kHidden;
+  for (int k = k0; k < kHidden; k += per)
+    copy4_async(dst + k * (kHidden + 1) + j, src + k * kHidden + j);
 }
 
 // One kHidden -> kHidden layer over the tile:
@@ -219,13 +229,13 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
   const int row0 = blockIdx.x * kTile;
   const bool record = T.s != nullptr;
 
-  // weights, then biases
+  // the hidden kHidden x kHidden layers, then every bias
   float* p = smem;
 #pragma unroll
-  for (int l = 0; l < kMaxLayers; ++l) {
-    if (l < n) {
-      stage_padded(p, L.w[l], L.width[l], L.width[l + 1]);
-      p += padded(L.width[l], L.width[l + 1]);
+  for (int l = 1; l < kMaxLayers - 1; ++l) {
+    if (l < n - 1) {
+      stage_padded(p, L.w[l]);
+      p += kPadded;
     }
   }
   const float* bias = p;
@@ -259,7 +269,19 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
   float ld = 0.f;  // owned by thread r < kTile for row r of the tile
   const int jt = tid / kTile, rt = tid % kTile;  // this thread's hidden feature and row
   const bool row_in = row0 + rt < n_rows;
+  // the first layer (d, kHidden) and the head (kHidden, 2d) in device
+  // memory: this thread's W0[i - 1, jt] and head entries (jt, i), (jt, i + d)
+  // for step i, loaded one step ahead
+  const float* W0 = L.w[0];
+  const float* Wh = head_weights(L) + jt * 2 * d;
+  float w0 = 0.f, wm = __ldg(Wh), ws = __ldg(Wh + d);
   for (int i = 0; i < d; ++i) {
+    float w0_next = 0.f, wm_next = 0.f, ws_next = 0.f;
+    if (i + 1 < d) {
+      w0_next = __ldg(W0 + i * kHidden + jt);
+      wm_next = __ldg(Wh + i + 1);
+      ws_next = __ldg(Wh + i + 1 + d);
+    }
     if (record) {
       for (int u = tid; u < d * kTile; u += kThreads) {
         const int c = u % d, r = u / d;
@@ -268,7 +290,7 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
     }
     // first layer: y gained feature i - 1 in the last step, so its
     // pre-activation gains one rank-1 term, y_{i-1} * W0[i-1, :]
-    if (i > 0) z0[tid] = fmaf(yT[(i - 1) * kTile + rt], smem[(i - 1) * (kHidden + 1) + jt], z0[tid]);
+    if (i > 0) z0[tid] = fmaf(yT[(i - 1) * kTile + rt], w0, z0[tid]);
     {
       const float h = fmaxf(z0[tid], 0.f);
       hA[tid] = h;
@@ -276,7 +298,7 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
     }
     __syncthreads();
     const float* in = hA;
-    const float* W = smem + padded(d, kHidden);
+    const float* W = smem;
     const float* b = bias + kHidden;
     float* out = hB;
     for (int l = 1; l < n - 1; ++l) {
@@ -287,7 +309,7 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
         if (tape != nullptr && row0 + r < n_rows)
           tape[((size_t)i * n_rows + row0 + r) * kHidden + j] = h;
       });
-      W += padded(kHidden, kHidden);
+      W += kPadded;
       b += kHidden;
       in = out;
       out = (out == hA) ? hB : hA;
@@ -298,8 +320,7 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
     // finishes row r.
     {
       const float h = in[tid];
-      const float* wk = W + jt * (2 * d + 1) + i;
-      float pm = h * wk[0], ps = h * wk[d];  // this thread's row is lane % kTile
+      float pm = h * wm, ps = h * ws;  // this thread's row is lane % kTile
 #pragma unroll
       for (int off = kTile; off < 32; off *= 2) {
         pm += __shfl_xor_sync(kFull, pm, off);
@@ -324,6 +345,9 @@ ar_solve_forward_kernel(const float* __restrict__ x, Layers L, Tape T, int n_row
       yT[i * kTile + tid] = sign < 0 ? (xi - mu) * expf(-s) : xi * expf(s) + mu;
       ld += sign < 0 ? -s : s;
     }
+    w0 = w0_next;
+    wm = wm_next;
+    ws = ws_next;
     __syncthreads();
   }
 
@@ -340,19 +364,19 @@ ar_solve_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
                          Tape T, Deltas G, int n_rows, int sign, float s_bound,
                          float* __restrict__ gx) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int w_off[kMaxLayers];
   __shared__ float* act[kMaxLayers];
   __shared__ float* delta[kMaxLayers];
   const int n = L.n, d = L.width[0], tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row0 = blockIdx.x * kTile;
 
+  // the hidden kHidden x kHidden layers: layer l (1 <= l < n - 1) at
+  // (l - 1) * kPadded
   float* p = smem;
 #pragma unroll
-  for (int l = 0; l < kMaxLayers; ++l) {
-    if (l < n) {
-      stage_padded(p, L.w[l], L.width[l], L.width[l + 1]);
-      if (tid == 0) w_off[l] = static_cast<int>(p - smem);
-      p += padded(L.width[l], L.width[l + 1]);
+  for (int l = 1; l < kMaxLayers - 1; ++l) {
+    if (l < n - 1) {
+      stage_padded(p, L.w[l]);
+      p += kPadded;
     }
   }
 #pragma unroll
@@ -414,15 +438,25 @@ ar_solve_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
   stage_wait();
   __syncthreads();
 
-  const float* Wh = smem + w_off[n - 1];  // head (kHidden, 2D), row stride 2D + 1
-  const float* W0 = smem + w_off[0];      // (d, kHidden), row stride kHidden + 1
   const int kt = tid / kTile, rt = tid % kTile;  // this thread's hidden feature and row
   const bool row_in = row0 + rt < n_rows;
+  // the first layer (d, kHidden) and the head (kHidden, 2d) in device
+  // memory: this thread's W0[i, kt] and head entries (kt, i), (kt, i + d)
+  // for step i, loaded one step ahead
+  const float* W0 = L.w[0] + kt;
+  const float* Wh = head_weights(L) + kt * 2 * d;
+  float w0 = __ldg(W0 + (d - 1) * kHidden), wm = __ldg(Wh + d - 1), ws = __ldg(Wh + 2 * d - 1);
   for (int i = d - 1; i >= 0; --i) {
+    float w0_next = 0.f, wm_next = 0.f, ws_next = 0.f;
+    if (i > 0) {
+      w0_next = __ldg(W0 + (i - 1) * kHidden);
+      wm_next = __ldg(Wh + i - 1);
+      ws_next = __ldg(Wh + i - 1 + d);
+    }
     // y's gradient at feature i: gy_i plus what the first layer of every
     // later step sent back, W0[i, :] . dsum
     {
-      float pg = W0[i * (kHidden + 1) + kt] * dsum[tid];  // this thread's row is lane % kTile
+      float pg = w0 * dsum[tid];  // this thread's row is lane % kTile
 #pragma unroll
       for (int off = kTile; off < 32; off *= 2) pg += __shfl_xor_sync(kFull, pg, off);
       if (lane < kTile) ysum[warp * kTile + lane] = pg;
@@ -466,8 +500,7 @@ ar_solve_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
     }
     {
       const unsigned* mk = mask + ((n - 2) * d + i) * kTile * kMaskWords;
-      const float* wk = Wh + kt * (2 * d + 1) + i;
-      const float g = hd[rt] * wk[0] + hd[kTile + rt] * wk[d];
+      const float g = hd[rt] * wm + hd[kTile + rt] * ws;
       const float v = (mk[rt * kMaskWords + kt / 32] >> (kt % 32)) & 1u ? g : 0.f;
       hA[tid] = v;
       if (n == 2) dsum[tid] += v;
@@ -482,7 +515,8 @@ ar_solve_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
     for (int l = n - 2; l >= 1; --l) {
       const unsigned* mk = mask + ((l - 1) * d + i) * kTile * kMaskWords;
       float* dl = delta[l - 1];
-      hidden_layer(in, smem + w_off[l], 1, kHidden + 1, part, [&](int k, int r, float g) {
+      const float* W = smem + (l - 1) * kPadded;
+      hidden_layer(in, W, 1, kHidden + 1, part, [&](int k, int r, float g) {
         const float v = (mk[r * kMaskWords + k / 32] >> (k % 32)) & 1u ? g : 0.f;
         out[k * kTile + r] = v;
         if (l == 1) dsum[k * kTile + r] += v;
@@ -492,6 +526,9 @@ ar_solve_backward_kernel(const float* __restrict__ x, const float* __restrict__ 
       in = out;
       out = t;
     }
+    w0 = w0_next;
+    wm = wm_next;
+    ws = ws_next;
   }
 
   for (int u = tid; u < d * kTile; u += kThreads) {

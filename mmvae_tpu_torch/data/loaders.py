@@ -1,5 +1,6 @@
 """Paired-dataset containers, batch iterators and the dataset constructors
-of MNIST-SVHN, circles-squares, MNIST-Fashion and MNIST-Contour (own copy
+of MNIST-SVHN, circles-squares, MNIST-Fashion, MNIST-Contour, MedMNIST,
+chest-X-ray-SVHN and CelebA (own copy
 of mmvae_tpu/data/loaders.py, numpy only apart from torch's randperm for
 the reference's seeded val splits). Same pairing, splits and batch order as
 the JAX package, bit for bit.
@@ -254,11 +255,99 @@ def mnist_contour(data_path: str = "../data", batch_size: int = 128, shuffle: bo
     return _train_val_test(build(True, 1), build(False, 2), batch_size, shuffle)
 
 
+def medmnist_pairs(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                   synthetic_n: int = 2048, difficulty: float = 0.0):
+    """PneumoniaMNIST <-> BloodMNIST pairs (MEDMNIST_DL, dataloaders.py:
+    573-637), each split paired on its own: blood classes 1 and 6 remapped
+    to 0 and 1 and the others dropped (bin/make-medmnist-pairs.py:37-43);
+    on the synthetic stand-in both labels are taken mod 2."""
+    out = []
+    for split, seed in [("train", 0), ("test", 1), ("val", 2)]:
+        p_img, p_lab, _ = sources.load_or_synthesize(
+            lambda s=split: sources.load_medmnist(data_path, "pneumoniamnist", s),
+            (1, 28, 28), synthetic_n, 10 + seed, proto_seed=10, difficulty=difficulty)
+        b_img, b_lab, real = sources.load_or_synthesize(
+            lambda s=split: sources.load_medmnist(data_path, "bloodmnist", s),
+            (3, 28, 28), synthetic_n, 20 + seed, proto_seed=20, difficulty=difficulty)
+        if real:
+            keep, b_lab = pairing.remap_medmnist_blood_labels(b_lab)
+            b_img = b_img[keep]
+        else:
+            b_lab = b_lab % 2
+        p_lab = p_lab % 2
+        i1, i2 = pairing.rand_match_on_idx([p_lab, b_lab], max_d=10000, dm=3, seed=seed)
+        sh = np.random.default_rng(seed + 40).permutation(len(i1))
+        i1, i2 = i1[sh], i2[sh]
+        out.append(PairedDataset([p_img[i1], b_img[i2]], [p_lab[i1], b_lab[i2]]))
+    return _loaders(*out, batch_size, shuffle)
+
+
+def celeba(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+           synthetic_n: int = 2048, difficulty: float = 0.0):
+    """CelebA image <-> 40-attribute pairs (datasets.py:269-428); the
+    attribute vector is a modality of its own, a 1x1x40 tensor, and
+    attribute 20 (Male) is each pair's label. Reads
+    data_path/celeba/celeba64_<split>.npz, else the torchvision layout
+    (sources.load_celeba), else a synthetic stand-in: two-class images with
+    40 attributes drawn uniform < 0.3 from one default_rng(7) over the
+    splits in the order train, test, valid, attribute 20 set to the class."""
+    rng = np.random.default_rng(7)
+
+    def load_split(split, seed):
+        try:
+            with np.load(f"{data_path}/celeba/celeba64_{split}.npz") as npz:
+                imgs = npz["images"].astype(np.float32) / 255.0
+                attrs = npz["attrs"].astype(np.float32)
+        except (FileNotFoundError, OSError):
+            try:
+                imgs, attrs = sources.load_celeba(data_path, split)
+            except (FileNotFoundError, OSError, KeyError):
+                if sources.require_real():
+                    raise
+                d = synthetic.synthetic_labeled_images(
+                    synthetic_n if split == "train" else synthetic_n // 4, (3, 64, 64),
+                    n_classes=2, seed=seed, proto_seed=30, difficulty=difficulty)
+                imgs = d["images"]
+                attrs = (rng.uniform(size=(len(imgs), 40)) < 0.3).astype(np.float32)
+                attrs[:, 20] = d["labels"]
+        labels = attrs[:, 20].astype(np.int64)
+        return PairedDataset([imgs, attrs.reshape(-1, 1, 1, 40)], [labels, labels])
+
+    return _loaders(load_split("train", 30), load_split("test", 31), load_split("valid", 32),
+                    batch_size, shuffle)
+
+
+def chest_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+               synthetic_n: int = 2048, difficulty: float = 0.0):
+    """CHEST_SVHN_DL (dataloaders.py:293-347): PneumoniaMNIST x-rays paired
+    with SVHN digits on the x-rays' classes {0, 1}, so SVHN is restricted to
+    digits 0 and 1 with their true labels kept (make-chest-svhn.py:11-19),
+    not binarised. The synthetic stand-ins share their prototypes with
+    MedMNIST's pneumonia (seed 10) and MNIST-SVHN's SVHN (seed 3)."""
+    out = []
+    for split, train, seed in [("train", True, 0), ("test", False, 1), ("val", False, 2)]:
+        c_img, c_lab, _ = sources.load_or_synthesize(
+            lambda s=split: sources.load_medmnist(data_path, "pneumoniamnist", s),
+            (1, 28, 28), synthetic_n, 10 + seed, proto_seed=10, difficulty=difficulty)
+        s_img, s_lab, _ = sources.load_or_synthesize(
+            lambda t=train: sources.load_svhn(data_path, t),
+            (3, 32, 32), synthetic_n, 3 + 2 * seed, proto_seed=3, difficulty=difficulty)
+        c_lab, s_lab = c_lab % 2, s_lab.astype(np.int64) % 10
+        i1, i2 = pairing.rand_match_on_idx([c_lab, s_lab], max_d=10000, dm=3, seed=seed)
+        sh = np.random.default_rng(seed + 70).permutation(len(i1))
+        i1, i2 = i1[sh], i2[sh]
+        out.append(PairedDataset([c_img[i1], s_img[i2]], [c_lab[i1], s_lab[i2]]))
+    return _loaders(*out, batch_size, shuffle)
+
+
 DATASETS = {
     "mnist_svhn": mnist_svhn,
     "circles_squares": circles_squares,
     "mnist_fashion": mnist_fashion,
     "mnist_contour": mnist_contour,
+    "medmnist": medmnist_pairs,
+    "celeba": celeba,
+    "chest_svhn": chest_svhn,
 }
 
 

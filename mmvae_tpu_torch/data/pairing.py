@@ -67,3 +67,10 @@ def rand_match_on_correspondence(
 
 # MNIST classes 0, 1, 2 pair with Fashion classes {1, 2, 3}, {4, 5, 6}, {7, 8, 9}
 MNIST_FASHION_CORRESPONDENCE = [[1, 2, 3], [4, 5, 6], [7, 8, 9]]
+
+
+def remap_medmnist_blood_labels(labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Blood classes {1, 6} -> {0, 1}, the others dropped
+    (bin/make-medmnist-pairs.py:37-43). Returns (kept indices, new labels)."""
+    keep = np.where((labels == 1) | (labels == 6))[0]
+    return keep, np.where(labels[keep] == 1, 0, 1)

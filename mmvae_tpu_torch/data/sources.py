@@ -1,6 +1,8 @@
-"""Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy only):
-MNIST and FashionMNIST IDX files and SVHN .mat files, with the
-class-structured synthetic fallback when they are absent."""
+"""Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy only but
+for PIL in CelebA's PNG reader):
+MNIST and FashionMNIST IDX files, SVHN .mat files, the MedMNIST .npz
+archives and CelebA's torchvision layout, with the class-structured
+synthetic fallback when they are absent."""
 
 from __future__ import annotations
 
@@ -58,6 +60,55 @@ def load_svhn(data_path: str, train: bool):
     y = mat["y"].squeeze().astype(np.int64) % 10
     x = np.transpose(x, (3, 2, 0, 1)).astype(np.float32) / 255.0
     return x, y
+
+
+def load_celeba(data_path: str, split: str):
+    """CelebA in the reference's torchvision layout under
+    ``data_path/celeba/`` (datasets.py:269-428): ``list_eval_partition.txt``
+    (``<filename> <0|1|2>``), ``list_attr_celeba.txt`` (a count line, the 40
+    attribute names, then ``<filename> <40 x +-1>`` rows, mapped to {0, 1}
+    by (a + 1) // 2), and the 64x64 crops
+    ``img_align_celeba/celeba_64x64/train/<stem>.png``: the reference reads
+    every split from the ``train`` directory, with the extension swapped to
+    .png, as here. PIL is imported only when the files are there.
+
+    -> (images float32 (N, 3, 64, 64) in [0, 1], attributes float32 (N, 40)
+    in {0, 1})."""
+    root = os.path.join(data_path, "celeba")
+    want = {"train": 0, "val": 1, "valid": 1, "test": 2}[split]
+    part_path = os.path.join(root, "list_eval_partition.txt")
+    if not os.path.exists(part_path):
+        raise FileNotFoundError(part_path)
+    from PIL import Image
+
+    with open(part_path) as f:
+        fnames = [p[0] for p in (line.split() for line in f)
+                  if len(p) == 2 and int(p[1]) == want]
+    with open(os.path.join(root, "list_attr_celeba.txt")) as f:
+        lines = f.read().splitlines()
+    n_attrs = len(lines[1].split())
+    attrs_by_name = {}
+    for line in lines[2:]:
+        parts = line.split()
+        if len(parts) == n_attrs + 1:
+            attrs_by_name[parts[0]] = (np.array([int(v) for v in parts[1:]], np.int64) + 1) // 2
+    imgs, attrs = [], []
+    img_dir = os.path.join(root, "img_align_celeba", "celeba_64x64", "train")
+    for name in fnames:
+        with Image.open(os.path.join(img_dir, os.path.splitext(name)[0] + ".png")) as im:
+            imgs.append(np.transpose(np.asarray(im.convert("RGB"), dtype=np.uint8), (2, 0, 1)))
+        attrs.append(attrs_by_name[name])
+    return np.stack(imgs).astype(np.float32) / 255.0, np.stack(attrs).astype(np.float32)
+
+
+def load_medmnist(data_path: str, flag: str, split: str):
+    """A MedMNIST .npz archive (e.g. flag='pneumoniamnist'): -> (images
+    float32 (N, C, 28, 28) in [0, 1], labels int64)."""
+    with np.load(os.path.join(data_path, f"{flag}.npz")) as npz:
+        x = npz[f"{split}_images"]
+        y = npz[f"{split}_labels"].squeeze().astype(np.int64)
+    x = x[:, None] if x.ndim == 3 else np.transpose(x, (0, 3, 1, 2))
+    return x.astype(np.float32) / 255.0, y
 
 
 def require_real() -> bool:

@@ -3,8 +3,8 @@
 
 A trunk pair is trained with the CCA loss (dcca/train.py), then wrapped
 with the fitted linear-CCA projection h -> ((h - m) @ w)[:, :dim] for use
-inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). The MNIST-SVHN,
-circles-squares and MNIST-Contour pairs are ported.
+inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). Every pair but
+MNIST-SVHN-Fashion's is ported.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..nets import EncoderSVHN, MLPEncoder
+from ..nets.resnets import celeba_encoder, medmnist_encoder
 
 
 class LCCAWrappedEncoder(nn.Module):
@@ -78,6 +79,24 @@ def dcca_encoders_mnist_contour(outdim: int = 15):
             MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28)]
 
 
+def dcca_encoders_celeba(outdim: int = 40):
+    """DeepCCA_celeba (dcca/models/celeba.py:15-21): the CelebA ResNet
+    encoder for the image, an MLP for the 1x1x40 attribute tensor."""
+    return [celeba_encoder(outdim), MLPEncoder(latent_dim=outdim, in_features=40)]
+
+
+def dcca_encoders_medmnist(outdim: int = 16):
+    """DeepCCA_MedMNIST (dcca/models/medmnist.py:16-21): MedMNIST ResNet
+    encoders for the 1x28x28 pneumonia and the 3x28x28 blood images."""
+    return [medmnist_encoder(outdim, 1), medmnist_encoder(outdim, 3)]
+
+
+def dcca_encoders_chest_svhn(outdim: int = 16):
+    """DeepCCA chest-SVHN (dcca/models/chest_svhn.py:16-21): the MedMNIST
+    ResNet for the chest X-ray, the SVHN conv encoder for the digit."""
+    return [medmnist_encoder(outdim, 1), EncoderSVHN(latent_dim=outdim)]
+
+
 def _later(dataset: str):
     def build(outdim: int):
         raise NotImplementedError(f"DCCA trunks for {dataset!r} not yet ported")
@@ -88,9 +107,9 @@ def _later(dataset: str):
 DCCA_BUILDERS = {
     "mnist_svhn": (dcca_encoders_mnist_svhn, 16),
     "circles_squares": (dcca_encoders_circles, 16),
-    "celeba": (_later("celeba"), 40),
-    "medmnist": (_later("medmnist"), 16),
-    "chest_svhn": (_later("chest_svhn"), 16),
+    "celeba": (dcca_encoders_celeba, 40),
+    "medmnist": (dcca_encoders_medmnist, 16),
+    "chest_svhn": (dcca_encoders_chest_svhn, 16),
     "mnist_contour": (dcca_encoders_mnist_contour, 15),
     "mnist_svhn_fashion": (_later("mnist_svhn_fashion"), 16),
 }

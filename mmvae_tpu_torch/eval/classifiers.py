@@ -1,8 +1,10 @@
 """Evaluation classifiers (mmvae_tpu/eval/classifiers.py; reference
-analysis/classifiers/*): the MNIST classifier (also used for Fashion) and
-the SVHN classifier, valid-padding 4x4 convs with BatchNorm and dropout MLP
-heads, the circles-squares classifier (an MLP), their training loop and
-the classifier pool's files.
+analysis/classifiers/*): the MNIST classifier (also used for Fashion and
+MedMNIST's pneumonia) and the SVHN classifier (also MedMNIST's blood, at
+3x28x28), valid-padding 4x4 convs with BatchNorm and dropout MLP heads,
+the circles-squares classifier (an MLP), CelebA's image and attribute
+classifiers (40 logits each), their training loop and the classifier
+pool's files.
 
 Submodule names follow the JAX tree (`Conv2d_0`, `BatchNorm2d_0`,
 `BatchNorm_0`, `Linear_0`, ...), so that bridge.py maps a JAX classifier's
@@ -97,18 +99,56 @@ class CirclesClassifier(nn.Module):
         return self.Linear_1(h)
 
 
-def _not_yet_ported(key: str):
-    def build(**_):
-        raise NotImplementedError(f"the {key!r} eval classifier is not yet ported")
-    return build
+class CelebAImgClassifier(nn.Module):
+    """Three strided 4x4 convs (BatchNorm, ReLU), a spatial mean, then 40
+    logits: the JAX package's stand-in for the reference's finetuned ResNet
+    (CelebA_classifier.py:16-47)."""
+
+    def __init__(self, num_attrs: int = 40, in_shape: Sequence[int] = (3, 64, 64)):
+        super().__init__()
+        c = in_shape[0]
+        self.Conv2d_0, self.BatchNorm2d_0 = Conv2d(c, 32, 4, 2, padding=1), BatchNorm2d(32)
+        self.Conv2d_1, self.BatchNorm2d_1 = Conv2d(32, 64, 4, 2, padding=1), BatchNorm2d(64)
+        self.Conv2d_2, self.BatchNorm2d_2 = Conv2d(64, 128, 4, 2, padding=1), BatchNorm2d(128)
+        self.Linear_0 = Linear(128, num_attrs)
+
+    def forward(self, x, features: bool = False, generator=None):
+        h = torch.relu(self.BatchNorm2d_0(self.Conv2d_0(x)))
+        h = torch.relu(self.BatchNorm2d_1(self.Conv2d_1(h)))
+        h = torch.relu(self.BatchNorm2d_2(self.Conv2d_2(h)))
+        h = h.mean(dim=(2, 3))
+        if features:
+            return h
+        return self.Linear_0(h)
 
 
+class AttributesClassifier(nn.Module):
+    """CelebA's attribute-vector classifier: flatten, Linear 512, ReLU, then
+    `num_attrs` logits (CelebA_classifier.py's attribute MLP)."""
+
+    def __init__(self, num_attrs: int = 40, in_shape: Sequence[int] = (1, 1, 40)):
+        super().__init__()
+        self.Linear_0 = Linear(int(np.prod(in_shape)), 512)
+        self.Linear_1 = Linear(512, num_attrs)
+
+    def forward(self, x, features: bool = False, generator=None):
+        h = torch.relu(self.Linear_0(x.reshape(x.shape[0], -1)))
+        if features:
+            return h
+        return self.Linear_1(h)
+
+
+# the pool's key of each modality's classifier; the medmnist classifiers are
+# the MNIST and SVHN architectures, blood's at its 3x28x28
 ARCHS = {
     "mnist": MnistClassifier,
     "fashion": MnistClassifier,
     "svhn": SVHNClassifier,
     "empty_full": CirclesClassifier,
-    **{k: _not_yet_ported(k) for k in ("pneumonia", "blood", "celeba_img", "celeba_attr")},
+    "pneumonia": MnistClassifier,
+    "blood": SVHNClassifier,
+    "celeba_img": CelebAImgClassifier,
+    "celeba_attr": AttributesClassifier,
 }
 
 

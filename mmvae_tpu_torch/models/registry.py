@@ -1,9 +1,10 @@
 """Model registry: config -> built model + spec + dataset wiring
 (mmvae_tpu/models/registry.py). Ported: the MNIST-SVHN models (MMVAE,
 MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE), circles-squares' MMVAE and
-JMVAE-NF(-DCCA), MNIST-Fashion's MMVAE and JMVAE-NF, and MNIST-Contour's
-JMVAE-NF; every other model name of the JAX registry raises
-NotImplementedError.
+JMVAE-NF(-DCCA), MNIST-Fashion's MMVAE and JMVAE-NF, MNIST-Contour's
+JMVAE-NF, MedMNIST's MMVAE, JMVAE-NF(-DCCA) and MVAE, chest-SVHN's
+JMVAE-NF, and CelebA's MMVAE, MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE;
+the MNIST-SVHN-Fashion models raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,13 +19,15 @@ from torch import nn
 
 from ..core.config import ExperimentConfig
 from ..dcca.nets import (
-    LCCAWrappedEncoder, dcca_encoders_circles, dcca_encoders_mnist_svhn, identity_lcca,
+    LCCAWrappedEncoder, dcca_encoders_celeba, dcca_encoders_circles, dcca_encoders_medmnist,
+    dcca_encoders_mnist_svhn, identity_lcca,
 )
 from ..flows import IAF, MAF
 from ..nets import (
     DecoderMNIST, DecoderSVHN, DoubleHeadJoint, DoubleHeadMLP, EncoderMNIST, EncoderSVHN,
     MLPDecoder, MLPEncoder, TwoStepsEncoder,
 )
+from ..nets.resnets import celeba_decoder, celeba_encoder, medmnist_decoder, medmnist_encoder
 from ..objectives import ModelSpec
 from .jmvae_nf import JMVAE_NF
 from .mmvae import MMVAE
@@ -312,6 +315,168 @@ def jnf_mnist_contour(cfg: ExperimentConfig) -> ModelBundle:
                        shape_mods=((1, 28, 28), (1, 28, 28)), classifier_keys=("mnist", "mnist"))
 
 
+# ---------------------------------------------------------------------------
+# MedMNIST (pneumonia <-> blood), chest-X-ray <-> SVHN, CelebA: ResNet nets
+# ---------------------------------------------------------------------------
+
+_MEDMNIST = dict(shape_mods=((1, 28, 28), (3, 28, 28)), classifier_keys=("pneumonia", "blood"))
+
+
+def _medmnist_vaes(cfg, posterior=None, with_flow=False, encoders=None):
+    """MedMNIST ResNet VAEs for pneumonia (1x28x28) and blood (3x28x28);
+    `encoders` replaces the ResNet encoders (DCCA's TwoStepsEncoders)."""
+    if encoders is None:
+        encoders = [medmnist_encoder(cfg.latent_dim, 1), medmnist_encoder(cfg.latent_dim, 3)]
+    return [_vae(cfg, enc, medmnist_decoder(cfg.latent_dim, c), name, posterior=posterior,
+                 with_flow=with_flow)
+            for enc, c, name in zip(encoders, (1, 3), ("pneumonia", "blood"))]
+
+
+def _medmnist_scaling(cfg) -> Tuple[float, float]:
+    """modalities/medmnist.py:31: (3, 1) at llik_scaling 0, else (1, 1). It
+    holds for MMVAE and MVAE only: JMVAE-NF's constructor runs after it and
+    sets (1, 1) (jmvae_nf.py:29, jmvae_nf/medmnist.py:37-40)."""
+    return (3.0, 1.0) if cfg.llik_scaling == 0 else (1.0, 1.0)
+
+
+def _medmnist_spec(cfg, posterior) -> ModelSpec:
+    return ModelSpec(latent_dim=cfg.latent_dim, posterior=posterior,
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=_medmnist_scaling(cfg))
+
+
+def mmvae_medmnist(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on MedMNIST (mmvae/medmnist.py): ResNet VAEs."""
+    return ModelBundle(MMVAE(_medmnist_vaes(cfg), posterior=cfg.dist),
+                       _medmnist_spec(cfg, cfg.dist), "medmnist", "mmvae_medmnist", **_MEDMNIST)
+
+
+def _jnf_dcca_encoders(cfg, builders, dataset: str, dim_first: int):
+    """JMVAE-NF-DCCA's DCCA trunks (from the dataset's artifact where there
+    is one) and the unimodal TwoStepsEncoders on them."""
+    dcca = _dcca_pair(cfg, builders, dim_first, _load_dcca_artifacts(cfg, dataset))
+    return dcca, [TwoStepsEncoder(d, latent_dim=cfg.latent_dim, in_features=cfg.dim_dcca)
+                  for d in dcca]
+
+
+def jnf_medmnist(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF(-DCCA) on MedMNIST (jmvae_nf/medmnist.py): a joint encoder
+    on two 20-wide ResNet heads; with `dcca`, the ResNet DCCA trunks under
+    TwoStepsEncoders (modalities/medmnist.py:48-56). Likelihood scaling
+    (1, 1), as `_medmnist_scaling` says."""
+    joint = DoubleHeadJoint([medmnist_encoder(20, 1), medmnist_encoder(20, 3)],
+                            latent_dim=cfg.latent_dim, hidden_dim=512, in_features=20 + 20,
+                            num_hidden_layers=cfg.num_hidden_layers)
+    dcca, encoders = (_jnf_dcca_encoders(cfg, dcca_encoders_medmnist, "medmnist", 16)
+                      if cfg.dcca else (None, None))
+    model = JMVAE_NF(joint, _medmnist_vaes(cfg, "normal", True, encoders), posterior=cfg.dist,
+                     dcca_encoders=dcca)
+    return ModelBundle(model, _jnf_spec(cfg), "medmnist", "jmvae_nf_medmnist", **_MEDMNIST)
+
+
+def mvae_medmnist(cfg: ExperimentConfig) -> ModelBundle:
+    """MVAE on MedMNIST (mvae/medmnist.py): ResNet VAEs, normal posteriors."""
+    model = MVAE(_medmnist_vaes(cfg, "normal"), lik_scaling=_medmnist_scaling(cfg))
+    return ModelBundle(model, _medmnist_spec(cfg, "normal"), "medmnist", "mvae_medmnist",
+                       **_MEDMNIST)
+
+
+def jnf_chest_svhn(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF on chest-X-ray <-> SVHN (jmvae_nf/chest_svhn.py): the
+    MedMNIST ResNet for the X-ray, the SVHN conv nets for the digit. The
+    utilities' scaling (3*32*32/(28*28), 1) is overwritten by JMVAE-NF's
+    constructor to (1, 1) (chest_svhn.py:41-44), as executed here."""
+    joint = DoubleHeadJoint([medmnist_encoder(20, 1), EncoderSVHN(latent_dim=20)],
+                            latent_dim=cfg.latent_dim, hidden_dim=512, in_features=20 + 20,
+                            num_hidden_layers=cfg.num_hidden_layers)
+    vaes = [
+        _vae(cfg, medmnist_encoder(cfg.latent_dim, 1), medmnist_decoder(cfg.latent_dim, 1),
+             "chest", posterior="normal", with_flow=True),
+        _vae(cfg, EncoderSVHN(latent_dim=cfg.latent_dim), DecoderSVHN(latent_dim=cfg.latent_dim),
+             "svhn", posterior="normal", with_flow=True),
+    ]
+    return ModelBundle(JMVAE_NF(joint, vaes, posterior=cfg.dist), _jnf_spec(cfg), "chest_svhn",
+                       "jmvae_nf_chest_svhn", shape_mods=((1, 28, 28), (3, 32, 32)),
+                       classifier_keys=("pneumonia", "svhn"))
+
+
+_CELEBA = dict(shape_mods=((3, 64, 64), (1, 1, 40)), classifier_keys=("celeba_img", "celeba_attr"))
+_CELEBA_R = (3 * 64 * 64) / 40.0  # the image's size over the attribute vector's
+
+
+def _celeba_vaes(cfg, posterior=None, with_flow=False, encoders=None):
+    """The image's ResNet VAE (jmvae_nf/celeba.py:23, pythae's nets) and the
+    attributes' MLP VAE over the 1x1x40 tensor (datasets.py:419);
+    `encoders` replaces both encoders (DCCA's TwoStepsEncoders)."""
+    if encoders is None:
+        encoders = [celeba_encoder(cfg.latent_dim),
+                    MLPEncoder(latent_dim=cfg.latent_dim, in_features=40)]
+    return [
+        _vae(cfg, encoders[0], celeba_decoder(cfg.latent_dim), "celeb", posterior=posterior,
+             with_flow=with_flow),
+        _vae(cfg, encoders[1], MLPDecoder(latent_dim=cfg.latent_dim, output_shape=(1, 1, 40)),
+             "attributes", posterior=posterior, with_flow=with_flow),
+    ]
+
+
+def _celeba_spec(cfg, posterior, lik_scaling, **kw) -> ModelSpec:
+    return ModelSpec(latent_dim=cfg.latent_dim, posterior=posterior,
+                     recon_dists=tuple(cfg.recon_losses), lik_scaling=lik_scaling, **kw)
+
+
+def mmvae_celeba(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on CelebA (mmvae_celeba.py:60): at llik_scaling 0 the
+    ATTRIBUTES' reconstruction is weighted up, (1, image/attributes)."""
+    ls = (1.0, _CELEBA_R) if cfg.llik_scaling == 0 else (cfg.llik_scaling, 1.0)
+    return ModelBundle(MMVAE(_celeba_vaes(cfg), posterior=cfg.dist),
+                       _celeba_spec(cfg, cfg.dist, ls), "celeba", "mmvae_celeba", **_CELEBA)
+
+
+def jnf_celeba(cfg: ExperimentConfig) -> ModelBundle:
+    """JMVAE-NF(-DCCA) on CelebA (jmvae_nf/celeba.py:62-101): a joint
+    encoder of hidden width 1024 on a 128-wide ResNet image head and a
+    40-wide MLP attribute head; with `dcca`, the DCCA trunks (ResNet image,
+    MLP attributes, LCCA latent 40) under TwoStepsEncoders. Scaling
+    (attributes/image, 1) at llik_scaling 0."""
+    joint = DoubleHeadJoint([celeba_encoder(128), MLPEncoder(latent_dim=40, in_features=40)],
+                            latent_dim=cfg.latent_dim, hidden_dim=1024, in_features=128 + 40,
+                            num_hidden_layers=cfg.num_hidden_layers)
+    dcca, encoders = (_jnf_dcca_encoders(cfg, dcca_encoders_celeba, "celeba", 40)
+                      if cfg.dcca else (None, None))
+    model = JMVAE_NF(joint, _celeba_vaes(cfg, "normal", True, encoders), posterior=cfg.dist,
+                     dcca_encoders=dcca)
+    ls = (1.0 / _CELEBA_R, 1.0) if cfg.llik_scaling == 0 else (cfg.llik_scaling, 1.0)
+    spec = _celeba_spec(cfg, cfg.dist, ls, no_recon=cfg.no_recon,
+                        linear_warmup=cfg.linear_warmup)
+    return ModelBundle(model, spec, "celeba", "jmvae_nf_celeba", **_CELEBA)
+
+
+def mvae_celeba(cfg: ExperimentConfig) -> ModelBundle:
+    """MVAE on CelebA (mvae/celeba.py:47): (1, 50) at llik_scaling 0, the
+    paper's setting, else (1, llik_scaling)."""
+    ls = (1.0, 50.0) if cfg.llik_scaling == 0 else (1.0, cfg.llik_scaling)
+    return ModelBundle(MVAE(_celeba_vaes(cfg, "normal"), lik_scaling=ls),
+                       _celeba_spec(cfg, "normal", ls), "celeba", "mvae_celeba", **_CELEBA)
+
+
+def moepoe_celeba(cfg: ExperimentConfig) -> ModelBundle:
+    """MoE-PoE on CelebA (moepoe/celeba.py:60): (attributes/image, 1) at
+    llik_scaling 0, else (1, llik_scaling); the KL weight is beta_kl."""
+    ls = (1.0 / _CELEBA_R, 1.0) if cfg.llik_scaling == 0 else (1.0, cfg.llik_scaling)
+    model = MOEPOE(_celeba_vaes(cfg, "normal"), lik_scaling=ls,
+                   recon_dists=tuple(cfg.recon_losses), beta_kl=cfg.beta_kl)
+    return ModelBundle(model, _celeba_spec(cfg, "normal", ls), "celeba", "moepoe_celeba",
+                       **_CELEBA)
+
+
+def mmvae_nf_celeba(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE-NF on CelebA (mmvae_nf/celeba.py:59): flow VAEs, normal
+    posteriors, (1, image/attributes) at llik_scaling 0, else
+    (1, llik_scaling)."""
+    ls = (1.0, _CELEBA_R) if cfg.llik_scaling == 0 else (1.0, cfg.llik_scaling)
+    return ModelBundle(MMVAE_NF(_celeba_vaes(cfg, "normal", True)),
+                       _celeba_spec(cfg, "normal", ls), "celeba", "mmvae_nf_celeba", **_CELEBA)
+
+
 REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
     "mnist_svhn": mnist_svhn,
     "circles_squares": circles_squares,
@@ -323,6 +488,15 @@ REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
     "jnf_mnist_svhn_dcca": jnf_mnist_svhn_dcca,
     "mvae_mnist_svhn": mvae_mnist_svhn,
     "moepoe_mnist_svhn": moepoe_mnist_svhn,
+    "mmvae_medmnist": mmvae_medmnist,
+    "jnf_medmnist": jnf_medmnist,
+    "mvae_medmnist": mvae_medmnist,
+    "jnf_chest_svhn": jnf_chest_svhn,
+    "mmvae_celeba": mmvae_celeba,
+    "jnf_celeba": jnf_celeba,
+    "mvae_celeba": mvae_celeba,
+    "moepoe_celeba": moepoe_celeba,
+    "mmvae_nf_celeba": mmvae_nf_celeba,
 }
 
 

@@ -57,17 +57,21 @@ def _builds(path):
 
 
 def test_census_of_every_config():
-    """65 of the repo's 96 configs pass the check, build and resolve: the 56
-    MNIST-SVHN ones, the 4 of ms_small, medmnist's mmvae_nf.json and
-    moepoe.json, which name MNIST-SVHN builders, and the 3 of circles. The
-    rest name a model of a dataset the port does not have yet, and are
-    refused by that model's name."""
+    """85 of the repo's 96 configs pass the check, build and resolve: the 56
+    MNIST-SVHN ones, the 4 of ms_small, the 3 of circles, the 9 of MedMNIST
+    (mmvae_nf.json and moepoe.json name MNIST-SVHN builders), the 2 of
+    chest-SVHN and the 11 of CelebA. The 11 of configs/msf/ name a model of
+    MNIST-SVHN-Fashion, which the port does not have yet, and are refused by
+    that model's name."""
     every = sorted(glob.glob("configs/**/*.json", recursive=True))
     built = [p for p in every if _builds(p)]
     assert len(every) == 96
-    assert len(built) == 65, sorted(set(every) - set(built))
-    assert {p for p in every if p.startswith("configs/circles/")} <= set(built)
-    for p in sorted(set(every) - set(built)):
+    assert len(built) == 85, sorted(set(every) - set(built))
+    refused = sorted(set(every) - set(built))
+    assert refused == sorted(glob.glob("configs/msf/*.json")) and len(refused) == 11
+    for ds in ("circles", "medmnist", "chest_svhn", "celeba"):
+        assert {p for p in every if p.startswith(f"configs/{ds}/")} <= set(built), ds
+    for p in refused:
         cfg = ExperimentConfig.from_json(p)
         with pytest.raises(NotImplementedError, match=f"model {cfg.model!r} not yet ported"):
             registry.build(cfg)

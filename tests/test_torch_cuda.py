@@ -203,9 +203,13 @@ def test_kernel_refuses_what_it_cannot_take(card):
     wide_ws, wide_bs = _weights(card, h=256)  # the kernels take hidden layers of 128 only
     with pytest.raises(ValueError, match="width 128"):
         ar_flow.kernel_forward(x, wide_ws, wide_bs, 1)
-    big_ws, big_bs = _weights(card, d=128)  # a 128x256 head overflows shared memory
+    # six hidden layers: the five staged 128x128 ones (5 x 66 KB) overflow shared memory
+    deep_ws, deep_bs = _weights(card, n_hidden=6)
     with pytest.raises(ValueError, match="shared memory"):
-        ar_flow.kernel_forward(torch.randn(16, 128, device=card), big_ws, big_bs, 1)
+        ar_flow.kernel_forward(x, deep_ws, deep_bs, 1)
+    tape = ar_flow.new_tape(x, deep_ws)
+    with pytest.raises(ValueError, match="shared memory"):
+        ar_flow.kernel_backward(x, x, x, x[:, 0].contiguous(), tape, deep_ws, 1)
     with pytest.raises(ValueError, match="CUDA"):
         ar_flow.kernel_forward(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs], 1)
 
@@ -859,3 +863,31 @@ def test_jnf_mnist_fashion_step_on_card(card):
     assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
     moved = [n for n, b in bundle.model.named_buffers() if n in stats and not torch.equal(b, stats[n])]
     assert any("vaes.0.encoder" in n for n in moved) and any("decoder" in n for n in moved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 43, 64])  # MedMNIST's latent; the old limit + 1; CelebA's
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_kernels_at_latent_16_43_64(card, d, sign, s_bound):
+    """Both kernels at the widths the first layer and head no longer stage
+    (MADE widths [D, 128, 128, 128, 2D]; staging them as well, D = 43 and
+    up would overflow shared memory): the forward against `unrolled_solve`, the
+    backward with the reduction against autograd through it, for x, every
+    weight and every bias, at a full tile, a ragged one and CelebA
+    MMVAE-NF's K*B rows (N = 128, 37, 7,680)."""
+    ws, bs = _weights(card, seed=24, d=d)
+    gen = torch.Generator().manual_seed(25)
+    for n in (128, 37, 7_680):
+        x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                      for shape in ((n, d), (n, d), (n,)))
+        tape = ar_flow.new_tape(x, ws)
+        y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+        gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+        gws, gbs = ar_flow.reduce_grads(tape, deltas)
+        inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+        outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
+                                      sign, s_bound)
+        want = torch.autograd.grad(outs, inputs, (gy, gld))
+        for got, ref in zip([y, ld, gx, *gws, *gbs], [*outs, *want]):
+            torch.testing.assert_close(got, ref.detach(), **TOL)

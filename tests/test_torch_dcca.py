@@ -281,12 +281,22 @@ def test_jax_artifact_is_refused_then_converted(solvers, tmp_path):
 
 
 def test_other_datasets_wait_for_slice_6():
-    """The trunks of the datasets not yet ported are refused by the
-    dataset's name."""
-    for dataset in ("celeba", "medmnist", "chest_svhn", "mnist_svhn_fashion"):
+    """MNIST-SVHN-Fashion's trunks are refused by the dataset's name; those
+    of MedMNIST, chest-SVHN and CelebA build at their default widths, each
+    trunk giving the outdim-wide embedding of its modality."""
+    builder, outdim = DCCA_BUILDERS["mnist_svhn_fashion"]
+    with pytest.raises(NotImplementedError,
+                       match="DCCA trunks for 'mnist_svhn_fashion' not yet"):
+        builder(outdim)
+    shapes = {"medmnist": ((1, 28, 28), (3, 28, 28)), "chest_svhn": ((1, 28, 28), (3, 32, 32)),
+              "celeba": ((3, 64, 64), (1, 1, 40))}
+    for dataset, mods in shapes.items():
         builder, outdim = DCCA_BUILDERS[dataset]
-        with pytest.raises(NotImplementedError, match=f"DCCA trunks for '{dataset}' not yet"):
-            builder(outdim)
+        assert outdim == (40 if dataset == "celeba" else 16)
+        with torch.no_grad():
+            for trunk, shape in zip(builder(outdim), mods):
+                out = trunk(torch.zeros((2,) + shape))
+                assert (out[0] if isinstance(out, tuple) else out).shape == (2, outdim)
 
 
 def test_dcca_cli_cpu(solvers, tmp_path, capsys):

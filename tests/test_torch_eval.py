@@ -354,12 +354,13 @@ def test_cross_modal_fid_matches_jax(jax_models, monkeypatch):
 
 def test_unported_eval_options_raise():
     """What evaluation still refuses: the InceptionV3 network (its weights
-    are not in the repository) and CelebA's attribute accuracies. PRD and
-    the fitted samplers are ported (tests/test_torch_gen.py)."""
+    are not in the repository). PRD and the fitted samplers are ported
+    (tests/test_torch_gen.py), and so are CelebA's attribute accuracies
+    (tests/test_torch_celeba.py): all 40 bits of equal attributes agree."""
     with pytest.raises(NotImplementedError, match="weights"):
         F.make_inception_fn()
-    with pytest.raises(NotImplementedError, match="CelebA"):
-        C.attribute_accuracies(None, None, None)
+    attrs = (np.arange(80).reshape(2, 40) % 3 == 0).astype(np.float32)
+    assert C.attribute_accuracies(None, torch.tensor(attrs).reshape(2, 1, 1, 40), attrs) == 1.0
 
 
 # ---------------------------------------------------------------------------

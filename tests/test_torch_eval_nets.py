@@ -114,12 +114,18 @@ def test_classifier_matches_jax(key):
 
 
 def test_unported_classifiers_raise():
-    """The classifiers of the datasets not yet ported are refused by name;
-    the circles-squares one (empty_full) builds."""
-    for key in ("pneumonia", "blood", "celeba_img", "celeba_attr"):
-        with pytest.raises(NotImplementedError, match=f"the '{key}' eval classifier is not yet"):
-            Cl.ARCHS[key]()
+    """Every classifier of the pool builds now, the circles-squares one
+    (empty_full) and MedMNIST's and CelebA's among them: pneumonia is the
+    MNIST classifier, blood the SVHN one at 3x28x28 (Linear_0 128*19*19
+    wide), celeba_img and celeba_attr give 40 logits."""
     assert isinstance(Cl.ARCHS["empty_full"](), Cl.CirclesClassifier)
+    assert isinstance(Cl.ARCHS["pneumonia"](), Cl.MnistClassifier)
+    blood = Cl.ARCHS["blood"](in_shape=(3, 28, 28))
+    assert isinstance(blood, Cl.SVHNClassifier) and blood.Linear_0.weight.shape[1] == 128 * 19 * 19
+    for key, shape in (("celeba_img", (3, 64, 64)), ("celeba_attr", (1, 1, 40))):
+        model = Cl.ARCHS[key](in_shape=shape).eval()
+        with torch.no_grad():
+            assert model(torch.zeros((2,) + shape)).shape == (2, 40)
 
 
 def test_train_classifier_matches_jax(monkeypatch):

@@ -114,14 +114,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rows of an IS call trade between memory and time, and ten small test
    batches in one likelihood call against one call each.
 21. gen_slice: the ms_small augmentation experiment through the CLIs on
-   cuda at full width and the published data (synthetic_n 20,000,
-   len_train 10,000): `jnf_synth.json` (2 epochs, warmup 2; published
-   200/100) publishes the joint-encoder pool; `generate_joint --n 9000`
-   fits a 10-component mixture by EM on the 8,960 train latents and
-   decodes 9,000 samples; `jnf_gen_synth.json` (1 epoch) appends them
-   (use_gen); `validate --prd` on it; `plot_results` in its three modes;
-   a `use_pretrain` resume (1 epoch). Checks the printed count, the train
-   pairs (9,000, then 18,000), the joint encoder and decoders bit-unchanged,
+   cuda at full width and half the published data (synthetic_n 10,000,
+   len_train 5,000; published 20,000 and 10,000): `jnf_synth.json` (2
+   epochs, warmup 2; published 200/100) publishes the joint-encoder pool;
+   `generate_joint --n 4500` fits a 10-component mixture by EM on the
+   4,480 train latents and decodes 4,500 samples; `jnf_gen_synth.json` (1
+   epoch) appends them (use_gen); `validate --prd` on it; `plot_results`
+   in its three modes; a `use_pretrain` resume (1 epoch). Checks the
+   printed count, the train pairs (4,500, then 9,000), the joint encoder
+   and decoders bit-unchanged,
    finite losses and no skipped step, PRD in [0, 1], valid PNGs, the
    resume's args and starting parameters, and each path's ar_solve launches
    as predicted (phase_gen_slice); then stage 2's steady step and the
@@ -162,9 +163,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    above, validate with the attribute metrics and one likelihood batch of
    100 rows; mmvae_nf.json's steady step at K=30, B=256 (the solve at
    7,680 rows); mvae.json and moepoe.json 1 epoch each.
-28. resnet_parity: a post-warmup JMVAE-NF step of MedMNIST and of CelebA
+28. resnet_parity: a post-warmup JMVAE-NF step of MedMNIST and of CelebA at B=32
    on cuda in float32 against the float64 CPU step.
-29. The kernels line, and last the contract line
+29. ar_solve_latent30: both kernels at D = 30, the trimodal JMVAE-NF-DCCA
+   and TELBO-NF latent: the forward at N = 256, 500 and 10,000, the
+   backward at N = 256, checked, timed and bounded as at D = 16 and 64
+   (it runs after phase 3's kernel phases).
+30. msf_slice: trimodal MNIST-SVHN-Fashion through the CLIs at the
+   loader's default scale (17,874 train triples): jmvae_nf.json 2 epochs
+   with warmup 2 and its 3x3 analytics grids (6 forward launches per
+   unimodal pass over the three flows: epoch 1 its grids' 6, epoch 2 6 per
+   train step and val batch, 6 backward per train step), its steady step,
+   validate --mcmc-steps 100 (HMC over each 2-subset's product of experts,
+   whose start launches 12), one likelihood batch of 500 (1,200 launches,
+   cond_lw_subset_m); dcca_train on the three views and jmvae_nf_dcca.json
+   (latent 30) on its artifact, with validate and a likelihood batch;
+   telbo_nf.json (latent 30) one epoch past warmup (both kernels at D = 30
+   under autograd); mmvae.json and mvae.json 5 steps and validate, no
+   launch (phase_msf_slice).
+31. msf_parity: a post-warmup trimodal JMVAE-NF step on cuda in float32
+   against the float64 CPU step on the card's ReLU branches.
+32. The kernels line, and last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1688,7 +1707,7 @@ def phase_eval_likelihoods(tmp, runs):
         return L.protocol_chunked(bundle.model, bundle.spec, [xs], [generator("cuda", 0)],
                                   EVAL_K, EVAL_BK, joint_fn=L.joint_likelihood_jmvae_nf, bis=True)
 
-    protocol()
+    # warm: the CLI's JMVAE-NF run above ran the same protocol
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     protocol()
@@ -1921,9 +1940,12 @@ def phase_eval_parity(tmp, runs):
 
 GEN_STAGE1 = os.path.join(ROOT, "configs", "ms_small", "jnf_synth.json")
 GEN_STAGE2 = os.path.join(ROOT, "configs", "ms_small", "jnf_gen_synth.json")
-GEN_N = 9000
-GEN_SYNTHETIC_N = 20_000  # as published
-GEN_TRAIN_PAIRS = 9000  # len_train 10,000 less the 1,000-pair val split
+# half the published data (synthetic_n 20,000, len_train 10,000), so that
+# the smoke keeps its time budget beside the trimodal phases
+GEN_N = 4500
+GEN_SYNTHETIC_N = 10_000
+GEN_LEN_TRAIN = 5_000
+GEN_TRAIN_PAIRS = 4500  # len_train 5,000 less the 500-pair val split
 # published 200/100 epochs: cut to one warmup epoch and one after it
 # (past_warmup is epoch >= warmup, so warmup 2 leaves epoch 1 in warmup)
 GEN_RUN1 = dict(epochs=2, warmup=2)
@@ -1986,16 +2008,16 @@ def _train_count(lines):
 def phase_gen_slice(tmp, jnf_run):
     """The ms_small augmentation experiment through the port's CLIs on cuda,
     at full width (B=128, latent 20, MLP 512, SVHN f_base 32, 2 MAF blocks
-    of 3x128 per modality) and the published data (synthetic_n 20,000,
-    len_train 10,000: 9,000 train pairs after the 1,000-pair val split):
+    of 3x128 per modality) and half the published data (synthetic_n 10,000,
+    len_train 5,000: 4,500 train pairs after the 500-pair val split):
 
     1. train `jnf_synth.json` (epochs 2, warmup 2), which publishes the
        joint-encoder pool (save_joint);
-    2. `generate_joint --n 9000`: the joint encoder's means of the train
-       batches (70 of 128: 8,960 latents), a 10-component mixture by EM,
-       9,000 samples decoded, their joint coherence;
+    2. `generate_joint --n 4500`: the joint encoder's means of the train
+       batches (35 of 128: 4,480 latents), a 10-component mixture by EM,
+       4,500 samples decoded, their joint coherence;
     3. train `jnf_gen_synth.json` (one epoch): skip_warmup reloads the pool,
-       use_gen appends the 9,000 generated pairs;
+       use_gen appends the 4,500 generated pairs;
     4. `validate --fid-encoder classifier --prd --repeats 1` on stage 2;
     5. `plot_results` in its three modes (its acc_0_1 figure beside the
        validated JMVAE-NF run `jnf_run`);
@@ -2023,7 +2045,7 @@ def phase_gen_slice(tmp, jnf_run):
 
     exp = os.path.join(tmp, "experiments")
     common = ["--experiments-dir", exp, "--device", "cuda"]
-    data = dict(analytics=True, synthetic_n=GEN_SYNTHETIC_N)
+    data = dict(analytics=True, synthetic_n=GEN_SYNTHETIC_N, len_train=GEN_LEN_TRAIN)
     t_phase = time.perf_counter()
 
     cfg1_path, _ = _slice_config(tmp, GEN_STAGE1, **data, **GEN_RUN1)
@@ -2366,19 +2388,20 @@ def _run_pngs(run, names):
     return {n: _png_ok(os.path.join(run, n)) for n in names if n.endswith(".png")}
 
 
-def _validate_counted(run, exp, expected, keys):
-    """validate --repeats 1 --fid-encoder classifier on cuda: its metrics,
-    launches (checked against `expected`) and times."""
+def _validate_counted(run, exp, expected, keys, extra=()):
+    """validate --repeats 1 --fid-encoder classifier on cuda (and `extra`
+    arguments): its metrics, launches (checked against `expected`) and
+    times."""
     from mmvae_tpu_torch.cli import validate
 
     summary, lines, launches, wall = _counted(validate.main, [
         "--run-path", run, "--experiments-dir", exp, "--repeats", "1",
-        "--fid-encoder", "classifier", "--device", "cuda"])
+        "--fid-encoder", "classifier", "--device", "cuda", *extra])
     marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines if l.startswith("[")}
     values = {k: v["mean"] for k, v in summary.items()}
     ok = (launches == expected and sorted(values) == keys
           and all(0.0 <= v <= 1.0 for k, v in values.items()
-                  if k.startswith("acc") or k == "joint_coherence")
+                  if k.startswith(("acc", "cond_acc", "hmc_acc")) or k == "joint_coherence")
           and all(math.isfinite(v) for v in values.values()))
     return ok, dict(metrics=values, launches=list(launches), expected_launches=list(expected),
                     validate_s=wall, marks=marks)
@@ -2723,6 +2746,9 @@ CELEBA_VALIDATE_KEYS = sorted(["accuracy1", "accuracy2", "fid_0", "fid_1", "join
 # steps), MMVAE and MVAE "a few steps" at an eighth (762 pairs, 5 steps)
 MEDMNIST_JNF_RUN = dict(JNF_RUN, synthetic_n=1024)
 MEDMNIST_FEW_STEPS = dict(synthetic_n=256)
+# the ResNet parity steps at B=32, not the configs' 128: their float64 CPU
+# steps, not the check, took the time
+RESNET_PARITY_B = dict(batch_size=32)
 # CelebA's likelihood batch: 100 test rows at K=1000 (its 64x64 decoder
 # makes 500 rows cost several times MNIST-SVHN's batch)
 CELEBA_LL_ROWS = 100
@@ -2733,6 +2759,11 @@ LATENT64_BWD_ROWS = (128, 256, 7_680)
 LATENT64_ROWS = LATENT64_BWD_ROWS + (EVAL_IS_ROWS,)
 # the backward is timed at a train step's rows and at MMVAE-NF's
 LATENT64_BWD_TIME_ROWS = (128, 7_680)
+# the kernels at the trimodal latent 30: TELBO-NF's train step at B=256
+# (forward and backward) and HMC's start (32 x 8 rows), a validate batch
+# and an IS call (forward only)
+LATENT30_BWD_ROWS = (256,)
+LATENT30_ROWS = (256, 500, EVAL_IS_ROWS)
 
 
 def _kernel_branches(tape):
@@ -2750,28 +2781,49 @@ def phase_ar_solve_latent64():
     256, 7,680 and 10,000, the backward with the reduction against autograd
     through it at N = 128, 256 and 7,680, both signs, s_bound 0 and 8; then
     the forward's device time at each N and the backward's at N = 128 and
-    7,680, beside their plain versions and their bounds (D - 1 per-row
-    passes, `solve_flops`, `vjp_flops`). The backward's reference takes the
-    forward kernel's hidden ReLU branches (`_ReluBranches` replaying
-    `_kernel_branches`), each one off its own branch within RELU_KINK_ATOL
-    of 0: over 7,680 rows the solve evaluates millions of hidden ReLUs, and
-    one whose pre-activation lies within float32 round-off of 0 may take
-    the other branch in either version, a jump in its row's gradient. Where
-    no branch differs, that reference is autograd through `unrolled_solve`
-    as it is; the error against it on its own branches stands beside."""
+    7,680, beside their plain versions and their bounds (`_ar_solve_at`)."""
+    rows = (LATENT64_ROWS, LATENT64_BWD_ROWS, LATENT64_BWD_TIME_ROWS)
+    return _ar_solve_at({16: rows, 64: rows})
+
+
+def phase_ar_solve_latent30():
+    """Both kernels at D = 30, the latent of the trimodal JMVAE-NF-DCCA and
+    TELBO-NF configs (MADE widths [30, 128, 128, 128, 60]), at the rows the
+    MNIST-SVHN-Fashion paths give them: the forward at N = 256 (a TELBO-NF
+    train step at B = 256, and HMC's start, 32 test rows x 8 chains), 500
+    (a validate batch) and 10,000 (an IS call), the backward at N = 256;
+    checks, times and bounds as `_ar_solve_at`."""
+    return _ar_solve_at({30: (LATENT30_ROWS, LATENT30_BWD_ROWS, LATENT30_BWD_ROWS)})
+
+
+def _ar_solve_at(widths):
+    """Both kernels at each D of `widths`, {D: (forward rows, backward rows,
+    backward timed rows)}: the forward against `unrolled_solve` and the
+    backward with the reduction against autograd through it, both signs,
+    s_bound 0 and 8; then the forward's device time at each of its rows and
+    the backward's at its timed rows, beside their plain versions and their
+    bounds (D - 1 per-row passes, `solve_flops`, `vjp_flops`). The
+    backward's reference takes the forward kernel's hidden ReLU branches
+    (`_ReluBranches` replaying `_kernel_branches`), each one off its own
+    branch within RELU_KINK_ATOL of 0: over thousands of rows the solve
+    evaluates millions of hidden ReLUs, and one whose pre-activation lies
+    within float32 round-off of 0 may take the other branch in either
+    version, a jump in its row's gradient. Where no branch differs, that
+    reference is autograd through `unrolled_solve` as it is; the error
+    against it on its own branches stands beside."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
     h, n_hidden = 128, 3
     out, errs = {}, {}
-    for d in (16, 64):
+    for d, (fwd_rows, bwd_rows, bwd_time_rows) in widths.items():
         gen = torch.Generator().manual_seed(d)
         ws, bs = _made_params(d, h, n_hidden, gen)
         errs[d] = {"forward": 0.0, "backward": 0.0}
         smem = {k: ar_flow._check_smem(tuple([d] + [w.shape[1] for w in ws]), 0, k == "backward")
                 for k in ("forward", "backward")}
-        for n in LATENT64_ROWS:
+        for n in sorted(set(fwd_rows) | set(bwd_rows)):
             x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
             gld = torch.randn(n, generator=gen).cuda()
             for sign in (1, -1):
@@ -2783,7 +2835,7 @@ def phase_ar_solve_latent64():
                     torch.cuda.synchronize()
                     errs[d]["forward"] = max(errs[d]["forward"], _check_close(
                         dict(kernel="forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
-                    if n not in LATENT64_BWD_ROWS:
+                    if n not in bwd_rows:
                         continue
                     tape = ar_flow.new_tape(x, ws)
                     y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
@@ -2807,7 +2859,7 @@ def phase_ar_solve_latent64():
         n_w = sum(w.numel() for w in ws)
         n_b = sum(b.numel() for b in bs)
         res = {}
-        for n in LATENT64_ROWS:
+        for n in fwd_rows:
             x = torch.randn(n, d, generator=gen).cuda()
             with torch.no_grad():
                 k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
@@ -2819,7 +2871,7 @@ def phase_ar_solve_latent64():
                   "kernel_ms": k_ms, "plain_ms": p_ms, "flops": flops, "bytes": n_bytes,
                   "bound_ms": bound_ms, "bound_by": bound_by, "roofline_share": bound_ms / k_ms,
                   "smem_bytes": smem["forward"]})
-        for n in LATENT64_BWD_TIME_ROWS:
+        for n in bwd_time_rows:
             x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
             gld = torch.randn(n, generator=gen).cuda()
             tape = ar_flow.new_tape(x, ws)
@@ -2866,20 +2918,25 @@ def _jnf_expected(info):
     return [(0, 0), (4 * (steps + val_b), 4 * steps)]
 
 
-def _likelihood_batch(run, name, rows=500):
+def _likelihood_batch(run, name, rows=500, n_mod=2):
     """compute_likelihoods --bis on cuda at EVAL_K on the first test batch
-    of `rows`: finite values, JAX's names, 2 modalities x 2 MAF blocks x 2
-    estimators x the K-chunks x the IS calls of the batch forward launches,
-    none backward."""
+    of `rows`: finite values, JAX's names, the ordered pairs of the n_mod
+    modalities x 2 MAF blocks x 2 estimators x the K-chunks x the IS calls
+    of the batch forward launches, none backward. The metrics: each ordered
+    pair's conditional and bis likelihoods, the joint likelihood and, with
+    three modalities, cond_lw_subset of each."""
     from mmvae_tpu_torch.cli import compute_likelihoods
 
     summary, _, got, wall = _counted(compute_likelihoods.main, [
         "--run-path", run, "--k", str(EVAL_K), "--batch-size-k", str(EVAL_BK), "--repeats", "1",
         "--batch-size", str(rows), "--max-batches", "1", "--bis", "--device", "cuda"])
     calls = -(-rows // (EVAL_IS_ROWS // EVAL_BK))
-    expected = (2 * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
+    pairs = n_mod * (n_mod - 1)
+    expected = (pairs * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
     values = {k: v["mean"] for k, v in summary.items()}
-    ok = got == expected and all(math.isfinite(v) for v in values.values()) and len(values) == 5
+    n_metrics = 2 * pairs + 1 + (n_mod if n_mod == 3 else 0)
+    ok = (got == expected and all(math.isfinite(v) for v in values.values())
+          and len(values) == n_metrics)
     emit({"phase": f"{name}_likelihoods", "K": EVAL_K, "rows": rows, "metrics": values,
           "launches": list(got), "expected_launches": list(expected),
           "wall_s_incl_reload": wall, "ok": ok})
@@ -2890,7 +2947,8 @@ def _likelihood_batch(run, name, rows=500):
 
 def _trunks_off_artifact(model, dcca_path):
     """Leaves of the TwoStepsEncoders' DCCA trunks and projections that
-    differ from the artifact's, and how many were compared."""
+    differ from the artifact's (the identity projection where the model
+    keeps it, the trimodal trunks'), and how many were compared."""
     import numpy as np
 
     from mmvae_tpu_torch.bridge import _flatten, export_jax_params
@@ -2906,10 +2964,12 @@ def _trunks_off_artifact(model, dcca_path):
                 compared += 1
                 if not np.array_equal(a, want[k]):
                     off.append(f"vaes.{i}/{'/'.join(k)}")
-            for b in "mw":
+            d = site.m.shape[0]
+            for b, ident in (("m", np.zeros(d)), ("w", np.eye(d))):
                 compared += 1
+                want_b = npz[f"{b}{i}"] if site.fitted_lcca else ident
                 if not np.array_equal(getattr(site, b).cpu().numpy(),
-                                      npz[f"{b}{i}"].astype(np.float32)):
+                                      want_b.astype(np.float32)):
                     off.append(f"vaes.{i}/{b}")
     return off, compared
 
@@ -3080,7 +3140,7 @@ def phase_celeba_slice(tmp):
 
 def phase_resnet_parity(tmp):
     """A post-warmup JMVAE-NF step of MedMNIST (jnf_sbound.json: latent 16,
-    s_bound 8) and of CelebA (jmvae_nf.json: latent 64) on cuda in float32
+    s_bound 8) and of CelebA (jmvae_nf.json: latent 64) at B=32 on cuda in float32
     against the float64 CPU step (frozen joint forward, unimodal
     reconstructions on; noise: the joint forward's, compute_kld's joint
     sample, each unimodal forward), the reference on the cuda step's ReLU
@@ -3090,8 +3150,160 @@ def phase_resnet_parity(tmp):
     gradient by 1.5e-4 of its largest entry on an H100)."""
     for name, config, run in (("medmnist", MEDMNIST["jnf_sbound"], MEDMNIST_JNF_RUN),
                               ("celeba", CELEBA["jmvae_nf"], JNF_RUN)):
-        _step_parity(tmp, config, 4, f"{name}_jnf_parity", run, align_relu=True,
-                     frozen_joint=True, no_recon=False)
+        _step_parity(tmp, config, 4, f"{name}_jnf_parity", dict(run, **RESNET_PARITY_B),
+                     align_relu=True, frozen_joint=True, no_recon=False)
+
+
+# trimodal MNIST-SVHN-Fashion: its published configs at full width, at the
+# loader's default synthetic scale (synthetic_n 4,096: 17,874 train triples,
+# 4,690 test, 1,986 val)
+MSF = {name: os.path.join(ROOT, "configs", "msf", f"{name}.json")
+       for name in ("jmvae_nf", "jmvae_nf_dcca", "telbo_nf", "mmvae", "mvae")}
+MSF_SCALE = dict(synthetic_n=None)
+MSF_JNF_RUN = dict(JNF_RUN, **MSF_SCALE)
+# TELBO-NF: one epoch, past its warmup from the first (published 200, 100)
+MSF_TELBO_RUN = dict(MSF_SCALE, epochs=1, warmup=1, skip_warmup=False)
+# MMVAE and MVAE "a few steps": 707 train triples, 5 steps
+MSF_FEW_STEPS = dict(synthetic_n=192)
+MSF_MCMC_STEPS = 100
+MSF_DCCA_EPOCHS = 2
+# 3 modalities x 2 MAF blocks: the forward launches of one unimodal pass
+# over the three flows (a train step's compute_kld, a val batch, a
+# conditional sampling call)
+MSF_LAUNCHES = 6
+_MSF_PAIRS = [(i, j) for i in range(3) for j in range(3) if i != j]
+MSF_VALIDATE_KEYS = sorted([f"acc_{i}_{j}" for i, j in _MSF_PAIRS] + ["joint_coherence"]
+                           + [f"fid_{i}_{j}" for i, j in _MSF_PAIRS])
+MSF_POE_KEYS = [f"cond_acc_{m}" for m in range(3)]
+MSF_HMC_KEYS = [f"hmc_acc_rate_{m}" for m in range(3)]
+
+
+def _msf_validate(run, exp, name, poe=None):
+    """validate --mcmc-steps MSF_MCMC_STEPS on a trimodal run: the 6
+    cross-coherences, the three-way joint coherence, the 6 FIDs, and for a
+    model with a product of experts the PoE-subset accuracies (`poe`
+    "analytic" for MVAE, "hmc" for JMVAE-NF, with HMC's acceptance rates).
+    Launches: for a flow model 6 per conditional
+    sampling call, one call per test batch for the coherence and one for
+    the FID, and HMC's start over 3 subsets of 2 experts (2 x 2 each); no
+    grids (they are two-modality)."""
+    from mmvae_tpu_torch.cli.common import reload_model
+
+    nb = len(reload_model(run, 500, "cuda")[2][1])
+    hmc = poe == "hmc"
+    keys = sorted(MSF_VALIDATE_KEYS + (MSF_POE_KEYS if poe else []) + (MSF_HMC_KEYS if hmc else []))
+    expected = (MSF_LAUNCHES * 2 * nb + 3 * 2 * 2, 0) if hmc else (0, 0)
+    ok, res = _validate_counted(run, exp, expected, keys,
+                                ["--mcmc-steps", str(MSF_MCMC_STEPS)])
+    marks = res.pop("marks")
+    if hmc:
+        res["poe_subsets_s"] = marks["repeat 0: accuracies done"] - \
+            marks["repeat 0: coherence done"]
+    emit({"phase": f"{name}_validate", "test_batches": nb, "mcmc_steps": MSF_MCMC_STEPS,
+          **res, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} validate: {res}")
+    return tuple(res["launches"])
+
+
+def phase_msf_slice(tmp):
+    """Trimodal MNIST-SVHN-Fashion through the CLIs on cuda at full width
+    (MLP MNIST and Fashion nets, the SVHN conv nets; B=128, latent 20) at
+    the loader's default scale. jmvae_nf.json (a MultipleHeadJoint over
+    three 20-wide heads, 2 MAF blocks of 3x128 per modality) for 2 epochs
+    with warmup 2 and its epoch-1 analytics (the 3x3 cond_samples grids
+    and generate_001.png): epoch 1 launches only its grids' 6; epoch 2 6
+    forward per train step and val batch (compute_kld's three unimodal VAE
+    forwards) and 6 backward per train step; its steady post-warmup step;
+    `validate --mcmc-steps 100` (HMC over each 2-subset's product of flow
+    posteriors) and one `compute_likelihoods --bis` test batch of 500
+    (cond_lw_subset_m). `dcca_train --dataset mnist_svhn_fashion` (three
+    views, pairwise mcca loss) and jmvae_nf_dcca.json (latent 30, B=256,
+    no_recon: no launch in training) grafting its three trunks behind the
+    identity projection; its validate and likelihood batch run the forward
+    kernel at D = 30. telbo_nf.json (latent 30, B=256) one epoch past its
+    warmup: the three unimodal VAE forwards under autograd, both kernels
+    at D = 30. mmvae.json and mvae.json (subset subsampling) a few steps
+    each and validate, no launch."""
+    import torch
+
+    from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
+    from mmvae_tpu_torch.models import registry
+
+    exp = os.path.join(tmp, "experiments")
+    launches = {}
+    cfg, train_loader, info, _ = _cli_epoch(tmp, MSF["jmvae_nf"], analytics=True, **MSF_JNF_RUN)
+    steps, val_b = info["train_steps"], info["val_batches"]
+    expected = [(MSF_LAUNCHES, 0), (MSF_LAUNCHES * (1 + steps + val_b), MSF_LAUNCHES * steps)]
+    grids = [f"cond_samples_{r}x{o}_001.png" for r in range(3) for o in range(3)] + \
+        ["generate_001.png"]
+    sizes = {g: _png_ok(os.path.join(info["run_path"], g)) for g in grids}
+    emit({"phase": "msf_jnf_slice", "config": "msf/jmvae_nf.json", "latent_dim": cfg.latent_dim,
+          "batch_size": cfg.batch_size, "expected_launches_by_epoch": expected,
+          "analytics_grids": sizes, **info})
+    if info["callback_launches_by_epoch"] != [MSF_LAUNCHES, 0]:
+        raise AssertionError(f"msf JNF analytics: {info['callback_launches_by_epoch']}")
+    launches["msf_jnf"] = _check_run("msf JNF", info, expected)
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, train_loader, epoch=2)
+    emit({"phase": "msf_jnf_slice_time", "epoch": 2, "train_step_ms": step_s * 1e3,
+          "eval_batch_ms": eval_ms, **prof})
+    run = info["run_path"]
+    launches["validate_msf_jnf"] = _msf_validate(run, exp, "msf_jnf", "hmc")
+    launches["likelihoods_msf_jnf"] = _likelihood_batch(run, "msf_jnf", n_mod=3)
+
+    path, lines, got, wall = _counted(dcca_main, [
+        "--dataset", "mnist_svhn_fashion", "--device", "cuda", "--epochs", str(MSF_DCCA_EPOCHS),
+        "--batch-size", str(DCCA_BATCH), "--data-path", os.path.join(tmp, "data"),
+        "--out", os.path.join(tmp, "dcca")])
+    emit({"phase": "msf_dcca", "trunks": "dcca_encoders_msf", "launches": list(got),
+          "epochs": [l for l in lines if l.startswith("DCCA epoch")], "cli_wall_s": wall})
+    if got != (0, 0):
+        raise AssertionError(f"msf DCCA launched {got}")
+    launches["dcca_msf"] = got
+    cfg, _, info, _ = _cli_epoch(tmp, MSF["jmvae_nf_dcca"], dcca_path=path, **MSF_JNF_RUN)
+    bundle = registry.build(cfg)
+    bundle.model.load_state_dict(torch.load(os.path.join(info["run_path"], "model.pt"),
+                                            weights_only=True))
+    off, compared = _trunks_off_artifact(bundle.model, path)
+    emit({"phase": "msf_jnf_dcca_slice", "dcca": cfg.dcca, "no_recon": cfg.no_recon,
+          "latent_dim": cfg.latent_dim, "batch_size": cfg.batch_size,
+          "trunk_leaves_compared": compared, "trunk_leaves_off_artifact": off, **info})
+    # the MLP trunks' 6 leaves, the conv trunk's 10, and each identity projection's m and w
+    if off or compared != 6 + 10 + 6 + 3 * 2 or cfg.latent_dim != 30:
+        raise AssertionError(f"msf JNF-DCCA: {off[:5]} of {compared} off the artifact")
+    launches["msf_jnf_dcca"] = _check_run("msf JNF-DCCA", info, [(0, 0), (0, 0)])
+    run = info["run_path"]
+    launches["validate_msf_jnf_dcca"] = _msf_validate(run, exp, "msf_jnf_dcca", "hmc")
+    launches["likelihoods_msf_jnf_dcca"] = _likelihood_batch(run, "msf_jnf_dcca", n_mod=3)
+
+    cfg, _, info, _ = _cli_epoch(tmp, MSF["telbo_nf"], **MSF_TELBO_RUN)
+    steps, val_b = info["train_steps"], info["val_batches"]
+    expected = [(MSF_LAUNCHES * (steps + val_b), MSF_LAUNCHES * steps)]
+    emit({"phase": "msf_telbo_nf_slice", "latent_dim": cfg.latent_dim,
+          "batch_size": cfg.batch_size, "warmup": cfg.warmup,
+          "expected_launches_by_epoch": expected, **info})
+    if cfg.latent_dim != 30:
+        raise AssertionError(f"msf TELBO-NF at latent {cfg.latent_dim}")
+    launches["msf_telbo_nf"] = _check_run("msf TELBO-NF", info, expected)
+
+    for name in ("mmvae", "mvae"):
+        cfg, _, info, _ = _cli_epoch(tmp, MSF[name], **MSF_FEW_STEPS)
+        emit({"phase": f"msf_{name}_slice", "model": cfg.model, "K": cfg.K,
+              "posterior": cfg.dist, **info})
+        launches[f"msf_{name}"] = _check_run(f"msf {name}", info, [(0, 0)])
+        launches[f"validate_msf_{name}"] = _msf_validate(
+            info["run_path"], exp, f"msf_{name}", "analytic" if name == "mvae" else None)
+    return launches
+
+
+def phase_msf_parity(tmp):
+    """A post-warmup trimodal JMVAE-NF step (jmvae_nf.json: frozen joint
+    forward, the three unimodal reconstructions on) on cuda in float32
+    against the float64 CPU step, on the cuda step's ReLU branches, the
+    flow kernels' included; noise: the joint forward's, compute_kld's joint
+    sample, each unimodal forward."""
+    _step_parity(tmp, MSF["jmvae_nf"], 5, "msf_parity", dict(JNF_RUN, synthetic_n=512),
+                 align_relu=True, frozen_joint=True, no_recon=False)
 
 
 def main():
@@ -3128,6 +3340,7 @@ def main():
     solve = timed("ar_solve", phase_ar_solve)
     solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
     solve64 = timed("ar_solve_latent64", phase_ar_solve_latent64)
+    solve30 = timed("ar_solve_latent30", phase_ar_solve_latent30)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sl = timed("slice", phase_slice, tmp)
@@ -3159,6 +3372,8 @@ def main():
         medmnist = timed("medmnist_slice", phase_medmnist_slice, tmp)
         celeba = timed("celeba_slice", phase_celeba_slice, tmp)
         timed("resnet_parity", phase_resnet_parity, tmp)
+        msf = timed("msf_slice", phase_msf_slice, tmp)
+        timed("msf_parity", phase_msf_parity, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3171,7 +3386,7 @@ def main():
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
                **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
-               **celeba}
+               **celeba, **msf}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -3189,9 +3404,9 @@ def main():
     # forward's times at eval's rows stand beside its main-path time.
     at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
     emit({"phase": "smoke", "seconds": time.perf_counter() - t_start, "phase_seconds": walls})
-    # and at circles-squares' latent 2, MedMNIST's 16 and CelebA's 64, with
-    # their rows
-    at2, at64 = solve2["results"], solve64["results"]
+    # and at circles-squares' latent 2, MedMNIST's 16, the trimodal 30 and
+    # CelebA's 64, with their rows
+    at2, at64, at30 = solve2["results"], solve64["results"], solve30["results"][30]
 
     def fwd_at(res):
         return {k: v for k, v in res.items() if not k.startswith("backward")}
@@ -3205,6 +3420,7 @@ def main():
               at_latent_2=fwd_at(at2), max_abs_err_at_latent_2=solve2["errs"]["forward"],
               at_latent_16=fwd_at(at64[16]),
               max_abs_err_at_latent_16=solve64["errs"][16]["forward"],
+              at_latent_30=fwd_at(at30), max_abs_err_at_latent_30=solve30["errs"][30]["forward"],
               at_latent_64=fwd_at(at64[64]),
               max_abs_err_at_latent_64=solve64["errs"][64]["forward"]),
         entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
@@ -3214,6 +3430,8 @@ def main():
               max_abs_err_at_latent_2=solve2["errs"]["backward"],
               at_latent_16=bwd_at(at64[16]),
               max_abs_err_at_latent_16=solve64["errs"][16]["backward"],
+              at_latent_30=bwd_at(at30),
+              max_abs_err_at_latent_30=solve30["errs"][30]["backward"],
               at_latent_64=bwd_at(at64[64]),
               max_abs_err_at_latent_64=solve64["errs"][64]["backward"])]})
     print(card, flush=True)

@@ -15,7 +15,8 @@ import torch
 
 # streams of the eval generators, the first key after the config's seed
 STREAM_CLASSIFIER, STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_LIKELIHOOD, \
-    STREAM_ANALYTICS, STREAM_PRD, STREAM_GMM, STREAM_RADIUS, STREAM_POE = range(1, 11)
+    STREAM_ANALYTICS, STREAM_PRD, STREAM_GMM, STREAM_RADIUS, STREAM_POE, \
+    STREAM_POE_SUBSET = range(1, 12)
 
 
 def torch_device(name) -> torch.device:

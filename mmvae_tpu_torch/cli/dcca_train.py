@@ -5,7 +5,8 @@ Usage: python -m mmvae_tpu_torch.cli.dcca_train [--dataset mnist_svhn]
     [--epochs 20] [--batch-size 800] [--out experiments/dcca]
     [--device cuda|cpu] [--backend eigh|chol]
 
-Trains the dataset's DCCA trunk pair, fits the linear CCA and writes
+Trains the dataset's DCCA trunks (three views on MNIST-SVHN-Fashion, on the
+pairwise mcca loss), fits the linear CCA on the first two views and writes
 <out>/<dataset>/dcca.npz, which the `*_dcca` models of the train CLI graft
 (default `dcca_path`: <experiments-dir>/dcca/<dataset>/dcca.npz).
 
@@ -27,7 +28,7 @@ import torch
 def main(argv=None):
     parser = argparse.ArgumentParser(description="DCCA pretraining (PyTorch/CUDA)")
     parser.add_argument("--dataset", type=str, default="mnist_svhn",
-                        help="a key of dcca.nets.DCCA_BUILDERS (mnist_svhn is ported)")
+                        help="a key of dcca.nets.DCCA_BUILDERS")
     parser.add_argument("--outdim", type=int, default=0,
                         help="trunk embedding dim (0 = per-dataset default)")
     parser.add_argument("--epochs", type=int, default=20)

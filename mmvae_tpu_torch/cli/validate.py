@@ -17,13 +17,18 @@ rows, min(100, 10 ns) samples each; its histogram hist_000.png on repeat
 0), and for models with a joint encoder the product-of-posteriors figure
 product_of_posteriors.png from Hamiltonian Monte Carlo (4 test rows, 30
 chains, 100 steps). A failure of that sampling stops the run, where the JAX
-CLI prints it and goes on. On CelebA the coherences are the attribute
+CLI prints it and goes on. On the trimodal MNIST-SVHN-Fashion, for models
+with a product of experts (MVAE, JMVAE-NF), also the PoE-subset accuracies
+cond_acc_m (and for JMVAE-NF's Hamiltonian Monte Carlo, of --mcmc-steps
+steps, hmc_acc_rate_m) on the first test batch, min(32, batch) rows and 8
+samples each; a failure stops the run here too. On CelebA the
+coherences are the attribute
 metrics instead (eval/modalities.py, `BATCH_COHERENCE`): accuracy1,
 accuracy2 and joint_coherence, always from the per-batch loop, even at
 --n-data all.
 Writes metrics.json (mean and std per metric over the repeats), one
-metrics.jsonl row per repeat, and the grids generate_val.png and
-gen_from_cond_{0,1}.png.
+metrics.jsonl row per repeat, and with two modalities the grids
+generate_val.png and gen_from_cond_{0,1}.png.
 
 Each test batch's noise comes from a generator of its own, seeded from
 (seed, repeat, batch). Runs on cuda unless --device says otherwise.
@@ -48,8 +53,6 @@ def _unported(info):
                 "use --fid-encoder classifier or --skip-fid")
     if info.fid_weights:
         return "--fid-weights not yet ported: it loads the InceptionV3 FID network"
-    if info.mcmc_steps is not None:
-        return "--mcmc-steps not yet ported: HMC for the trimodal PoE subsets"
     return None
 
 
@@ -74,7 +77,8 @@ def main(argv=None):
                         choices=["inception", "classifier"],
                         help="activation network for FID: the Inception FID net (not yet "
                         "ported) or the eval classifiers' penultimate features")
-    parser.add_argument("--mcmc-steps", type=int, default=None)
+    parser.add_argument("--mcmc-steps", type=int, default=100,
+                        help="HMC chain length of the trimodal PoE-subset accuracies")
     parser.add_argument("--device", type=str, default="cuda")
     info = parser.parse_args(argv)
     problem = _unported(info)
@@ -86,12 +90,13 @@ def main(argv=None):
     from ..eval.fid import cross_modal_fid
     from ..eval.generation import Noise, generate, generate_from_conditional
     from ..eval.latent_analysis import conditional_rdist_metrics, visualize_poe
-    from ..eval.modalities import BATCH_COHERENCE
+    from ..eval.modalities import BATCH_COHERENCE, poe_subset_accuracy
     from ..utils import Tracker
     from ..vis import save_samples
     from .common import (
-        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_POE, STREAM_PRD, STREAM_RADIUS,
-        find_latest_run, generator, get_or_train_classifiers, reload_model, torch_device,
+        STREAM_COHERENCE, STREAM_FID, STREAM_GRIDS, STREAM_POE, STREAM_POE_SUBSET, STREAM_PRD,
+        STREAM_RADIUS, find_latest_run, generator, get_or_train_classifiers, reload_model,
+        torch_device,
     )
 
     device = torch_device(info.device)
@@ -127,6 +132,16 @@ def main(argv=None):
     def batch(xs):
         return [torch.as_tensor(np.asarray(x)).to(device, dtype) for x in xs]
 
+    # the trimodal PoE-subset accuracies (validate.py:101-136), for models
+    # with a product of experts
+    poe_subsets = len(model.vaes) == 3 and (hasattr(model, "poe_density")
+                                            or hasattr(model, "poe_subset_params"))
+
+    def subset_metrics(xs, labs, r):
+        return poe_subset_accuracy(model, classifiers, xs, [np.asarray(l) for l in labs],
+                                   generator(device, cfg.seed, STREAM_POE_SUBSET, r),
+                                   n_data=min(32, len(xs[0])), ns=8, mcmc_steps=info.mcmc_steps)
+
     all_metrics = []
     with torch.no_grad():
         for r in range(info.repeats):
@@ -134,8 +149,14 @@ def main(argv=None):
                 metrics = compute_accuracies_dataset(
                     model, classifiers, test_l, lambda bi: noise(STREAM_COHERENCE, r, bi), spec,
                     ns=info.ns)
+                if circles or poe_subsets:
+                    xs0, labs0 = next(iter(test_l))
+                    xs0 = batch(xs0)
+                if poe_subsets:
+                    _mark(f"repeat {r}: coherence done")
+                    metrics.update(subset_metrics(xs0, labs0, r))
                 if circles:
-                    metrics.update(radius_metrics(batch(next(iter(test_l))[0]), r))
+                    metrics.update(radius_metrics(xs0, r))
             else:
                 # explicit subsets and batch-only coherences (CelebA's):
                 # per-batch means weighted by the rows scored, so that a ragged last batch counts as its
@@ -150,6 +171,8 @@ def main(argv=None):
                     m = batch_coherence(model, classifiers, xs, labs,
                                         noise(STREAM_COHERENCE, r, bi), spec,
                                         n_data=n_data, ns=info.ns)
+                    if poe_subsets and bi == 0:
+                        m.update(subset_metrics(xs, labs, r))
                     if circles and bi == 0:
                         m.update(radius_metrics(xs, r))
                     for k, v in m.items():
@@ -180,15 +203,18 @@ def main(argv=None):
         with open(os.path.join(run_path, "metrics.json"), "w") as f:
             json.dump(summary, f)
 
-        # sample grids (validate.py:118-128): prior samples, and the chained
-        # p(x) p(y|x) generations gen_from_cond_{0,1} (multi_vaes.py:105-126)
-        gen = generate(model, noise(STREAM_GRIDS, 0), spec, N=32)
-        save_samples([g.cpu().numpy() for g in gen[:2]], os.path.join(run_path, "generate_val.png"))
-        data, cond = generate_from_conditional(model, noise(STREAM_GRIDS, 1), spec, N=32)
-        save_samples([data[0].cpu().numpy(), cond[0][1][0].cpu().numpy()],
-                     os.path.join(run_path, "gen_from_cond_0.png"))
-        save_samples([cond[1][0][0].cpu().numpy(), data[1].cpu().numpy()],
-                     os.path.join(run_path, "gen_from_cond_1.png"))
+        # sample grids of two modalities (validate.py:178-190): prior
+        # samples, and the chained p(x) p(y|x) generations gen_from_cond_{0,1}
+        # (multi_vaes.py:105-126)
+        if len(model.vaes) == 2:
+            gen = generate(model, noise(STREAM_GRIDS, 0), spec, N=32)
+            save_samples([g.cpu().numpy() for g in gen],
+                         os.path.join(run_path, "generate_val.png"))
+            data, cond = generate_from_conditional(model, noise(STREAM_GRIDS, 1), spec, N=32)
+            save_samples([data[0].cpu().numpy(), cond[0][1][0].cpu().numpy()],
+                         os.path.join(run_path, "gen_from_cond_0.png"))
+            save_samples([cond[1][0][0].cpu().numpy(), data[1].cpu().numpy()],
+                         os.path.join(run_path, "gen_from_cond_1.png"))
         if circles and hasattr(model, "joint_encoder"):
             # the PoE figure (jmvae_nf_circles.py:138-214), JAX's defaults
             visualize_poe(model, batch(next(iter(test_l))[0]), run_path,

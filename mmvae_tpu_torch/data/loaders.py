@@ -1,9 +1,9 @@
 """Paired-dataset containers, batch iterators and the dataset constructors
-of MNIST-SVHN, circles-squares, MNIST-Fashion, MNIST-Contour, MedMNIST,
-chest-X-ray-SVHN and CelebA (own copy
-of mmvae_tpu/data/loaders.py, numpy only apart from torch's randperm for
-the reference's seeded val splits). Same pairing, splits and batch order as
-the JAX package, bit for bit.
+of MNIST-SVHN (and its binarized twin), circles-squares, MNIST-Fashion,
+MNIST-Contour, trimodal MNIST-SVHN-Fashion, MedMNIST, chest-X-ray-SVHN,
+CelebA and MNIST-OASIS (own copy of mmvae_tpu/data/loaders.py, numpy only
+apart from torch's randperm for the reference's seeded val splits). Same
+pairing, splits and batch order as the JAX package, bit for bit.
 """
 
 from __future__ import annotations
@@ -218,6 +218,42 @@ def mnist_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool 
     )
 
 
+def binary_mnist_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                      len_train: Optional[int] = None, synthetic_n: int = 4096,
+                      difficulty: float = 0.0):
+    """BINARY_MNIST_SVHN_DL (dataloaders.py:349-393): mnist_svhn with the
+    MNIST images binarized at 0.5 (transforms.py:32-37), the same pairing."""
+    from .transforms import binarize
+
+    loaders = mnist_svhn(data_path, batch_size, shuffle, len_train, synthetic_n, difficulty)
+    for loader in loaders:
+        m = loader.dataset.modalities[0]
+        loader.dataset.modalities[0] = (LazyGather(binarize(m.base), m.idx, m.base_labels)
+                                        if isinstance(m, LazyGather) else binarize(m))
+    return loaders
+
+
+def mnist_svhn_fashion(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                       synthetic_n: int = 4096, difficulty: float = 0.0):
+    """Trimodal MNIST-SVHN-Fashion (dataloaders.py:510-569,
+    bin/make_trimodal.py): triples matched on the class of all three, as
+    MNIST-SVHN's pairs (max_d 10000, dm 5); the stand-ins of the three
+    sources have seeds 1, 3 and 5 (their test sets 2, 4 and 6)."""
+    mods_tr, mods_te = [], []
+    for shape, load, seed in (
+            ((1, 28, 28), lambda train: sources.load_mnist(data_path, train), 1),
+            ((3, 32, 32), lambda train: sources.load_svhn(data_path, train), 3),
+            ((1, 28, 28), lambda train: sources.load_mnist(data_path, train, fashion=True), 5)):
+        mods_tr.append(sources.load_or_synthesize(
+            lambda: load(True), shape, synthetic_n, seed, proto_seed=seed,
+            difficulty=difficulty)[:2])
+        mods_te.append(sources.load_or_synthesize(
+            lambda: load(False), shape, synthetic_n // 4, seed + 1, proto_seed=seed,
+            difficulty=difficulty)[:2])
+    return _paired_from_sources(mods_tr, mods_te, max_d=10000, dm=5, len_train=None,
+                                batch_size=batch_size, shuffle=shuffle)
+
+
 def mnist_fashion(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
                   synthetic_n: int = 4096, difficulty: float = 0.0):
     """MNIST_FASHION_DL with the unbalanced correspondence pairing
@@ -340,18 +376,43 @@ def chest_svhn(data_path: str = "../data", batch_size: int = 128, shuffle: bool 
     return _loaders(*out, batch_size, shuffle)
 
 
+def mnist_oasis(data_path: str = "../data", batch_size: int = 128, shuffle: bool = True,
+                synthetic_n: int = 2048, oasis_dim: int = 2000, difficulty: float = 0.0):
+    """MNIST_OASIS_DL (dataloaders.py:395-442): MNIST digits paired with
+    flat OASIS MRI feature vectors, both labelled by the digit's parity.
+    The OASIS data are access-restricted: the vectors are always the
+    stand-in, sigmoid(prototype of the class + 0.3 noise), the two
+    prototypes and then each split's noise drawn from one default_rng(9)."""
+    rng = np.random.default_rng(9)
+    proto = rng.normal(size=(2, oasis_dim)).astype(np.float32)
+
+    def build(train, seed):
+        img, lab, _ = sources.load_or_synthesize(
+            lambda: sources.load_mnist(data_path, train), (1, 28, 28),
+            synthetic_n if train else synthetic_n // 4, seed, proto_seed=1,
+            difficulty=difficulty)
+        lab2 = (lab % 2).astype(np.int64)
+        oasis = 1 / (1 + np.exp(-(proto[lab2] + 0.3 * rng.normal(
+            size=(len(lab2), oasis_dim)).astype(np.float32))))
+        return PairedDataset([img, oasis], [lab2, lab2])
+
+    train_full = build(True, 1)
+    return _train_val_test(train_full, build(False, 2), batch_size, shuffle)
+
+
 DATASETS = {
-    "mnist_svhn": mnist_svhn,
     "circles_squares": circles_squares,
+    "mnist_svhn": mnist_svhn,
+    "binary_mnist_svhn": binary_mnist_svhn,
     "mnist_fashion": mnist_fashion,
     "mnist_contour": mnist_contour,
+    "mnist_svhn_fashion": mnist_svhn_fashion,
     "medmnist": medmnist_pairs,
     "celeba": celeba,
     "chest_svhn": chest_svhn,
+    "mnist_oasis": mnist_oasis,
 }
 
 
 def get_dataloaders(name: str, **kw) -> Tuple[ArrayLoader, ArrayLoader, ArrayLoader]:
-    if name not in DATASETS:
-        raise NotImplementedError(f"dataset {name!r} not yet ported")
     return DATASETS[name](**kw)

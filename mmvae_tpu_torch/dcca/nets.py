@@ -1,10 +1,10 @@
 """DCCA encoder pairs and the linear-CCA-wrapped inference encoders
 (mmvae_tpu/dcca/nets.py; reference dcca/models/*.py).
 
-A trunk pair is trained with the CCA loss (dcca/train.py), then wrapped
+A set of trunks is trained with the CCA loss (dcca/train.py), then wrapped
 with the fitted linear-CCA projection h -> ((h - m) @ w)[:, :dim] for use
-inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104). Every pair but
-MNIST-SVHN-Fashion's is ported.
+inside TwoStepsEncoder (dcca/models/mnist_svhn.py:50-104); the trimodal
+trunks keep the identity projection (main_mnist_svhn_fashion.py:180).
 """
 
 from __future__ import annotations
@@ -25,10 +25,14 @@ class LCCAWrappedEncoder(nn.Module):
     buffers: never trained (the reference keeps them as buffers loaded from
     .npy), but moved and cast with the module and kept in its state dict."""
 
-    def __init__(self, encoder: nn.Module, m, w, latent_dim: int):
+    def __init__(self, encoder: nn.Module, m, w, latent_dim: int, fitted_lcca: bool = True):
         super().__init__()
         self.encoder = encoder
         self.latent_dim = latent_dim
+        # False where the model keeps the identity projection whatever the
+        # artifact holds (the trimodal trunks): `graft_dcca_params` then
+        # loads the trunk alone
+        self.fitted_lcca = fitted_lcca
         self.register_buffer("m", torch.as_tensor(np.asarray(m), dtype=torch.float32))
         self.register_buffer("w", torch.as_tensor(np.asarray(w), dtype=torch.float32))
 
@@ -97,10 +101,13 @@ def dcca_encoders_chest_svhn(outdim: int = 16):
     return [medmnist_encoder(outdim, 1), EncoderSVHN(latent_dim=outdim)]
 
 
-def _later(dataset: str):
-    def build(outdim: int):
-        raise NotImplementedError(f"DCCA trunks for {dataset!r} not yet ported")
-    return build
+def dcca_encoders_msf(outdim: int = 16):
+    """The trimodal DeepCCA_MNIST_SVHN_FASHION (dcca/models/
+    mnist_svhn_fashion.py:13-17): MLP, SVHN conv, MLP, trained on the
+    pairwise mcca loss."""
+    return [MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28),
+            EncoderSVHN(latent_dim=outdim),
+            MLPEncoder(latent_dim=outdim, in_features=1 * 28 * 28)]
 
 
 # dataset key -> (builder, default trunk outdim), the JAX package's table
@@ -111,5 +118,5 @@ DCCA_BUILDERS = {
     "medmnist": (dcca_encoders_medmnist, 16),
     "chest_svhn": (dcca_encoders_chest_svhn, 16),
     "mnist_contour": (dcca_encoders_mnist_contour, 15),
-    "mnist_svhn_fashion": (_later("mnist_svhn_fashion"), 16),
+    "mnist_svhn_fashion": (dcca_encoders_msf, 16),
 }

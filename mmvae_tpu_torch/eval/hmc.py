@@ -8,7 +8,8 @@ gradient, where JAX evaluates ln q twice, and the chain carries both from
 the end of one step into the next: `n_lf` evaluations a step, where JAX
 makes 2·(n_lf + 2). The experts' encoders run once
 per chain (`JMVAE_NF.poe_density`); each evaluation runs the flows' density
-direction only, the parallel MADE pass: no `ar_solve` launch. The starting point
+direction only, the parallel MADE pass: no `ar_solve` launch. On the card
+the evaluation is one captured CUDA graph, replayed (`_evaluator`). The starting point
 samples the unimodal posteriors, the flows' sampling direction, which on
 the card is the forward kernel.
 
@@ -53,6 +54,33 @@ def _log_q_and_grad(log_density, z):
     return lnq.detach(), g
 
 
+def _evaluator(log_density, z):
+    """z -> (ln q, its gradient) for a chain at z's shape. On the card, one
+    CUDA graph of the density and its gradient, captured here and replayed
+    at each evaluation: the chain makes n_lf of them a step, each a few
+    hundred small launches, whose host cost otherwise bounds the chain.
+    The replay runs the same kernels on the same inputs."""
+    if not z.is_cuda:
+        return lambda zz: _log_q_and_grad(log_density, zz)
+    static_z = z.detach().clone()
+    side = torch.cuda.Stream(device=z.device)
+    side.wait_stream(torch.cuda.current_stream(z.device))
+    with torch.cuda.stream(side):
+        for _ in range(2):  # warm up the autograd engine off the capture
+            _log_q_and_grad(log_density, static_z)
+    torch.cuda.current_stream(z.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lnq, g = _log_q_and_grad(log_density, static_z)
+
+    def evaluate(zz):
+        static_z.copy_(zz)
+        graph.replay()
+        return lnq.clone(), g.clone()
+
+    return evaluate
+
+
 def sample_from_poe_subset(model, subset: Sequence[int], data, mcmc_steps: int = 100,
                            n_lf: int = 10, eps_lf: float = 0.01, K: int = 1,
                            divide_prior: bool = True, return_acceptance: bool = False,
@@ -71,7 +99,8 @@ def sample_from_poe_subset(model, subset: Sequence[int], data, mcmc_steps: int =
     with torch.no_grad():
         log_density = model.poe_density(subset, data, divide_prior=divide_prior)
     z = z0.detach()
-    lnq, g = _log_q_and_grad(log_density, z)
+    log_q_and_grad = _evaluator(log_density, z)
+    lnq, g = log_q_and_grad(z)
     acc = z.new_zeros(())
     for i in range(mcmc_steps):
         r = rho[i] if rho is not None else torch.randn(z.shape, generator=generator,
@@ -81,7 +110,7 @@ def sample_from_poe_subset(model, subset: Sequence[int], data, mcmc_steps: int =
         for _ in range(n_lf):
             r_half = r + (eps_lf / 2) * g_new
             z_new = z_new + eps_lf * r_half
-            lnq_new, g_new = _log_q_and_grad(log_density, z_new)
+            lnq_new, g_new = log_q_and_grad(z_new)
             r = r_half + (eps_lf / 2) * g_new
         h = -lnq_new + 0.5 * torch.sum(r ** 2, dim=1)
         alpha = torch.exp(h0 - h)

@@ -111,16 +111,20 @@ def compute_conditional_likelihood(model, data, cond_mod: int, gen_mod: int, spe
 
 def compute_conditional_likelihoods(model, data, spec, noise: Noise, K: int = 1000,
                                     batch_size_K: int = 100) -> Dict[str, torch.Tensor]:
-    """All ordered pairs (multi_vaes.py:324-355), in JAX's order."""
+    """All ordered pairs (multi_vaes.py:324-355), in JAX's order; for three
+    modalities also the MoE subset conditionals cond_lw_subset_i, ln of the
+    mean of the two conditionals into modality i."""
     n_mod = len(data)
-    if n_mod == 3:
-        raise NotImplementedError("the trimodal MoE subset likelihoods are not yet ported")
     metrics = {}
     for i in range(n_mod):
         for j in range(n_mod):
             if i != j:
                 metrics.update(compute_conditional_likelihood(model, data, j, i, spec, noise, K,
                                                               batch_size_K))
+    if n_mod == 3:
+        for i in range(n_mod):
+            lls = torch.stack([metrics[f"cond_likelihood_{j}_{i}"] for j in range(n_mod) if j != i])
+            metrics[f"cond_lw_subset_{i}"] = torch.logsumexp(lls, dim=0) - math.log(2)
     return metrics
 
 
@@ -187,8 +191,11 @@ def joint_likelihood_mmvae(model, data, spec, noise: Noise, K: int = 1000,
     """IS with the Bernoulli mixture of the unimodal posteriors as proposal
     (mmvae.py:121-177), including the reference's lqz_xy =
     logsumexp(lqz_xs) / 2 convention (mmvae.py:166). Noise per chunk: the
-    mixture's uniform u (modality 0 where u < 0.5), then each posterior's."""
-    (mu0, std0), (mu1, std1) = model.encode_all(data)
+    mixture's uniform u (modality 0 where u < 0.5), then each posterior's.
+    With three modalities the proposal stays the mixture of modalities 0
+    and 1, and ln p(x|z) sums over all three, as in the JAX package."""
+    qz_params = model.encode_all(data)
+    (mu0, std0), (mu1, std1) = qz_params[0], qz_params[1]
     n, bk, latent = mu0.shape[0], batch_size_K, mu0.shape[1]
 
     def log_w(sl, u, e0, e1):

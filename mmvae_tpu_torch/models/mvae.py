@@ -3,9 +3,11 @@
 
 The forward builds its own ELBO: one unimodal ELBO per modality on the PoE
 of that expert with the prior, then the joint ELBO on the PoE of every
-expert with the prior. Samplers take their standard-normal noise
-explicitly, `noise=[z_0, z_1, ..., z_joint]` in the JAX package's draw
-order, or draw it from `generator`.
+expert with the prior, and with `subsampling` (three or more modalities)
+the ELBO of `k_subsample` modality subsets drawn at random. Samplers take
+their noise explicitly, `noise=[z_0, z_1, ..., z_joint]` in the JAX
+package's draw order (with subsampling followed by the subsets' 0/1 mask
+and one z per subset), or draw it from `generator`.
 """
 
 from __future__ import annotations
@@ -32,9 +34,6 @@ class MVAE(nn.Module):
     def __init__(self, vaes: Sequence[UnimodalVAE], lik_scaling: Sequence[float],
                  subsampling: bool = False, k_subsample: int = 0):
         super().__init__()
-        if subsampling and all_subsets(len(vaes)):
-            raise NotImplementedError("MVAE subset subsampling runs only on three or more "
-                                      "modalities: the trimodal slice is not yet ported")
         self.vaes = nn.ModuleList(vaes)
         self.lik_scaling = tuple(lik_scaling)
         # a no-op with two modalities, whose subsets of subsampling are none
@@ -58,8 +57,18 @@ class MVAE(nn.Module):
 
     def forward(self, x, K: int = 1, noise=None, generator=None):
         """ELBO-building forward (mvae.py:73-139). K is not used. Returns
-        dict(elbo, z_joint, joint_mu, joint_std)."""
-        noise = [None] * (self.n_mod + 1) if noise is None else list(noise)
+        dict(elbo, z_joint, joint_mu, joint_std).
+
+        With subsampling, the JAX package draws a random 0/1 mask with
+        `k_subsample` ones over `all_subsets`, from a permutation, and adds
+        every subset's ELBO times its mask entry: the same expectation as
+        the reference's k random subsets per step (mvae.py:114-130). Here the
+        mask is noise[n_mod + 1], (S,), and subset s's sample noise
+        noise[n_mod + 2 + s]; only the subsets the mask selects are
+        computed, which gives the same value and gradients."""
+        subsets = all_subsets(self.n_mod) if self.subsampling else []
+        n_noise = self.n_mod + 1 + (1 + len(subsets) if subsets else 0)
+        noise = [None] * n_noise if noise is None else list(noise)
         mus, log_vars = [], []
         elbo = 0.0
         for m, vae in enumerate(self.vaes):
@@ -76,6 +85,22 @@ class MVAE(nn.Module):
         for m, vae in enumerate(self.vaes):
             elbo = elbo + self._sq_err(m, x[m], vae.decode(z_joint))
         elbo = elbo - self._kl(joint_mu, joint_std)
+
+        if subsets:
+            mask = noise[self.n_mod + 1]
+            if mask is None:
+                sel = torch.randperm(len(subsets), generator=generator, device=joint_mu.device)
+                mask = torch.zeros(len(subsets), dtype=joint_mu.dtype, device=joint_mu.device)
+                mask[sel[: self.k_subsample]] = 1.0
+            for si in torch.nonzero(mask).flatten().tolist():
+                s = subsets[si]
+                mu, std = poe([mus[i] for i in s], [log_vars[i] for i in s])
+                sub_z = D.normal_sample(LocScale(mu, std), eps=noise[self.n_mod + 2 + si],
+                                        generator=generator)
+                term = -self._kl(mu, std)
+                for m in s:
+                    term = term + self._sq_err(m, x[m], self.vaes[m].decode(sub_z))
+                elbo = elbo + mask[si] * term
         return {"elbo": elbo, "z_joint": z_joint, "joint_mu": joint_mu, "joint_std": joint_std}
 
     def encode_all(self, x):

@@ -2,9 +2,10 @@
 (mmvae_tpu/models/registry.py). Ported: the MNIST-SVHN models (MMVAE,
 MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE), circles-squares' MMVAE and
 JMVAE-NF(-DCCA), MNIST-Fashion's MMVAE and JMVAE-NF, MNIST-Contour's
-JMVAE-NF, MedMNIST's MMVAE, JMVAE-NF(-DCCA) and MVAE, chest-SVHN's
-JMVAE-NF, and CelebA's MMVAE, MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE;
-the MNIST-SVHN-Fashion models raise NotImplementedError.
+JMVAE-NF, trimodal MNIST-SVHN-Fashion's MMVAE, JMVAE-NF(-DCCA) and MVAE,
+MedMNIST's MMVAE, JMVAE-NF(-DCCA) and MVAE, chest-SVHN's JMVAE-NF, and
+CelebA's MMVAE, MMVAE-NF, JMVAE-NF(-DCCA), MVAE and MoE-PoE: every builder
+of the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ from torch import nn
 from ..core.config import ExperimentConfig
 from ..dcca.nets import (
     LCCAWrappedEncoder, dcca_encoders_celeba, dcca_encoders_circles, dcca_encoders_medmnist,
-    dcca_encoders_mnist_svhn, identity_lcca,
+    dcca_encoders_mnist_svhn, dcca_encoders_msf, identity_lcca,
 )
 from ..flows import IAF, MAF
 from ..nets import (
     DecoderMNIST, DecoderSVHN, DoubleHeadJoint, DoubleHeadMLP, EncoderMNIST, EncoderSVHN,
-    MLPDecoder, MLPEncoder, TwoStepsEncoder,
+    MLPDecoder, MLPEncoder, MultipleHeadJoint, TwoStepsEncoder,
 )
 from ..nets.resnets import celeba_decoder, celeba_encoder, medmnist_decoder, medmnist_encoder
 from ..objectives import ModelSpec
@@ -131,10 +132,11 @@ def moepoe_mnist_svhn(cfg: ExperimentConfig) -> ModelBundle:
     return ModelBundle(model, _gaussian_ms_spec(cfg), "mnist_svhn", "moepoe_mnist_svhn", **_MS)
 
 
-def _dcca_pair(cfg, builders, dim_first: int = 16, artifacts=None):
+def _dcca_pair(cfg, builders, dim_first: int = 16, artifacts=None, fitted_lcca: bool = True):
     """DCCA-wrapped frozen trunks (dcca/models/mnist_svhn.py:97-104).
     artifacts: optional (m_list, w_list) of a fitted LinearCCA; when given,
-    the trunk width follows it."""
+    the trunk width follows it. `fitted_lcca` False: the identity
+    projection for good, the artifact's trunks alone grafted."""
     if artifacts is not None:
         dim_first = int(np.asarray(artifacts[0][0]).shape[0])
     wrapped = []
@@ -144,7 +146,8 @@ def _dcca_pair(cfg, builders, dim_first: int = 16, artifacts=None):
         else:
             # the LCCA covers the first two views only
             m, w = identity_lcca(dim_first)
-        wrapped.append(LCCAWrappedEncoder(enc, m, w, latent_dim=cfg.dim_dcca))
+        wrapped.append(LCCAWrappedEncoder(enc, m, w, latent_dim=cfg.dim_dcca,
+                                          fitted_lcca=fitted_lcca))
     return wrapped
 
 
@@ -199,7 +202,10 @@ def graft_dcca_params(model: nn.Module, dcca_npz_path: str) -> None:
     """Load the pretrained DCCA trunks of a Solver artifact into every
     first_encoder site of `model`, in place (the reference loads
     model{1,2}.pt at construction, dcca/models/mnist_svhn.py:55-58):
-    trunk i and its linear-CCA projection (m_i, w_i) go to modality i."""
+    trunk i and, where the model reads one (`fitted_lcca`), its linear-CCA
+    projection (m_i, w_i) go to modality i. The trimodal trunks keep their
+    identity projection, as in the JAX package, which grafts the trunks
+    alone."""
     from ..bridge import load_jax_params
     from ..dcca.train import load_trunk_params
 
@@ -213,8 +219,9 @@ def graft_dcca_params(model: nn.Module, dcca_npz_path: str) -> None:
             sites += [dcca[i]] if dcca is not None else []
             for site in sites:
                 load_jax_params(site.encoder, trunks[f"encoders_{i}"])
-                site.m.copy_(torch.as_tensor(npz[f"m{i}"]))
-                site.w.copy_(torch.as_tensor(npz[f"w{i}"]))
+                if site.fitted_lcca:
+                    site.m.copy_(torch.as_tensor(npz[f"m{i}"]))
+                    site.w.copy_(torch.as_tensor(npz[f"w{i}"]))
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +320,93 @@ def jnf_mnist_contour(cfg: ExperimentConfig) -> ModelBundle:
     return ModelBundle(_jnf_mnist1ch(cfg, ("mnist", "contour"), cfg.num_hidden_layers),
                        _jnf_spec(cfg), "mnist_contour", "jmvae_nf_mnist_contour",
                        shape_mods=((1, 28, 28), (1, 28, 28)), classifier_keys=("mnist", "mnist"))
+
+
+# ---------------------------------------------------------------------------
+# Trimodal MNIST-SVHN-Fashion
+# ---------------------------------------------------------------------------
+
+_MSF = dict(shape_mods=((1, 28, 28), (3, 32, 32), (1, 28, 28)),
+            classifier_keys=("mnist", "svhn", "fashion"))
+
+
+def _msf_vaes(cfg, posterior=None, with_flow=False, encoders=None):
+    """MLP VAEs for MNIST and Fashion, the conv VAE for SVHN; `encoders`
+    replaces the three encoders (DCCA's TwoStepsEncoders)."""
+    if encoders is None:
+        encoders = [MLPEncoder(latent_dim=cfg.latent_dim, in_features=1 * 28 * 28),
+                    EncoderSVHN(latent_dim=cfg.latent_dim),
+                    MLPEncoder(latent_dim=cfg.latent_dim, in_features=1 * 28 * 28)]
+    return [
+        _vae(cfg, encoders[0], MLPDecoder(latent_dim=cfg.latent_dim, output_shape=(1, 28, 28)),
+             "mnist", posterior=posterior, with_flow=with_flow),
+        _vae(cfg, encoders[1], DecoderSVHN(latent_dim=cfg.latent_dim), "svhn",
+             posterior=posterior, with_flow=with_flow),
+        _vae(cfg, encoders[2], MLPDecoder(latent_dim=cfg.latent_dim, output_shape=(1, 28, 28)),
+             "fashion", posterior=posterior, with_flow=with_flow),
+    ]
+
+
+def _msf_scaling(cfg, family: str = "mvae") -> Tuple[float, float, float]:
+    """(r, 1, r) at llik_scaling 0, r = 3*32*32 / (28*28), for both
+    families; otherwise (1, 1, 1) for MMVAE
+    (mmvae/mnist_svhn_fashion.py:52) and (llik, 1, llik) for MVAE
+    (mvae/msf.py:56)."""
+    r = (3 * 32 * 32) / (28 * 28)
+    if cfg.llik_scaling == 0:
+        return (r, 1.0, r)
+    if family == "mmvae":
+        return (1.0, 1.0, 1.0)
+    return (cfg.llik_scaling, 1.0, cfg.llik_scaling)
+
+
+def _msf_recon_dists(cfg):
+    return tuple(cfg.recon_losses) if len(cfg.recon_losses) == 3 else ("normal",) * 3
+
+
+def mmvae_msf(cfg: ExperimentConfig) -> ModelBundle:
+    """MMVAE on MNIST-SVHN-Fashion (mmvae/mnist_svhn_fashion.py)."""
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=_msf_recon_dists(cfg), lik_scaling=_msf_scaling(cfg, "mmvae"))
+    return ModelBundle(MMVAE(_msf_vaes(cfg), posterior=cfg.dist), spec, "mnist_svhn_fashion",
+                       "mmvae_msf", **_MSF)
+
+
+def jnf_msf(cfg: ExperimentConfig) -> ModelBundle:
+    """Trimodal JMVAE-NF(-DCCA) (jmvae_nf/mnist_svhn_fashion.py:50-88): a
+    MultipleHeadJoint over three 20-wide heads. With `dcca`, the three raw
+    DCCA trunks behind the identity projection, no linear CCA
+    (main_mnist_svhn_fashion.py:180), under TwoStepsEncoders. Likelihood
+    scaling (1, 1, 1) whatever the config (mnist_svhn_fashion.py:88).
+    TELBO's unimodal VAEs take the squared error for all three modalities
+    (vae_model_adapted.py:104-124): the JAX package's spec names two, so
+    that its m_telbo_nf stops with an IndexError past warmup here."""
+    joint = MultipleHeadJoint(
+        [MLPEncoder(latent_dim=20, in_features=1 * 28 * 28), EncoderSVHN(latent_dim=20),
+         MLPEncoder(latent_dim=20, in_features=1 * 28 * 28)],
+        latent_dim=cfg.latent_dim, hidden_dim=512, in_features=3 * 20,
+        num_hidden_layers=cfg.num_hidden_layers)
+    dcca, encoders = None, None
+    if cfg.dcca:
+        dcca = _dcca_pair(cfg, dcca_encoders_msf, 16, None, fitted_lcca=False)
+        encoders = [TwoStepsEncoder(d, latent_dim=cfg.latent_dim, in_features=cfg.dim_dcca)
+                    for d in dcca]
+    model = JMVAE_NF(joint, _msf_vaes(cfg, "normal", True, encoders), posterior=cfg.dist,
+                     dcca_encoders=dcca)
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior=cfg.dist,
+                     recon_dists=_msf_recon_dists(cfg), lik_scaling=(1.0, 1.0, 1.0),
+                     vae_recon_losses=("mse",) * 3, no_recon=cfg.no_recon,
+                     linear_warmup=cfg.linear_warmup)
+    return ModelBundle(model, spec, "mnist_svhn_fashion", "jmvae_nf_msf", **_MSF)
+
+
+def mvae_msf(cfg: ExperimentConfig) -> ModelBundle:
+    """Trimodal MVAE with subset subsampling, one 2-subset a step (mvae/msf.py)."""
+    model = MVAE(_msf_vaes(cfg, "normal"), lik_scaling=_msf_scaling(cfg), subsampling=True,
+                 k_subsample=1)
+    spec = ModelSpec(latent_dim=cfg.latent_dim, posterior="normal",
+                     recon_dists=("normal",) * 3, lik_scaling=_msf_scaling(cfg))
+    return ModelBundle(model, spec, "mnist_svhn_fashion", "mvae_msf", **_MSF)
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +591,9 @@ REGISTRY: Dict[str, Callable[[ExperimentConfig], ModelBundle]] = {
     "mvae_celeba": mvae_celeba,
     "moepoe_celeba": moepoe_celeba,
     "mmvae_nf_celeba": mmvae_nf_celeba,
+    "jnf_msf": jnf_msf,
+    "mmvae_msf": mmvae_msf,
+    "mvae_msf": mvae_msf,
 }
 
 

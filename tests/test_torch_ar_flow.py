@@ -25,6 +25,17 @@ from mmvae_tpu_torch.ops import ar_flow
 D, H, N_HIDDEN = 5, 8, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These sizes need no intra-op threads; under several test workers they
+    only oversubscribe the cores (a CLI epoch here took 50 times as long
+    beside five other workers as alone)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _weights(seed, d=D, h=H, n_hidden=N_HIDDEN, scale=0.5):
     """Masked MADE weights (in, out) and biases, as numpy float32."""
     rng = np.random.default_rng(seed)

@@ -17,6 +17,17 @@ from mmvae_tpu_torch.models import registry
 CONFIG = "configs/mnist_svhn/mmvae_nf_synth.json"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These sizes need no intra-op threads; under several test workers they
+    only oversubscribe the cores (a CLI epoch here took 50 times as long
+    beside five other workers as alone)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     cfg = JCfg.from_json(CONFIG)

@@ -2,7 +2,7 @@
 `configs/mnist_svhn/**/*.json` and the two `configs/ms_small/*gen*` configs
 (use_gen) pass the train CLI's check of unported features, build their
 model through the port's registry and resolve their objective; over all of
-`configs/**`, 65 of 96 do. Models are built only, with no forward pass.
+`configs/**`, all 96 do. Models are built only, with no forward pass.
 """
 
 import glob
@@ -10,6 +10,7 @@ import os
 
 import pytest
 
+from mmvae_tpu.models import registry as jreg
 from mmvae_tpu_torch.cli.train import _not_yet_ported
 from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.models import registry
@@ -57,21 +58,17 @@ def _builds(path):
 
 
 def test_census_of_every_config():
-    """85 of the repo's 96 configs pass the check, build and resolve: the 56
-    MNIST-SVHN ones, the 4 of ms_small, the 3 of circles, the 9 of MedMNIST
-    (mmvae_nf.json and moepoe.json name MNIST-SVHN builders), the 2 of
-    chest-SVHN and the 11 of CelebA. The 11 of configs/msf/ name a model of
-    MNIST-SVHN-Fashion, which the port does not have yet, and are refused by
-    that model's name."""
+    """All 96 of the repo's configs pass the check, build and resolve: the
+    56 MNIST-SVHN ones, the 4 of ms_small, the 3 of circles, the 9 of
+    MedMNIST (mmvae_nf.json and moepoe.json name MNIST-SVHN builders), the
+    2 of chest-SVHN, the 11 of CelebA and the 11 trimodal ones of
+    configs/msf/; none is refused. Every model of the JAX registry has its
+    builder."""
     every = sorted(glob.glob("configs/**/*.json", recursive=True))
     built = [p for p in every if _builds(p)]
     assert len(every) == 96
-    assert len(built) == 85, sorted(set(every) - set(built))
-    refused = sorted(set(every) - set(built))
-    assert refused == sorted(glob.glob("configs/msf/*.json")) and len(refused) == 11
-    for ds in ("circles", "medmnist", "chest_svhn", "celeba"):
+    assert len(built) == 96, sorted(set(every) - set(built))
+    for ds in ("circles", "medmnist", "chest_svhn", "celeba", "msf"):
         assert {p for p in every if p.startswith(f"configs/{ds}/")} <= set(built), ds
-    for p in refused:
-        cfg = ExperimentConfig.from_json(p)
-        with pytest.raises(NotImplementedError, match=f"model {cfg.model!r} not yet ported"):
-            registry.build(cfg)
+    assert len(glob.glob("configs/msf/*.json")) == 11
+    assert sorted(registry.REGISTRY) == sorted(jreg.REGISTRY)

@@ -808,6 +808,40 @@ def test_hmc_step_on_card_matches_f64_cpu(card):
 
 
 @pytest.mark.cuda
+def test_hmc_graph_replays_the_eager_chain(card, monkeypatch):
+    """On the card the chain evaluates ln q and its gradient by replaying one
+    captured CUDA graph: 5 HMC steps over the circles JMVAE-NF's experts
+    (4 rows x 30 chains) from the same start, momenta and accept-uniforms
+    give the samples (to 1e-6) and the acceptance of the eager evaluation,
+    and one evaluation at a new point the eager one's values (the same
+    kernels on the same inputs)."""
+    from mmvae_tpu_torch.data import synthetic
+    from mmvae_tpu_torch.eval import hmc as H
+
+    d = synthetic.make_circles_squares(dataset_size=8, n_repeat=1, seed=3)
+    _, model = _circles_jnf(card, torch.float32)
+    data = [torch.tensor(d[k][:4], device=card, dtype=torch.float32)
+            for k in ("squares_train", "circles_train")]
+    gen = torch.Generator().manual_seed(7)
+    z0, rho, u = (torch.randn(*s, generator=gen).to(card) for s in ((120, 2), (5, 120, 2),
+                                                                    (5, 120)))
+    u = u.abs() / 3
+    kw = dict(mcmc_steps=5, K=30, return_acceptance=True, z0=z0, rho=rho, u=u)
+    with torch.no_grad():
+        graphed, acc_g = H.sample_from_poe_subset(model, [0, 1], data, **kw)
+        dens = model.poe_density([0, 1], [torch.cat([x] * 30) for x in data])
+        evaluate = H._evaluator(dens, z0)
+        z1 = z0 + 0.1
+        for got, want in zip(evaluate(z1), H._log_q_and_grad(dens, z1)):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        monkeypatch.setattr(H, "_evaluator",
+                            lambda log_density, z: lambda zz: H._log_q_and_grad(log_density, zz))
+        eager, acc_e = H.sample_from_poe_subset(model, [0, 1], data, **kw)
+    torch.testing.assert_close(graphed, eager, rtol=1e-6, atol=1e-6)
+    assert float(acc_g) == float(acc_e) > 0
+
+
+@pytest.mark.cuda
 def test_circles_jnf_step_on_card_matches_f64_cpu(card):
     """A post-warmup step of jmvae_nf.json (frozen joint, no_recon) at
     latent 2, B=16, on the card against float64 on the CPU with the same
@@ -863,6 +897,41 @@ def test_jnf_mnist_fashion_step_on_card(card):
     assert torch.isfinite(loss) and details["nan_skipped"].item() == 0.0
     moved = [n for n, b in bundle.model.named_buffers() if n in stats and not torch.equal(b, stats[n])]
     assert any("vaes.0.encoder" in n for n in moved) and any("decoder" in n for n in moved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_kernels_at_latent_30(card, sign, s_bound):
+    """Both kernels at D = 30, the trimodal JMVAE-NF-DCCA and TELBO-NF
+    latent, at the rows of its paths: the forward against `unrolled_solve`
+    at a TELBO-NF step's and HMC's start's 256 rows, a validate batch's 500
+    and an IS call's 10,000; the backward with the reduction against
+    autograd through it at 256 rows and a ragged tile of 37, for x, every
+    weight and every bias."""
+    d = 30
+    ws, bs = _weights(card, seed=30, d=d)
+    gen = torch.Generator().manual_seed(31)
+    for n in (256, 37, 500, 10_000):
+        x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                      for shape in ((n, d), (n, d), (n,)))
+        with torch.no_grad():
+            y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound)
+            want = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
+        for got, ref in zip((y, ld), want):
+            torch.testing.assert_close(got, ref, **TOL)
+        if n > 256:
+            continue
+        tape = ar_flow.new_tape(x, ws)
+        y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+        gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+        gws, gbs = ar_flow.reduce_grads(tape, deltas)
+        inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+        outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
+                                      sign, s_bound)
+        grads = torch.autograd.grad(outs, inputs, (gy, gld))
+        for got, ref in zip([gx, *gws, *gbs], grads):
+            torch.testing.assert_close(got, ref.detach(), **TOL)
 
 
 @pytest.mark.cuda

@@ -281,20 +281,19 @@ def test_jax_artifact_is_refused_then_converted(solvers, tmp_path):
 
 
 def test_other_datasets_wait_for_slice_6():
-    """MNIST-SVHN-Fashion's trunks are refused by the dataset's name; those
-    of MedMNIST, chest-SVHN and CelebA build at their default widths, each
-    trunk giving the outdim-wide embedding of its modality."""
-    builder, outdim = DCCA_BUILDERS["mnist_svhn_fashion"]
-    with pytest.raises(NotImplementedError,
-                       match="DCCA trunks for 'mnist_svhn_fashion' not yet"):
-        builder(outdim)
+    """The trunks of MNIST-SVHN-Fashion (three views), MedMNIST, chest-SVHN
+    and CelebA build at their default widths, each trunk giving the
+    outdim-wide embedding of its modality."""
     shapes = {"medmnist": ((1, 28, 28), (3, 28, 28)), "chest_svhn": ((1, 28, 28), (3, 32, 32)),
-              "celeba": ((3, 64, 64), (1, 1, 40))}
+              "celeba": ((3, 64, 64), (1, 1, 40)),
+              "mnist_svhn_fashion": ((1, 28, 28), (3, 32, 32), (1, 28, 28))}
     for dataset, mods in shapes.items():
         builder, outdim = DCCA_BUILDERS[dataset]
         assert outdim == (40 if dataset == "celeba" else 16)
+        trunks = builder(outdim)
+        assert len(trunks) == len(mods)
         with torch.no_grad():
-            for trunk, shape in zip(builder(outdim), mods):
+            for trunk, shape in zip(trunks, mods):
                 out = trunk(torch.zeros((2,) + shape))
                 assert (out[0] if isinstance(out, tuple) else out).shape == (2, outdim)
 

@@ -41,6 +41,17 @@ B, K, LATENT = 8, 5, 20
 OBJECTIVES = ["m_elbo_naive", "m_elbo", "m_iwae", "m_iwae_looser", "m_dreg", "m_dreg_looser"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These sizes need no intra-op threads; under several test workers they
+    only oversubscribe the cores (a CLI epoch here took 50 times as long
+    beside five other workers as alone)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _flat(tree, prefix=()):
     for k, v in sorted(tree.items()):
         if isinstance(v, dict):

@@ -17,6 +17,17 @@ CONFIG = "configs/mnist_svhn/mmvae_synth.json"
 CONFIG_BF16 = "configs/mnist_svhn/mmvae_synth_bf16.json"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These sizes need no intra-op threads; under several test workers they
+    only oversubscribe the cores (a CLI epoch here took 50 times as long
+    beside five other workers as alone)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("config", [CONFIG, CONFIG_BF16])
 def test_cli_one_epoch_cpu(tmp_path, capsys, config):
     """mmvae_synth.json (and its bf16 twin) through the port's CLI on the

@@ -21,6 +21,17 @@ from mmvae_tpu_torch.nets import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These sizes need no intra-op threads; under several test workers they
+    only oversubscribe the cores (a CLI epoch here took 50 times as long
+    beside five other workers as alone)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _jax_init(module, x, seed=0, **kw):
     return module.init(jax.random.PRNGKey(seed), jnp.asarray(x), **kw)["params"]
 

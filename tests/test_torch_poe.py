@@ -30,6 +30,7 @@ from mmvae_tpu.objectives import objectives as jobj
 from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
 from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.models import MOEPOE, MVAE, UnimodalVAE, poe, registry
+from mmvae_tpu_torch.models.mvae import all_subsets
 from mmvae_tpu_torch.objectives import objectives as pobj
 
 # the package's __init__ exports the function `poe` under the module's name
@@ -278,12 +279,14 @@ def test_registry_functions_follow_the_config():
 
 def test_mvae_subsampling_needs_three_modalities():
     """With two modalities subsampling has no subset to draw, as in JAX; on
-    three it is the trimodal slice's, and the port says so."""
+    three modalities the model takes it, with the three 2-subsets
+    (tests/test_torch_msf_models.py holds it to JAX)."""
     cfg = ExperimentConfig.from_json(CONFIGS["mvae"])
     vaes = list(registry.build(cfg).model.vaes)
     assert MVAE(vaes, (1.0, 1.0), subsampling=True, k_subsample=1).subsampling
-    with pytest.raises(NotImplementedError, match="trimodal"):
-        MVAE(vaes + vaes[:1], (1.0, 1.0, 1.0), subsampling=True)
+    assert all_subsets(2) == [] and all_subsets(3) == [[0, 1], [0, 2], [1, 2]]
+    model = MVAE(vaes + vaes[:1], (1.0, 1.0, 1.0), subsampling=True, k_subsample=1)
+    assert model.subsampling and model.n_mod == 3
 
 
 @pytest.mark.parametrize("fam", list(CONFIGS))

@@ -15,13 +15,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    100 samples), there also through the Function under no_grad (one
    launch, no tape); the backward kernel
    (with the wrapper's reduction) against autograd through `unrolled_solve`
-   at N=128, 37 and 3840, for x, every weight and every bias. Kernel times
+   at N=128, 37 and 3840, for x, every weight and every bias, on the
+   forward kernel's hidden ReLU branches (`_check_backward`). Kernel times
    are device times (CUDA events around 20 back-to-back launches queued
    behind a device-side wait, median of 9 runs); the backward's time is the
    backward as the Function runs it, the kernel and the wrapper's reduction,
    with the kernel alone beside it. Plain times, and the kernels' call
    times with the wrapper's host work, are events around 10 back-to-back
-   calls (median of 20 runs). Then the bounds, and forward+backward
+   calls (median of 20 runs). At N=128 both kernels are timed at sign -1
+   too (IAF's density direction). Then the bounds, and forward+backward
    through the autograd Function. Then both kernels at D=2, circles-
    squares' latent width (phase_ar_solve_latent2): the forward at N=128,
    37, 120, 1,000 and 10,000, the backward at N=128 and 37, both signs,
@@ -38,8 +40,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    parameters' device and finite losses; then times steady-state steps and
    traces a few with torch.profiler.
 5. parity: one float32 training step on cuda against the same step on the
-   CPU in float64 (the reference; the CPU float32 step is reported beside
-   it), same weights and noise, TF32 off.
+   CPU in float64 on the cuda step's ReLU branches (the reference; the CPU
+   float32 step, and the float64 step on its own branches, are reported
+   beside it), same weights and noise, TF32 off.
 6. mmvae_slice: one full-width epoch of the flagship MMVAE-DReG
    (`configs/mnist_svhn/mmvae_synth.json`: Laplace posteriors, DReG-looser,
    K=30, B=128, latent 20) through the same CLI, cut to the same data scale
@@ -169,8 +172,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and TELBO-NF latent: the forward at N = 256, 500 and 10,000, the
    backward at N = 256, checked, timed and bounded as at D = 16 and 64
    (it runs after phase 3's kernel phases).
-30. msf_slice: trimodal MNIST-SVHN-Fashion through the CLIs at the
-   loader's default scale (17,874 train triples): jmvae_nf.json 2 epochs
+30. msf_slice: trimodal MNIST-SVHN-Fashion through the CLIs at half the
+   loader's default scale (8,631 train triples): jmvae_nf.json 2 epochs
    with warmup 2 and its 3x3 analytics grids (6 forward launches per
    unimodal pass over the three flows: epoch 1 its grids' 6, epoch 2 6 per
    train step and val batch, 6 backward per train step), its steady step,
@@ -183,7 +186,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch (phase_msf_slice).
 31. msf_parity: a post-warmup trimodal JMVAE-NF step on cuda in float32
    against the float64 CPU step on the card's ReLU branches.
-32. The kernels line, and last the contract line
+32. iaf_slice: jmvae_nf.json with "flow": "iaf" through the CLI for 2
+   epochs, warmup 2, with its analytics: IAF samples in parallel, so the
+   grids, the warmup epoch, validate and a likelihood batch launch
+   nothing; past warmup its density direction (compute_kld) runs the
+   forward kernel at sign -1, 4 per train step and val batch, and the
+   backward at sign -1, 4 per train step; its steady post-warmup step.
+33. tail_slice: m_jmvae, m_vaevae_kl, m_vaevae_w2, m_svae, m_multi_elbos
+   and m_telbo on jmvae_nf.json (MAF) past warmup, 7 Trainer steps each:
+   0 launches a step for m_jmvae, 4 forward and 4 backward at sign +1 for
+   the others (the VAEs' MAF sampling under autograd); the joint encoder
+   unchanged under m_jmvae and m_vaevae_*.
+34. linnf_slice: "flow": "lin_nf" on mmvae_nf_synth.json and jmvae_nf.json,
+   7 Trainer steps each, no launch.
+35. tail_parity: the post-warmup IAF JMVAE-NF step, an m_telbo and an
+   m_vaevae_w2 step and a unimodal DReG step at K=30 (MAF) on cuda in
+   float32 against the float64 CPU step on the card's ReLU branches.
+36. The kernels line (with each slice-11 path's launches at sign -1), and
+   last the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -412,6 +432,40 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
     return lambda: torch.autograd.grad(outs, inputs, (gy, gld), retain_graph=True)
 
 
+def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld):
+    """The backward kernel with the wrapper's reduction against autograd
+    through `unrolled_solve`, for x, every weight and every bias; the
+    reference takes the forward kernel's hidden ReLU branches
+    (`_ReluBranches` replaying `_kernel_branches`), each one off its own
+    branch within RELU_KINK_ATOL of 0: over thousands of rows the solve
+    evaluates millions of hidden ReLUs, and one whose pre-activation lies
+    within float32 round-off of 0 may take the other branch in either
+    version, a jump in its row's gradient. Where no branch differs, that
+    reference is autograd through `unrolled_solve` as it is; the error
+    against it on its own branches stands beside. Returns the max abs error."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    got = [gx, *gws, *gbs]
+    own = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+    with _ReluBranches(replay=_kernel_branches(tape)) as rb:
+        want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+    torch.cuda.synchronize()
+    if rb.flip_max_abs > RELU_KINK_ATOL:
+        raise AssertionError(f"ar_solve forward kernel at {what}: a hidden ReLU off its "
+                             f"branch at |x| = {rb.flip_max_abs}")
+    return _check_close(dict(kernel="backward", **what, relu_flips=rb.flips,
+                             relu_flip_max_abs=rb.flip_max_abs,
+                             max_abs_err_own_branches=max(
+                                 (a - b).abs().max().item() for a, b in zip(got, own))),
+                        list(zip(got, want)))
+
+
 def phase_ar_solve():
     import torch
 
@@ -470,21 +524,15 @@ def phase_ar_solve():
         ar_flow.new_tape = new_tape
 
     # backward kernel and the wrapper's reduction against autograd through
-    # the plain version, for x, every weight and every bias
+    # the plain version on the forward kernel's ReLU branches
     for n in (128, 37, 3840):
         x = torch.randn(n, d, generator=gen).cuda()
         gy = torch.randn(n, d, generator=gen).cuda()
         gld = torch.randn(n, generator=gen).cuda()
         for sign in (1, -1):
             for s_bound in (0.0, 8.0):
-                tape = ar_flow.new_tape(x, ws)
-                y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-                gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-                gws, gbs = ar_flow.reduce_grads(tape, deltas)
-                want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
-                torch.cuda.synchronize()
-                err = _check_close(dict(kernel="backward", n=n, sign=sign, s_bound=s_bound),
-                                   list(zip([gx, *gws, *gbs], want)))
+                err = _check_backward(dict(n=n, sign=sign, s_bound=s_bound), x, ws, bs, sign,
+                                      s_bound, gy, gld)
                 if n == 128:
                     bwd_err = max(bwd_err, err)
 
@@ -541,6 +589,23 @@ def phase_ar_solve():
           "kernel_ms": b_ms, "kernel_call_ms": b_call_ms, "plain_ms": pb_ms,
           "recording_forward_ms": rec_ms, "flops": b_flops, "bytes": b_bytes,
           "bound_ms": b_bound_ms, "bound_by": b_bound_by, "roofline_share": b_bound_ms / br_ms})
+
+    # the same at sign -1, IAF's density direction
+    y_m, _ = ar_flow.kernel_forward(x, ws, bs, -1, 0.0, tape=tape)
+
+    def bwd_reduce_minus():
+        _, deltas = ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)
+        ar_flow.reduce_grads(tape, deltas)
+
+    with torch.no_grad():
+        minus = dict(ms=device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, -1, 0.0)),
+                     plain_ms=cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, -1, 0.0)))
+    minus_bwd = dict(ms=device_time_ms(bwd_reduce_minus), kernel_ms=device_time_ms(
+        lambda: ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)),
+        plain_ms=cuda_time_ms(_plain_vjp(x, ws, bs, -1, 0.0, gy, gld)))
+    results["sign_minus_n128"] = dict(forward=minus, backward=minus_bwd)
+    emit({"phase": "ar_solve_time", "sign": -1, "n": n, "forward": minus, "backward": minus_bwd,
+          "forward_bound_ms": results[128]["bound_ms"], "backward_bound_ms": b_bound_ms})
 
     xg = x.clone().requires_grad_(True)
     params = [p.detach().clone().requires_grad_(True) for p in (*ws, *bs)]
@@ -602,15 +667,9 @@ def phase_ar_solve_latent2():
         gld = torch.randn(n, generator=gen).cuda()
         for sign in (1, -1):
             for s_bound in (0.0, 8.0):
-                tape = ar_flow.new_tape(x, ws)
-                y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-                gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-                gws, gbs = ar_flow.reduce_grads(tape, deltas)
-                want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
-                torch.cuda.synchronize()
-                errs["backward"] = max(errs["backward"], _check_close(
-                    dict(kernel="backward", d=d, n=n, sign=sign, s_bound=s_bound),
-                    list(zip([gx, *gws, *gbs], want))))
+                errs["backward"] = max(errs["backward"], _check_backward(
+                    dict(d=d, n=n, sign=sign, s_bound=s_bound), x, ws, bs, sign, s_bound, gy,
+                    gld))
 
     n_w = sum(w.numel() for w in ws)
     n_b = sum(b.numel() for b in bs)
@@ -682,6 +741,14 @@ def _data_loaders(cfg):
     return get_dataloaders(dataset, batch_size=cfg.batch_size, **loader_kwargs(cfg, dataset))
 
 
+def _reset_counts():
+    """Set the ar_solve launch counts, those at sign -1 too, to 0."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    a = ar_flow.ar_solve
+    a.launches = a.backward_launches = a.sign_minus_launches = a.sign_minus_backward_launches = 0
+
+
 def _cli_epoch(tmp, config, analytics=False, **overrides):
     """`config`, cut as _slice_config cuts it (one epoch unless `overrides`
     say otherwise), through the port's CLI on cuda, with the ar_solve counts
@@ -711,6 +778,8 @@ def _cli_epoch(tmp, config, analytics=False, **overrides):
         torch.cuda.synchronize()
         epochs.append({"epoch": epoch, "launches": ar_flow.ar_solve.launches,
                        "backward_launches": ar_flow.ar_solve.backward_launches,
+                       "sign_minus": (ar_flow.ar_solve.sign_minus_launches,
+                                      ar_flow.ar_solve.sign_minus_backward_launches),
                        "params": {n: p.detach().clone()
                                   for n, p in trainer.model.named_parameters()}})
 
@@ -727,7 +796,7 @@ def _cli_epoch(tmp, config, analytics=False, **overrides):
     torch.cuda.reset_peak_memory_stats()
     Trainer.fit = fit_with_probe
     try:
-        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         run_path = train_main(["--config-path", cfg_path, "--experiments-dir",
                                os.path.join(tmp, "experiments"), "--device", "cuda"])
@@ -756,17 +825,16 @@ def _cli_epoch(tmp, config, analytics=False, **overrides):
             "losses_finite": finite, "nan_skipped_fraction": skipped_steps / (steps * len(metrics)),
             "epoch_wall_s_incl_setup": wall, "peak_mem_bytes": peak,
             "launches_by_epoch": [(e["launches"], e["backward_launches"]) for e in epochs],
+            "sign_minus_launches_by_epoch": [e["sign_minus"] for e in epochs],
             "callback_launches_by_epoch": [e["launches"] - b
                                            for e, b in zip(epochs, before_callbacks)]}
     return cfg, train_loader, info, epochs
 
 
-def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
-    """Steady-state train step and eval batch at the epoch's shapes,
-    outside the counted run: host clock over `n_timed` steps after
-    `n_warm`, then a torch.profiler trace of 5 steps. `epoch` selects the
-    warmup phase (epoch < warmup) or the one after it, with the optimizer
-    the Trainer resets to there."""
+def _trainer_batches(cfg, train_loader, epoch, n):
+    """A Trainer of `cfg` on cuda with its initial weights and the
+    optimizer it runs at `epoch` (Adam after a warmup's reset, AMSGrad
+    before), and the first `n` train batches gathered on the card."""
     import torch
 
     from mmvae_tpu_torch.models import registry
@@ -778,8 +846,19 @@ def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
     past = epoch >= cfg.warmup
     trainer.init_opt_state(past_warmup=past, amsgrad=not (past and cfg.warmup > 0))
     pipeline = trainer.make_device_pipeline(train_loader)
-    batches = [pipeline.gather(torch.from_numpy(r).cuda())
-               for r in list(pipeline.epoch_index_batches())[:n_warm + n_timed]]
+    return trainer, [pipeline.gather(torch.from_numpy(r).cuda())
+                     for r in list(pipeline.epoch_index_batches())[:n]]
+
+
+def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
+    """Steady-state train step and eval batch at the epoch's shapes,
+    outside the counted run: host clock over `n_timed` steps after
+    `n_warm`, then a torch.profiler trace of 5 steps. `epoch` selects the
+    warmup phase (epoch < warmup) or the one after it, with the optimizer
+    the Trainer resets to there."""
+    import torch
+
+    trainer, batches = _trainer_batches(cfg, train_loader, epoch, n_warm + n_timed)
     for xs in batches[:n_warm]:
         trainer.train_step(xs, cfg.learning_rate, epoch=epoch)
     torch.cuda.synchronize()
@@ -965,59 +1044,12 @@ def _step_errors(run, ref, names):
 
 
 def phase_parity(tmp):
-    """One training step on cuda (float32) against the same step on the
-    CPU, from the same bridged weights and noise. The reference is the CPU
-    step in float64; the CPU float32 step is reported beside it."""
-    import numpy as np
-    import torch
-
-    from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
-    from mmvae_tpu_torch.core.config import ExperimentConfig
-    from mmvae_tpu_torch.data import get_dataloaders
-    from mmvae_tpu_torch.models import registry
-    from mmvae_tpu_torch.train import Trainer
-
-    cfg_path, raw = _slice_config(tmp)
-    cfg = ExperimentConfig.from_json(cfg_path)
-    train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
-                                         data_path=cfg.data_path,
-                                         synthetic_n=raw["synthetic_n"])
-    xs_np, _ = next(iter(train_loader))
-    rng = np.random.default_rng(0)
-    eps_np = [rng.standard_normal((cfg.batch_size, cfg.latent_dim)).astype(np.float32)
-              for _ in xs_np]
-
-    out, weights, names = {}, None, None
-    for run, dev, dtype in (("cpu_f64", "cpu", torch.float64), ("cpu_f32", "cpu", torch.float32),
-                            ("cuda_f32", "cuda", torch.float32)):
-        bundle = registry.build(cfg)
-        trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
-        if weights is None:
-            trainer.init_parameters()
-            weights = export_jax_params(trainer.model)
-            names = [n for n, _ in trainer.model.named_parameters()]
-        else:
-            load_jax_params(trainer.model, weights)
-        trainer.init_opt_state()
-        xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
-        eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
-        obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps)
-        grads = torch.autograd.grad(obj, list(trainer.model.parameters()))
-        loss, details = trainer.train_step(xs, cfg.learning_rate, noise=eps)
-        out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
-                        loss=loss.item(), skipped=details["nan_skipped"].item(),
-                        stepped=trainer.opt.count.item())
-
-    ref = out["cpu_f64"]
-    cuda, cpu32 = (_step_errors(out[run], ref, names) for run in ("cuda_f32", "cpu_f32"))
-    ok = (cuda["objective_rel_err"] <= STEP_OBJ_RTOL and cuda["loss_rel_err"] <= STEP_OBJ_RTOL
-          and cuda["grad_max_rel_err"] <= STEP_GRAD_TOL
-          and all(r["skipped"] == 0.0 and r["stepped"] == 1 for r in out.values()))
-    emit({"phase": "parity", "reference": "cpu float64", "objective_ref": ref["obj"],
-          "objective_cuda": out["cuda_f32"]["obj"], "cuda_f32": cuda, "cpu_f32": cpu32,
-          "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
-    if not ok:
-        raise AssertionError("the cuda training step disagrees with the float64 cpu step")
+    """One MMVAE-NF training step on cuda (float32) against the same step on
+    the CPU in float64, from the same bridged weights and noise, on the
+    cuda step's ReLU branches, the flow kernels' included (`_step_parity`
+    with align_relu); the CPU float32 step, and the error against the
+    float64 step on its own branches, beside."""
+    _step_parity(tmp, CONFIG, 2, "parity", align_relu=True)
 
 
 def phase_mmvae_parity(tmp):
@@ -1115,17 +1147,23 @@ def _moved(epochs, prefixes):
     return [n for n in names if not torch.equal(before[n], after[n])], len(names)
 
 
-def _frozen_slice(tmp, config, phase, objective):
-    """`config` (a JMVAE-NF model, fix_jencoder and fix_decoders) through
-    the CLI for 2 epochs, warmup 2: no ar_solve launch in the warmup epoch;
-    past it 4 forward kernels per train step and per val batch and 4
-    backward kernels per train step; the joint encoder and decoders frozen
-    bit for bit, the unimodal encoders and the MADE blocks moved."""
-    cfg, train_loader, info, epochs = _cli_epoch(tmp, config, **JNF_RUN)
+def _frozen_slice(tmp, config, phase, objective, analytics=False, sign=1, **overrides):
+    """`config` (a JMVAE-NF model, fix_jencoder and fix_decoders; cut by
+    `overrides`, with its own analytics if `analytics`) through the CLI for
+    2 epochs, warmup 2: no ar_solve launch in the warmup epoch, its grids'
+    included; past it 4 forward kernels per train step and per val batch
+    and 4 backward kernels per train step, every one at `sign` (+1: MAF's
+    sampling direction; -1: IAF's density direction); the joint encoder and
+    decoders frozen bit for bit, the unimodal encoders and the MADE blocks
+    moved."""
+    cfg, train_loader, info, epochs = _cli_epoch(tmp, config, analytics,
+                                                 **{**JNF_RUN, **overrides})
     steps, val_batches = info["train_steps"], info["val_batches"]
     (w_fwd, w_bwd), (fwd, bwd) = info["launches_by_epoch"]
     post = (fwd - w_fwd, bwd - w_bwd)
     expected = (4 * (steps + val_batches), 4 * steps)
+    minus = info["sign_minus_launches_by_epoch"][-1]
+    expected_minus = expected if sign < 0 else (0, 0)
     moved, n_frozen = _moved(epochs, ("joint_encoder", "decoder"))
     trained, _ = _moved(epochs, ("",))
     unimodal = {p: any(n.startswith(p) for n in trained)
@@ -1134,20 +1172,24 @@ def _frozen_slice(tmp, config, phase, objective):
     emit({"phase": phase, "model": cfg.model, "objective": objective,
           **{k: v for k, v in info.items() if k != "launches_by_epoch"},
           "warmup_epoch_launches": [w_fwd, w_bwd], "post_warmup_launches": list(post),
-          "expected_post_warmup_launches": list(expected),
+          "expected_post_warmup_launches": list(expected), "sign": sign,
+          "launches_at_sign_minus": list(minus), "expected_at_sign_minus": list(expected_minus),
           "frozen_params_compared": n_frozen, "frozen_params_moved": moved,
           "params_moved_in_epoch_2": len(trained), "unimodal_moved": unimodal})
-    if (w_fwd, w_bwd) != (0, 0) or post != expected or (steps, val_batches) != (68, 7):
+    if (w_fwd, w_bwd) != (0, 0) or post != expected or (steps, val_batches) != (68, 7) \
+            or minus != expected_minus:
         raise AssertionError(f"{phase}: warmup epoch launched {(w_fwd, w_bwd)} ar_solve kernels "
                              f"(expected none); epoch 2 {post} for {steps}+{val_batches} batches "
-                             f"(expected {expected}, 68+7)")
+                             f"(expected {expected}, 68+7), {minus} at sign -1 "
+                             f"(expected {expected_minus})")
     if moved or not n_frozen or not all(unimodal.values()):
         raise AssertionError(f"{phase} epoch 2: frozen parameters moved: {moved[:5]}; "
                              f"unimodal encoders and MADE blocks moved: {unimodal}")
     if not info["params_on_cuda"] or not info["losses_finite"] or info["nan_skipped_fraction"]:
         raise AssertionError(f"{phase}: params on cuda {info['params_on_cuda']}, finite losses "
                              f"{info['losses_finite']}, skipped {info['nan_skipped_fraction']:.1%}")
-    return train_loader, dict(launches=post[0], bwd_launches=post[1], run_path=info["run_path"])
+    return train_loader, dict(launches=post[0], bwd_launches=post[1], run_path=info["run_path"],
+                              sign_minus=minus)
 
 
 def phase_jnf_slice(tmp):
@@ -1278,19 +1320,22 @@ class _SolveBranches:
 
 
 def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
-                 grad_tol=STEP_GRAD_TOL, **details):
+                 grad_tol=STEP_GRAD_TOL, unimodal=None, **details):
     """One training step of `config` (cut by `overrides`) at epoch
     max(warmup, 1), past any warmup, on cuda in float32 against
     the same step on the CPU in float64 (the CPU float32 step beside it),
     the same weights and `n_noise` standard-normal draws of (B, latent), or
     draws of the shapes `n_noise` lists: the objective and
-    every trainable parameter's gradient (those of the phase's freezing),
-    the loss, and one optimizer step taken, none skipped. With
-    `align_relu` the reference is the float64 step on the float32 cuda
-    step's ReLU branches (`_ReluBranches`; the ar_solve kernels' hidden
-    ReLUs read from their tapes, `_SolveBranches`), each element on another
-    branch than its own within RELU_KINK_ATOL of 0; the errors against the
-    float64 step on its own branches stand beside."""
+    every trainable parameter's gradient (those of the phase's freezing;
+    0 for one the objective does not reach), the loss, and one optimizer
+    step taken, none skipped. With `align_relu` the reference is the
+    float64 step on the float32 cuda step's ReLU branches (`_ReluBranches`;
+    the ar_solve kernels' hidden ReLUs read from their tapes,
+    `_SolveBranches`), each element on another branch than its own within
+    RELU_KINK_ATOL of 0; the errors against the float64 step on its own
+    branches stand beside. `unimodal` m: the step of the built model's
+    unimodal VAE m alone on its modality (a Trainer with multimodal False,
+    the config's objective unimodal, one draw)."""
     import contextlib
 
     import numpy as np
@@ -1299,12 +1344,23 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
     from mmvae_tpu_torch.bridge import export_jax_params, load_jax_params
     from mmvae_tpu_torch.core.config import ExperimentConfig
     from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.objectives import ModelSpec
     from mmvae_tpu_torch.train import Trainer, freezing
 
     cfg_path, raw = _slice_config(tmp, config, **(overrides or {}))
     cfg = ExperimentConfig.from_json(cfg_path)
     train_loader, _, _ = _data_loaders(cfg)
     xs_np, _ = next(iter(train_loader))
+
+    def build(dtype, dev):
+        bundle = registry.build(cfg)
+        if unimodal is None:
+            return Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
+        vae, spec = bundle.model.vaes[unimodal], bundle.spec
+        spec = ModelSpec(latent_dim=spec.latent_dim, posterior=vae.posterior,
+                         recon_dists=(spec.recon_dists[unimodal],))
+        return Trainer(vae.to(dtype), spec, cfg, multimodal=False, device=dev)
+
     rng = np.random.default_rng(0)
     shapes = ([(cfg.batch_size, cfg.latent_dim)] * n_noise if isinstance(n_noise, int)
               else n_noise)
@@ -1316,8 +1372,7 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
             ("cpu_f64", "cpu", torch.float64)]
     for run, dev, dtype in runs + ([("cpu_f64_on_cuda_branches", "cpu", torch.float64)]
                                    if align_relu else []):
-        bundle = registry.build(cfg)
-        trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=dev)
+        trainer = build(dtype, dev)
         if weights is None:
             trainer.init_parameters()
             weights = export_jax_params(trainer.model)
@@ -1331,6 +1386,8 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
         named = dict(trainer.model.named_parameters())
         xs = [torch.tensor(x).to(dev, dtype) for x in xs_np]
         eps = [torch.tensor(e).to(dev, dtype) for e in eps_np]
+        if unimodal is not None:
+            xs, eps = xs[unimodal], eps[0]
         replay = branches["cuda_f32"].masks if run.endswith("branches") else None
         branches[run] = _ReluBranches(replay) if align_relu else contextlib.nullcontext()
         kernels = (_SolveBranches(branches[run]) if align_relu and run == "cuda_f32"
@@ -1338,7 +1395,9 @@ def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
         with branches[run], kernels:
             obj, _ = trainer.obj_fn(trainer.model, xs, trainer.spec, noise=eps,
                                     **trainer._obj_kwargs(1.0, epoch))
-            grads = torch.autograd.grad(obj, [named[n] for n in trainable])
+            params = [named[n] for n in trainable]
+            grads = torch.autograd.grad(obj, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         loss, step_details = trainer.train_step(xs, cfg.learning_rate, epoch=epoch, noise=eps)
         out[run] = dict(obj=obj.item(), grads=[g.double().cpu() for g in grads],
                         loss=loss.item(), skipped=step_details["nan_skipped"].item(),
@@ -1598,7 +1657,7 @@ def _counted(fn, *args):
 
     log = io.StringIO()
     torch.cuda.synchronize()
-    ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         out = fn(*args)
@@ -2297,6 +2356,8 @@ CIRCLES = {name: os.path.join(ROOT, "configs", "circles", f"{name}.json")
 # (published 30), the first in warmup (published 15): past_warmup is epoch
 # >= warmup, so warmup 1 would leave no warmup epoch
 CIRCLES_JNF_RUN = dict(epochs=2, warmup=2)
+# the circles step parities' batch, cut for time (a train batch is 128)
+CIRCLES_PARITY_B = 32
 CIRCLES_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence",
                                 "neg_entropy"])
 MS_VALIDATE_KEYS = sorted(["acc_0_1", "acc_1_0", "fid_0", "fid_1", "joint_coherence"])
@@ -2593,9 +2654,10 @@ def _radius_parity(models, data_np, n, noise_np, true_radii=None):
 
 def phase_circles_parity(tmp, jnf_run):
     """circles-squares on the card against float64 on the CPU: one
-    MMVAE-DReG training step (K=10, B=128; its two modalities' (K, B, 2)
-    noise), one post-warmup JMVAE-NF step (frozen joint, no_recon); on the
-    trained JMVAE-NF run, one HMC step over the product of experts at the
+    MMVAE-DReG training step (K=10, B=32; its two modalities' (K, B, 2)
+    noise), one post-warmup JMVAE-NF step (frozen joint, no_recon; B=32),
+    both on the cuda step's ReLU branches (`_step_parity` with
+    align_relu); on the trained JMVAE-NF run, one HMC step over the product of experts at the
     PoE figure's shape (4 test pairs x 30 chains) from the same modality
     choice, start noise, momenta and accept-uniforms, whose start runs the
     forward kernel on the card (4 launches); and the radius read-outs:
@@ -2610,11 +2672,12 @@ def phase_circles_parity(tmp, jnf_run):
     from mmvae_tpu_torch.eval import hmc as H
     from mmvae_tpu_torch.ops import ar_flow
 
-    cut = dict(synthetic_n=None, dataset_size=500)  # 10,000 pairs: one batch is needed
-    _step_parity(tmp, CIRCLES["mmvae"], [(10, 128, 2)] * 2, "circles_mmvae_parity", cut,
-                 grad_tol=MMVAE_GRAD_TOL)
+    # 10,000 pairs: one batch is needed
+    cut = dict(synthetic_n=None, dataset_size=500, batch_size=CIRCLES_PARITY_B)
+    _step_parity(tmp, CIRCLES["mmvae"], [(10, CIRCLES_PARITY_B, 2)] * 2,
+                 "circles_mmvae_parity", cut, align_relu=True, grad_tol=MMVAE_GRAD_TOL)
     _step_parity(tmp, CIRCLES["jmvae_nf"], 2, "circles_jnf_parity", {**cut, **CIRCLES_JNF_RUN},
-                 frozen_joint=True, no_recon=True)
+                 align_relu=True, frozen_joint=True, no_recon=True)
 
     cfg, bundle, (_, test_l, val_l) = reload_model(jnf_run, 500, "cuda")
     models = {"cuda_f32": (bundle.model, "cuda", torch.float32),
@@ -2804,13 +2867,7 @@ def _ar_solve_at(widths):
     the backward's at its timed rows, beside their plain versions and their
     bounds (D - 1 per-row passes, `solve_flops`, `vjp_flops`). The
     backward's reference takes the forward kernel's hidden ReLU branches
-    (`_ReluBranches` replaying `_kernel_branches`), each one off its own
-    branch within RELU_KINK_ATOL of 0: over thousands of rows the solve
-    evaluates millions of hidden ReLUs, and one whose pre-activation lies
-    within float32 round-off of 0 may take the other branch in either
-    version, a jump in its row's gradient. Where no branch differs, that
-    reference is autograd through `unrolled_solve` as it is; the error
-    against it on its own branches stands beside."""
+    (`_check_backward`)."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
@@ -2835,26 +2892,9 @@ def _ar_solve_at(widths):
                     torch.cuda.synchronize()
                     errs[d]["forward"] = max(errs[d]["forward"], _check_close(
                         dict(kernel="forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
-                    if n not in bwd_rows:
-                        continue
-                    tape = ar_flow.new_tape(x, ws)
-                    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-                    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-                    gws, gbs = ar_flow.reduce_grads(tape, deltas)
-                    got = [gx, *gws, *gbs]
-                    own = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
-                    with _ReluBranches(replay=_kernel_branches(tape)) as rb:
-                        want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
-                    torch.cuda.synchronize()
-                    if rb.flip_max_abs > RELU_KINK_ATOL:
-                        raise AssertionError(f"ar_solve forward kernel at {what}: a hidden ReLU "
-                                             f"off its branch at |x| = {rb.flip_max_abs}")
-                    errs[d]["backward"] = max(errs[d]["backward"], _check_close(
-                        dict(kernel="backward", **what, relu_flips=rb.flips,
-                             relu_flip_max_abs=rb.flip_max_abs,
-                             max_abs_err_own_branches=max(
-                                 (a - b).abs().max().item() for a, b in zip(got, own))),
-                        list(zip(got, want))))
+                    if n in bwd_rows:
+                        errs[d]["backward"] = max(errs[d]["backward"], _check_backward(
+                            what, x, ws, bs, sign, s_bound, gy, gld))
 
         n_w = sum(w.numel() for w in ws)
         n_b = sum(b.numel() for b in bs)
@@ -2918,11 +2958,13 @@ def _jnf_expected(info):
     return [(0, 0), (4 * (steps + val_b), 4 * steps)]
 
 
-def _likelihood_batch(run, name, rows=500, n_mod=2):
+def _likelihood_batch(run, name, rows=500, n_mod=2, sequential_sampling=True):
     """compute_likelihoods --bis on cuda at EVAL_K on the first test batch
     of `rows`: finite values, JAX's names, the ordered pairs of the n_mod
     modalities x 2 MAF blocks x 2 estimators x the K-chunks x the IS calls
-    of the batch forward launches, none backward. The metrics: each ordered
+    of the batch forward launches, none backward; none at all where the
+    flows sample in parallel (not `sequential_sampling`: IAF, whose
+    sequential direction no estimator takes). The metrics: each ordered
     pair's conditional and bis likelihoods, the joint likelihood and, with
     three modalities, cond_lw_subset of each."""
     from mmvae_tpu_torch.cli import compute_likelihoods
@@ -2932,7 +2974,7 @@ def _likelihood_batch(run, name, rows=500, n_mod=2):
         "--batch-size", str(rows), "--max-batches", "1", "--bis", "--device", "cuda"])
     calls = -(-rows // (EVAL_IS_ROWS // EVAL_BK))
     pairs = n_mod * (n_mod - 1)
-    expected = (pairs * 2 * 2 * (EVAL_K // EVAL_BK) * calls, 0)
+    expected = (pairs * 2 * 2 * (EVAL_K // EVAL_BK) * calls * sequential_sampling, 0)
     values = {k: v["mean"] for k, v in summary.items()}
     n_metrics = 2 * pairs + 1 + (n_mod if n_mod == 3 else 0)
     ok = (got == expected and all(math.isfinite(v) for v in values.values())
@@ -3154,12 +3196,13 @@ def phase_resnet_parity(tmp):
                      align_relu=True, frozen_joint=True, no_recon=False)
 
 
-# trimodal MNIST-SVHN-Fashion: its published configs at full width, at the
-# loader's default synthetic scale (synthetic_n 4,096: 17,874 train triples,
-# 4,690 test, 1,986 val)
+# trimodal MNIST-SVHN-Fashion: its published configs at full width, at half
+# the loader's default synthetic scale, cut for time (synthetic_n 2,048: 8,631
+# train triples, 2,225 test, 959 val; the default 4,096 gives 17,874, 4,690,
+# 1,986)
 MSF = {name: os.path.join(ROOT, "configs", "msf", f"{name}.json")
        for name in ("jmvae_nf", "jmvae_nf_dcca", "telbo_nf", "mmvae", "mvae")}
-MSF_SCALE = dict(synthetic_n=None)
+MSF_SCALE = dict(synthetic_n=2048)
 MSF_JNF_RUN = dict(JNF_RUN, **MSF_SCALE)
 # TELBO-NF: one epoch, past its warmup from the first (published 200, 100)
 MSF_TELBO_RUN = dict(MSF_SCALE, epochs=1, warmup=1, skip_warmup=False)
@@ -3209,7 +3252,7 @@ def _msf_validate(run, exp, name, poe=None):
 def phase_msf_slice(tmp):
     """Trimodal MNIST-SVHN-Fashion through the CLIs on cuda at full width
     (MLP MNIST and Fashion nets, the SVHN conv nets; B=128, latent 20) at
-    the loader's default scale. jmvae_nf.json (a MultipleHeadJoint over
+    half the loader's default scale (MSF_SCALE). jmvae_nf.json (a MultipleHeadJoint over
     three 20-wide heads, 2 MAF blocks of 3x128 per modality) for 2 epochs
     with warmup 2 and its epoch-1 analytics (the 3x3 cond_samples grids
     and generate_001.png): epoch 1 launches only its grids' 6; epoch 2 6
@@ -3306,6 +3349,163 @@ def phase_msf_parity(tmp):
                  align_relu=True, frozen_joint=True, no_recon=False)
 
 
+# slice 11: the objectives and flows that no config selects, on
+# configs/mnist_svhn/jmvae_nf.json at full width with one key changed (the
+# MNIST-SVHN stand-in at synthetic_n 2,048, as the other MNIST-SVHN paths)
+IAF_RUN = dict(JNF_RUN, flow="iaf", experiment="jmvae_nf_iaf/mnist_svhn")
+TAIL_OBJECTIVES = ("jmvae", "vaevae_kl", "vaevae_w2", "svae", "multi_elbos", "telbo")
+# forward (and as many backward) launches per train step: each VAE's
+# forward samples through its 2 MAF blocks under autograd (2 modalities);
+# m_jmvae runs the unimodal encoders alone
+TAIL_LAUNCHES = {obj: 0 if obj == "jmvae" else 4 for obj in TAIL_OBJECTIVES}
+TAIL_WARM, TAIL_TIMED = 2, 5
+# the unimodal DReG step's draw: K=30 samples of B=128 rows at latent 20
+DREG_PARITY_DRAW = (30, 128, 20)
+
+
+def _counted_steps(cfg, train_loader, epoch=1):
+    """TAIL_WARM + TAIL_TIMED train steps of `cfg` through the port's
+    Trainer on cuda at `epoch` (with the optimizer the Trainer runs there),
+    the ar_solve counts set to 0 just before the first and read just after
+    the last: the host ms of a timed step, the launches and those at sign
+    -1, finite losses, the skipped steps, and the joint encoder's
+    parameters that moved (of how many)."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    trainer, batches = _trainer_batches(cfg, train_loader, epoch, TAIL_WARM + TAIL_TIMED)
+    joint = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+             if n.startswith("joint_encoder")}
+    losses, skipped = [], 0.0
+    torch.cuda.synchronize()
+    _reset_counts()
+    for i, xs in enumerate(batches):
+        if i == TAIL_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, details = trainer.train_step(xs, cfg.learning_rate, epoch=epoch)
+        losses.append(loss)
+        skipped += float(details["nan_skipped"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TAIL_TIMED
+    a, named = ar_flow.ar_solve, dict(trainer.model.named_parameters())
+    return dict(objective=trainer.obj_name, steps=len(batches), train_step_ms=step_s * 1e3,
+                launches=(a.launches, a.backward_launches),
+                sign_minus=(a.sign_minus_launches, a.sign_minus_backward_launches),
+                losses_finite=all(bool(torch.isfinite(l)) for l in losses), skipped=skipped,
+                joint_params=len(joint),
+                joint_moved=[n for n, p in joint.items() if not torch.equal(p, named[n])])
+
+
+def phase_iaf_slice(tmp):
+    """jmvae_nf.json with "flow": "iaf" (latent 20, B=128, 2 IAF blocks of
+    3x128 per modality) through the CLI for 2 epochs, warmup 2, with its
+    epoch-1 analytics (`_frozen_slice` at sign -1): IAF samples in
+    parallel, so its grids and the warmup epoch launch nothing; past warmup
+    compute_kld's flow density (IAF.forward, the sequential solve at sign
+    -1) launches 4 forward kernels per train step and val batch and 4
+    backward per train step. Its steady post-warmup step; validate and one
+    likelihood batch, which sample through IAF's parallel direction and
+    launch nothing. Returns (launches by path, those at sign -1)."""
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+
+    loader, out = _frozen_slice(tmp, JNF, "iaf_slice", "m_jmvae_nf", analytics=True, sign=-1,
+                                flow="iaf", experiment=IAF_RUN["experiment"])
+    cfg = ExperimentConfig.from_json(_slice_config(tmp, JNF, **IAF_RUN)[0])
+    _, _, step_s, eval_ms, prof = _steady_steps(cfg, loader, epoch=cfg.warmup)
+    emit({"phase": "iaf_slice_time", "epoch": cfg.warmup, "train_step_ms": step_s * 1e3,
+          "steps_per_s": 1.0 / step_s, "eval_batch_ms": eval_ms, **prof})
+    ok, info = _validate_counted(out["run_path"], os.path.join(tmp, "experiments"), (0, 0),
+                                 MS_VALIDATE_KEYS)
+    emit({"phase": "iaf_validate", **info, "ok": ok})
+    if not ok:
+        raise AssertionError(f"validate on the IAF run: {info}")
+    lik = _likelihood_batch(out["run_path"], "iaf", sequential_sampling=False)
+    return ({"iaf": (out["launches"], out["bwd_launches"]), "validate_iaf": (0, 0),
+             "likelihoods_iaf": lik}, {"iaf": out["sign_minus"]})
+
+
+def phase_tail_slice(tmp):
+    """The six multimodal objectives that no config selects, each on
+    jmvae_nf.json (2 MAF blocks of 3x128 per modality) with its "obj", past
+    warmup (warmup 0: JAX's past_warmup is epoch >= warmup), for a few
+    train steps through the Trainer on cuda (`_counted_steps`): per step
+    TAIL_LAUNCHES forward and as many backward kernels, at sign +1; finite
+    losses, no skipped step; the joint encoder bit-unchanged under m_jmvae
+    (frozen past warmup) and m_vaevae_* (never reached: zero gradients),
+    moved under the others. Returns (launches by path, those at sign -1,
+    the train loader)."""
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+
+    loader, out, minus = None, {}, {}
+    for obj in TAIL_OBJECTIVES:
+        cfg = ExperimentConfig.from_json(
+            _slice_config(tmp, JNF, obj=obj, warmup=0, skip_warmup=False)[0])
+        if loader is None:
+            loader = _data_loaders(cfg)[0]
+        r = _counted_steps(cfg, loader)
+        expected = (TAIL_LAUNCHES[obj] * r["steps"],) * 2
+        keeps_joint = obj == "jmvae" or obj.startswith("vaevae")
+        ok = (r["launches"] == expected and r["sign_minus"] == (0, 0) and r["losses_finite"]
+              and not r["skipped"] and r["joint_params"] > 0
+              and (not r["joint_moved"]) == keeps_joint)
+        emit({"phase": "tail_slice", **{k: v for k, v in r.items() if k != "joint_moved"},
+              "expected_launches": list(expected), "joint_params_moved": len(r["joint_moved"]),
+              "joint_kept": keeps_joint, "ok": ok})
+        if not ok:
+            raise AssertionError(f"tail_slice m_{obj}: {r}, expected launches {expected}")
+        out[f"tail_{obj}"], minus[f"tail_{obj}"] = r["launches"], r["sign_minus"]
+    return out, minus, loader
+
+
+def phase_linnf_slice(tmp, loader):
+    """"flow": "lin_nf" (a LinearNF of planar, radial, planar per VAE) on
+    mmvae_nf_synth.json and on jmvae_nf.json past warmup (warmup 0:
+    compute_kld takes its density stand-in, the same map), a few train
+    steps each through the Trainer on cuda: no ar_solve launch, that 0
+    checked; finite losses, no skipped step."""
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.flows import LinearNF
+    from mmvae_tpu_torch.models import registry
+
+    out = {}
+    for name, config in (("mmvae_nf", CONFIG), ("jnf", JNF)):
+        cfg = ExperimentConfig.from_json(
+            _slice_config(tmp, config, flow="lin_nf", warmup=0, skip_warmup=False)[0])
+        flows = [type(v.flow) for v in registry.build(cfg).model.vaes]
+        r = _counted_steps(cfg, loader)
+        ok = (r["launches"] == (0, 0) and r["losses_finite"] and not r["skipped"]
+              and flows == [LinearNF] * 2)
+        emit({"phase": "linnf_slice", "config": os.path.basename(config),
+              **{k: v for k, v in r.items() if k != "joint_moved"},
+              "expected_launches": [0, 0], "flows": [f.__name__ for f in flows], "ok": ok})
+        if not ok:
+            raise AssertionError(f"linnf_slice {name}: {r}, flows {flows}")
+        out[f"linnf_{name}"] = r["launches"]
+    return out
+
+
+def phase_tail_parity(tmp):
+    """Four steps on cuda in float32 against the float64 CPU step on the
+    cuda step's ReLU branches, the flow kernels' included (`_step_parity`
+    with align_relu): the post-warmup IAF JMVAE-NF step (both kernels at
+    sign -1 under autograd; noise: the joint forward's, compute_kld's joint
+    sample, each unimodal forward's); m_telbo (the joint forward's, each
+    VAE's in unimodal_cross_forward) and m_vaevae_w2 (each VAE's) on
+    jmvae_nf.json with its MAF flows; and the unimodal DReG step at K=30 on
+    MMVAE-NF's MNIST VAE (MLP nets, 2 MAF blocks of 3x128: 3,840 rows
+    through both kernels at sign +1, under the hook; one (30, 128, 20)
+    draw). All four at STEP_OBJ_RTOL and STEP_GRAD_TOL."""
+    _step_parity(tmp, JNF, 4, "iaf_parity", IAF_RUN, align_relu=True, frozen_joint=True,
+                 no_recon=False)
+    _step_parity(tmp, JNF, 3, "telbo_parity", dict(JNF_RUN, obj="telbo"), align_relu=True)
+    _step_parity(tmp, JNF, 2, "vaevae_w2_parity", dict(JNF_RUN, obj="vaevae_w2"),
+                 align_relu=True)
+    _step_parity(tmp, CONFIG, [DREG_PARITY_DRAW], "dreg_parity", dict(obj="dreg", K=30),
+                 align_relu=True, unimodal=0)
+
+
 def main():
     import torch
 
@@ -3374,6 +3574,10 @@ def main():
         timed("resnet_parity", phase_resnet_parity, tmp)
         msf = timed("msf_slice", phase_msf_slice, tmp)
         timed("msf_parity", phase_msf_parity, tmp)
+        iaf, iaf_minus = timed("iaf_slice", phase_iaf_slice, tmp)
+        tail, tail_minus, loader = timed("tail_slice", phase_tail_slice, tmp)
+        linnf = timed("linnf_slice", phase_linnf_slice, tmp, loader)
+        timed("tail_parity", phase_tail_parity, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3386,7 +3590,10 @@ def main():
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
                **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
-               **celeba, **msf}
+               **celeba, **msf, **iaf, **tail, **linnf}
+    # the slice-11 paths' launches at sign -1 (IAF's density direction);
+    # every other path's solve is MAF's sampling direction, at sign +1
+    by_sign = {**iaf_minus, **tail_minus, **{path: (0, 0) for path in linnf}}
 
     def entry(name, key, replaces, which, err, **extra):
         r = solve["results"][key]
@@ -3394,6 +3601,8 @@ def main():
         return {"name": name, "route": "cuda", "source": "mmvae_tpu_torch/csrc/ar_flow.cu",
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
+                "launches_at_sign_minus_by_path": {path: counts[which]
+                                                   for path, counts in by_sign.items()},
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                 **extra}
@@ -3416,6 +3625,7 @@ def main():
 
     emit({"kernels": [
         entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
+              at_sign_minus_n128=solve["results"]["sign_minus_n128"]["forward"],
               at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"],
               at_latent_2=fwd_at(at2), max_abs_err_at_latent_2=solve2["errs"]["forward"],
               at_latent_16=fwd_at(at64[16]),
@@ -3426,6 +3636,7 @@ def main():
         entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
               solve["bwd_err"],
               kernel_ms=solve["results"]["backward"]["kernel_ms"],
+              at_sign_minus_n128=solve["results"]["sign_minus_n128"]["backward"],
               at_latent_2=at2["backward_n128"],
               max_abs_err_at_latent_2=solve2["errs"]["backward"],
               at_latent_16=bwd_at(at64[16]),

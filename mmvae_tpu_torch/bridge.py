@@ -14,6 +14,10 @@ is "vaes_0/flow/made_1/hidden_2". The layouts:
 - BatchNorm: `scale` and `bias` in params, the running `mean` and `var`
   (buffers here) in the `batch_stats` collection; the port's BatchNorm2d
   sits one scope above them, as JAX wraps a flax BatchNorm named "bn".
+- The flows' own layers keep JAX's leaf names: BatchNormFlow's
+  `log_gamma` and `beta` (its `mean` and `var` in `batch_stats`),
+  PlanarFlow's `w`, `u` and 0-d `b`, RadialFlow's `z0` and 0-d `log_alpha`
+  and `beta`.
 
 Copies are exact, so JAX -> port -> JAX returns the same bits.
 
@@ -30,8 +34,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .flows import BatchNormFlow, PlanarFlow, RadialFlow
 from .flows.made import MaskedDense
-from .nets.conv import Conv2d, ConvTranspose2d, Linear, _BatchNorm
+from .nets.conv import Conv2d, ConvTranspose2d, Linear, RunningStats, _BatchNorm
 
 
 def _jax_path(module_path: str) -> Tuple[str, ...]:
@@ -53,6 +58,9 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, b
         elif isinstance(m, _BatchNorm):
             yield _jax_path(path) + m.jax_scope + ("scale",), m.scale, False
             yield _jax_path(path) + m.jax_scope + ("bias",), m.bias, False
+        elif isinstance(m, (BatchNormFlow, PlanarFlow, RadialFlow)):
+            for name, p in m.named_parameters(recurse=False):
+                yield _jax_path(path) + (name,), p, False
         elif list(m.parameters(recurse=False)):
             raise TypeError(f"no JAX layout known for {type(m).__name__} at {path!r}")
 
@@ -60,7 +68,7 @@ def _leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, b
 def _stat_leaves(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, bool]]:
     """(JAX batch_stats path, torch buffer, False) for every running statistic."""
     for path, m in model.named_modules():
-        if isinstance(m, _BatchNorm):
+        if isinstance(m, RunningStats):
             yield _jax_path(path) + m.jax_scope + ("mean",), m.mean, False
             yield _jax_path(path) + m.jax_scope + ("var",), m.var, False
 

@@ -199,6 +199,20 @@ def sample(dist: str, p: LocScale, sample_shape=(), noise: Optional[torch.Tensor
     raise NotImplementedError(f"{dist} sampling not yet ported")
 
 
-def kl(dist: str, p: LocScale, q: LocScale) -> torch.Tensor:
-    """Closed-form KL(p || q)."""
-    return _family(_KL, dist)(p, q)
+def kl(dist: str, p: LocScale, q: LocScale, K: int = 100, noise: Optional[torch.Tensor] = None,
+       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """KL(p || q): the closed form where the family has one, else the Monte
+    Carlo estimate over K samples of p, mean of ln p - ln q (utils.py:147-153).
+    `noise` is the K samples' noise, of the family's kind (see `sample`),
+    or None to draw it from `generator`."""
+    if dist in _KL:
+        return _KL[dist](p, q)
+    zs = sample(dist, p, (K,), noise=noise, generator=generator)
+    return torch.mean(log_prob(dist, p, zs) - log_prob(dist, q, zs), dim=0)
+
+
+def wasserstein_2(p: LocScale, q: LocScale) -> torch.Tensor:
+    """The W2 distance between diagonal normals as the reference writes it
+    (utils.py:155-162), with the standard deviations, not the variances, in
+    the trace term."""
+    return (p.loc - q.loc) ** 2 + p.scale + q.scale - 2 * torch.sqrt(p.scale * q.scale)

@@ -4,7 +4,8 @@ MAF: forward (density) is the parallel direction, inverse (sampling) the
 sequential one. IAF: the other way round. The sequential direction goes
 through the fused solve `ops.ar_flow.ar_solve` (the Hopper kernel on CUDA)
 unless `use_fused` is False, which runs the plain unrolled solve. Both flows
-flip the feature axis after each block (reference iaf_model.py:78).
+flip the feature axis after each layer (reference iaf_model.py:78). With
+`include_batch_norm` a BatchNormFlow follows each MADE block.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.ar_flow import ar_solve, unrolled_solve
+from .layers import BatchNormFlow
 from .made import MADE
 
 
@@ -23,8 +25,6 @@ class _ARFlowBase(nn.Module):
                  hidden_size: int = 128, include_batch_norm: bool = False,
                  use_fused: bool = True, s_bound: float = 0.0):
         super().__init__()
-        if include_batch_norm:
-            raise NotImplementedError("BatchNormFlow not yet ported")
         self.features = features
         self.n_made_blocks = n_made_blocks
         self.use_fused = use_fused
@@ -32,6 +32,8 @@ class _ARFlowBase(nn.Module):
         self.s_bound = s_bound
         self.made = nn.ModuleList(
             MADE(features, (hidden_size,) * n_hidden_in_made) for _ in range(n_made_blocks))
+        self.bn = (nn.ModuleList(BatchNormFlow(features) for _ in range(n_made_blocks))
+                   if include_batch_norm else None)
 
     def _parallel_shift_scale(self, made, v, sign: int):
         """One parallel MADE pass.
@@ -60,15 +62,20 @@ class _ARFlowBase(nn.Module):
 
 
 def _run_blocks(flow: _ARFlowBase, x, *, reverse: bool, made_fn):
-    """Apply the MADE blocks in order, flipping the features after each one.
-    Reverse order: blocks reversed, and the flip comes BEFORE each block
-    (iaf_model.py:91-107)."""
+    """Apply the layers [made_0, bn_0, made_1, bn_1, ...] (the BatchNorm
+    layers only with `include_batch_norm`) in order, flipping the features
+    after each one. Reverse: layers reversed, the flip BEFORE each layer,
+    and the BatchNorm layers inverted (iaf_model.py:91-107)."""
     logdet = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    order = range(flow.n_made_blocks)
-    for i in (reversed(order) if reverse else order):
+    kinds = ("made",) if flow.bn is None else ("made", "bn")
+    layers = [(kind, i) for i in range(flow.n_made_blocks) for kind in kinds]
+    for kind, i in (reversed(layers) if reverse else layers):
         if reverse:
             x = torch.flip(x, dims=(-1,))
-        x, ld = made_fn(flow.made[i], x)
+        if kind == "made":
+            x, ld = made_fn(flow.made[i], x)
+        else:
+            x, ld = flow.bn[i](x, inverse=reverse)
         logdet = logdet + ld
         if not reverse:
             x = torch.flip(x, dims=(-1,))

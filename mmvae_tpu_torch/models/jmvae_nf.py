@@ -125,6 +125,24 @@ class JMVAE_NF(nn.Module):
         (jmvae_nf.py:139-141), up to the latent: they read no recon."""
         return self.vaes[m].sample_posterior(x_m, K, noise=noise, generator=generator)
 
+    def unimodal_cross_forward(self, x, noise=None, generator=None):
+        """The MMVAE-style cross matrix from the unimodal posteriors, for
+        the TELBO and multi-ELBO objectives (jmvae_nf.py:152-161): each
+        VAE's full forward (its own reconstruction unused, as in the JAX
+        package, whose BatchNorm statistics count that decode), then every
+        decoder on every sample. Returns dict(qz_params=[(mu, std)], zs,
+        recons) with recons[r][m] modality m decoded from z_r.
+        noise: each modality's standard-normal sample noise, or None to
+        draw from `generator`."""
+        noise = [None] * self.n_mod if noise is None else list(noise)
+        qz_params, zs = [], []
+        for m, vae in enumerate(self.vaes):
+            o = vae(x[m], noise=noise[m], generator=generator)
+            qz_params.append((o["mu"], o["std"]))
+            zs.append(o["z"])
+        recons = [[vae.decode(z) for vae in self.vaes] for z in zs]
+        return {"qz_params": qz_params, "zs": zs, "recons": recons}
+
     def infer_latent_from_mod(self, cond_mod: int, x, K: int = 1, noise=None, generator=None):
         """A sample of the flow posterior q(z|x_m); K > 1 adds a leading axis."""
         return self.vaes[cond_mod].sample_posterior(x, K, noise=noise, generator=generator)["z"]

@@ -23,7 +23,7 @@ from ..dcca.nets import (
     LCCAWrappedEncoder, dcca_encoders_celeba, dcca_encoders_circles, dcca_encoders_medmnist,
     dcca_encoders_mnist_svhn, dcca_encoders_msf, identity_lcca,
 )
-from ..flows import IAF, MAF
+from ..flows import IAF, LinearNF, MAF
 from ..nets import (
     DecoderMNIST, DecoderSVHN, DoubleHeadJoint, DoubleHeadMLP, EncoderMNIST, EncoderSVHN,
     MLPDecoder, MLPEncoder, MultipleHeadJoint, TwoStepsEncoder,
@@ -57,7 +57,7 @@ def _flow(cfg: ExperimentConfig):
     if cfg.no_nf:
         return None
     if cfg.flow == "lin_nf":
-        raise NotImplementedError("LinearNF not yet ported")
+        return LinearNF(features=cfg.latent_dim)
     n_blocks = cfg.n_made_blocks if cfg.n_made_blocks is not None else 2
     flow_cls = IAF if cfg.flow == "iaf" else MAF
     return flow_cls(features=cfg.latent_dim, n_made_blocks=n_blocks, s_bound=cfg.s_bound_flow)

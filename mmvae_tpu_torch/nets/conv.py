@@ -91,7 +91,21 @@ class ConvTranspose2d(_Kaiming):
                               output_padding=self.output_padding)
 
 
-class _BatchNorm(nn.Module):
+class RunningStats(nn.Module):
+    """A module with BatchNorm running statistics: the buffers `mean` and
+    `var`, which a training-mode forward updates in place, kept by the JAX
+    package in its `batch_stats` collection at `jax_scope` below the
+    module's own path."""
+
+    jax_scope: tuple = ()
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+
+class _BatchNorm(RunningStats):
     """flax.linen.BatchNorm written out. In training the batch's statistics
     normalize, with the variance as flax computes it, E[x^2] - E[x]^2 clamped
     at 0, and the running statistics take `momentum` of them, the running
@@ -100,15 +114,12 @@ class _BatchNorm(nn.Module):
     `momentum` is torch's convention: flax's momentum is 1 - momentum."""
 
     axis: int = 1
-    jax_scope: tuple = ()  # where the JAX tree keeps the leaves below the module
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
-        super().__init__()
+        super().__init__(features)
         self.momentum, self.eps = momentum, eps
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
@@ -134,9 +145,10 @@ class _BatchNorm(nn.Module):
 
 
 def batchnorm_stats(model: nn.Module):
-    """The running means and variances of every BatchNorm in `model`, which
-    a training-mode forward updates in place."""
-    return [t for m in model.modules() if isinstance(m, _BatchNorm) for t in (m.mean, m.var)]
+    """The running means and variances of every BatchNorm in `model`, the
+    flows' BatchNormFlow layers too, which a training-mode forward updates
+    in place."""
+    return [t for m in model.modules() if isinstance(m, RunningStats) for t in (m.mean, m.var)]
 
 
 class BatchNorm2d(_BatchNorm):

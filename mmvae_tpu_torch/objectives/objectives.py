@@ -3,17 +3,20 @@
 An objective is a plain function
     (model, x, spec, K=..., noise=..., generator=..., **cfg) -> (objective, details)
 returning the MAXIMIZATION objective (the train loop negates) and a dict of
-scalar terms. `noise` is one tensor per modality of the posterior family's
-kind, or None to draw from `generator`.
+scalar terms. `noise` is the posterior samples' noise in the order the
+objective draws them (each function says which), of the posterior family's
+kind, or None to draw from `generator`. The unimodal objectives (elbo,
+iwae, dreg) take a UnimodalVAE and one tensor x, as in the JAX package; the
+multimodal ones a list of tensors, one per modality.
 
 The DReG estimators replace the JAX package's two-stage VJP with a tensor
-hook on the stacked samples `zss`: the gradient that reaches `zss` is
-multiplied by the stop-grad importance weights before it flows back into
-the encoders, the reference's hook (objectives.py:398-401, 434-437). With
-the posterior parameters detached inside the log-weights, the one backward
-pass gives JAX's gp1 + gp2. Under `no_grad` (the eval step) no hook is
-registered and the objective returns the surrogate's value, as JAX's eval
-step does.
+hook on the samples (`zss`, or the unimodal `zs`): the gradient that
+reaches them is multiplied by the stop-grad importance weights before it
+flows back into the encoders and flows, the reference's hook
+(objectives.py:66-67, 398-401, 434-437). With the posterior parameters
+detached inside the log-weights, the one backward pass gives JAX's
+gp1 + gp2. Under `no_grad` (the eval step) no hook is registered and the
+objective returns the surrogate's value, as JAX's eval step does.
 """
 
 from __future__ import annotations
@@ -70,6 +73,67 @@ def recon_pointwise_loss(loss_name: str, recon, x):
         rc = torch.clamp(r, 1e-7, 1 - 1e-7)
         return -torch.sum(t * torch.log(rc) + (1 - t) * torch.log1p(-rc))
     raise ValueError(loss_name)
+
+
+def _detached(details):
+    return {k: v.detach() for k, v in details.items()}
+
+
+# ===========================================================================
+# Unimodal objectives (objectives.py:20-69)
+# ===========================================================================
+
+def elbo(model, x, spec: ModelSpec, K=1, beta_prior=1.0, noise=None, generator=None, **kw):
+    """E[ELBO] of a UnimodalVAE (objectives.py:20-25): the mean over the K
+    samples, the SUM over the batch (the reference's .mean(0).sum()).
+    UnimodalVAE drops the sample axis at K=1. noise: the posterior sample's,
+    (K, B, latent), or (B, latent) at K=1."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    qz = LocScale(out["mu"], out["std"])
+    has_k = out["z"].dim() == 3
+    lpx_z = recon_log_prob(spec.recon_dists[0], out["recon"], x, 2 if has_k else 1)
+    lpx_z = lpx_z * spec.llik_scaling
+    kld = torch.sum(D.kl(spec.posterior, qz, prior(spec, qz.loc)), dim=-1)
+    val = lpx_z - beta_prior * kld  # (K, B) or (B,)
+    if has_k:
+        val = torch.mean(val, dim=0)
+    return torch.sum(val), {}
+
+
+def _unimodal_lw(x, spec: ModelSpec, qz: LocScale, zs, recon):
+    """Log-weights lpz + llik_scaling * lpx - lqz of K samples, always
+    (K, B): at K=1 the axis UnimodalVAE drops is restored
+    (objectives.py:117-131)."""
+    has_k = zs.dim() == 3
+    lpz = torch.sum(D.log_prob(spec.posterior, prior(spec, zs), zs), dim=-1)
+    lpx_z = recon_log_prob(spec.recon_dists[0], recon, x, 2 if has_k else 1) * spec.llik_scaling
+    lqz_x = torch.sum(D.log_prob(spec.posterior, qz, zs), dim=-1)
+    lw = lpz + lpx_z - lqz_x
+    return lw if has_k else lw[None]
+
+
+def iwae(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """The IWAE bound of a UnimodalVAE (objectives.py:28-43): log-mean-exp
+    over the K samples, summed over the batch. noise: as `elbo`'s."""
+    out = model(x, K=K, noise=noise, generator=generator)
+    lw = _unimodal_lw(x, spec, LocScale(out["mu"], out["std"]), out["z"], out["recon"])
+    return torch.sum(log_mean_exp(lw, dim=0)), {}
+
+
+def dreg(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Unimodal DReG (objectives.py:46-69): the posterior parameters
+    detached in the log-weights, the surrogate sum(w * lw) with the
+    stop-grad softmax weights w over K, and the gradient reaching the
+    samples (after the flow) multiplied by w again, a hook as `_m_dreg`'s.
+    noise: the posterior samples', (K, B, latent) at every K."""
+    (mu, std), zs, _ = model.encode_and_sample(x, K=K, noise=noise, generator=generator)
+    recon = model.decode(zs)
+    lw = _unimodal_lw(x, spec, LocScale(mu.detach(), std.detach()), zs, recon)
+    with torch.no_grad():
+        w = torch.softmax(lw, dim=0)
+    if zs.requires_grad:
+        zs.register_hook(lambda g: g * w[..., None])
+    return torch.sum(w * lw), {}
 
 
 # ===========================================================================
@@ -280,7 +344,7 @@ def m_jmvae_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
         reg = 0.0
         details["reg"] = loss.new_zeros(())
     obj = loss - beta_reg * (beta_prior * details["kld_prior"] + reg)
-    return obj, {k: v.detach() for k, v in details.items()}
+    return obj, _detached(details)
 
 
 # ===========================================================================
@@ -329,7 +393,152 @@ def m_telbo_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
             details[f"neg_elbo_{m}"] = neg_elbo
             loss = loss - neg_elbo
     obj = loss - beta_prior * details["kld_prior"]
-    return obj, {k: v.detach() for k, v in details.items()}
+    return obj, _detached(details)
+
+
+# ===========================================================================
+# JMVAE, VAEVAE, SVAE, multi-ELBOs, TELBO on JMVAE_NF (objectives.py:133-174,
+# 261-329)
+# ===========================================================================
+
+def _mean_kl(spec: ModelSpec, p: LocScale, q: LocScale):
+    """sum over latents of the batch mean of KL(p || q), the reference's
+    .mean(0).sum()."""
+    return torch.sum(torch.mean(D.kl(spec.posterior, p, q), dim=0))
+
+
+def m_jmvae(model, x, spec: ModelSpec, K=1, beta=0.0, epoch=1, warmup=0, beta_prior=1.0,
+            past_warmup=None, noise=None, generator=None, **kw):
+    """The original JMVAE loss (objectives.py:157-174): the joint forward's
+    reconstructions and prior KL (batch means), and past warmup beta times
+    the KLs of the joint posterior to each unimodal one. Past warmup the
+    Trainer freezes the joint encoder whatever fix_jencoder says
+    (train/freezing.py). noise: [the joint sample's]."""
+    if past_warmup is None:
+        past_warmup = epoch >= warmup
+    noise = [None] if noise is None else list(noise)
+    out = model(x, noise=noise[0], generator=generator)
+    uni = model.encode_all_unimodal(x)
+    loss = 0.0
+    for m, xm in enumerate(x):
+        loss = loss + torch.sum(torch.mean(
+            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1), dim=0))
+    qz_xy = LocScale(*out["qz_xy"])
+    loss = loss - beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    details = {"loss": loss}
+    kls = []
+    for m, (mu_m, std_m) in enumerate(uni):
+        details[f"kl{m + 1}"] = _mean_kl(spec, qz_xy, LocScale(mu_m, std_m))
+        kls.append(details[f"kl{m + 1}"])
+    obj = loss - beta * sum(kls) if past_warmup else loss
+    return obj, _detached(details)
+
+
+def _m_vaevae(model, x, spec: ModelSpec, dist_fn, beta, epoch, warmup, beta_prior,
+              past_warmup, noise, generator):
+    """VAEVAE (objectives.py:133-155) on the first two modalities: each
+    unimodal VAE's ELBO SUMMED over the batch (the reference's elbo, its
+    .mean(0) over the K=1 axis) against a symmetric alignment term of the
+    two posteriors MEANED over the batch, over the first `spec.align`
+    latents unless align is -1, weighted by beta past warmup."""
+    if past_warmup is None:
+        past_warmup = epoch >= warmup
+    noise = [None] * 2 if noise is None else list(noise)
+    losses, qs = [], []
+    for m in range(2):
+        vout = model.vae_forward(x[m], m, noise=noise[m], generator=generator)
+        q_m = LocScale(vout["mu"], vout["std"])
+        lpx = recon_log_prob(spec.recon_dists[m], vout["recon"], x[m], 1) * spec.llik_scaling
+        kld = torch.sum(D.kl(spec.posterior, q_m, prior(spec, q_m.loc)), dim=-1)
+        losses.append(torch.sum(lpx - beta_prior * kld))
+        qs.append(q_m)
+    cut = slice(None) if spec.align == -1 else slice(None, spec.align)
+    reg = 0.5 * (torch.sum(torch.mean(dist_fn(qs[0], qs[1])[:, cut], dim=0))
+                 + torch.sum(torch.mean(dist_fn(qs[1], qs[0])[:, cut], dim=0)))
+    details = dict(loss=losses[0] + losses[1], reg=reg, loss1=losses[0], loss2=losses[1])
+    obj = losses[0] + losses[1] - (beta * reg if past_warmup else 0.0)
+    return obj, _detached(details)
+
+
+def m_vaevae_kl(model, x, spec: ModelSpec, K=1, beta=1000.0, epoch=1, warmup=0, beta_prior=1.0,
+                past_warmup=None, noise=None, generator=None, **kw):
+    """VAEVAE with the KL alignment term. noise: [each VAE's sample, 0 and 1]."""
+    return _m_vaevae(model, x, spec, lambda p, q: D.kl(spec.posterior, p, q), beta, epoch,
+                     warmup, beta_prior, past_warmup, noise, generator)
+
+
+def m_vaevae_w2(model, x, spec: ModelSpec, K=1, beta=1000.0, epoch=1, warmup=0, beta_prior=1.0,
+                past_warmup=None, noise=None, generator=None, **kw):
+    """VAEVAE with the reference's W2 alignment term (D.wasserstein_2).
+    noise: as m_vaevae_kl's."""
+    return _m_vaevae(model, x, spec, D.wasserstein_2, beta, epoch, warmup, beta_prior,
+                     past_warmup, noise, generator)
+
+
+def m_svae(model, x, spec: ModelSpec, K=1, beta=0.0, noise=None, generator=None, **kw):
+    """SVAE (objectives.py:284-303): the unimodal and joint reconstructions,
+    each a .mean() over ALL elements, as the reference takes them, against
+    the unimodal prior KLs and the joint-to-unimodal KLs (.mean(0).sum()).
+    noise: [the joint sample's, then each VAE's]."""
+    noise = [None] * (1 + len(x)) if noise is None else list(noise)
+    out = model(x, noise=noise[0], generator=generator)
+    qz_xy = LocScale(*out["qz_xy"])
+    loss, reg = 0.0, 0.0
+    for m, xm in enumerate(x):
+        vout = model.vae_forward(xm, m, noise=noise[1 + m], generator=generator)
+        q_m = LocScale(vout["mu"], vout["std"])
+        for recon in (vout["recon"], out["recons"][m]):
+            loss = loss + torch.mean(
+                D.log_prob(spec.recon_dists[m], LocScale(recon, torch.ones_like(recon)), xm))
+        reg = reg + _mean_kl(spec, q_m, prior(spec, q_m.loc)) + _mean_kl(spec, qz_xy, q_m)
+    return 0.5 * (loss - beta * reg), _detached({"loss": loss, "reg": reg})
+
+
+def m_multi_elbos(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Sutter et al.'s sum of ELBOs (objectives.py:261-281): the joint
+    reconstructions, every unimodal cross reconstruction, the unimodal and
+    the joint prior KLs (batch means), divided by 3.0 whatever the number
+    of modalities, as the reference does. noise: [the joint sample's, then
+    each VAE's in unimodal_cross_forward]."""
+    noise = [None] * (1 + len(x)) if noise is None else list(noise)
+    out = model(x, noise=noise[0], generator=generator)
+    uni = model.unimodal_cross_forward(x, noise=noise[1:], generator=generator)
+    loss = 0.0
+    for m, xm in enumerate(x):
+        loss = loss + torch.mean(recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1))
+        for r in range(len(x)):
+            loss = loss + torch.mean(
+                recon_log_prob(spec.recon_dists[m], uni["recons"][r][m], xm, 1))
+        q_m = LocScale(*uni["qz_params"][m])
+        loss = loss - _mean_kl(spec, q_m, prior(spec, q_m.loc))
+    qz_xy = LocScale(*out["qz_xy"])
+    loss = loss - _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    return loss / 3.0, {}
+
+
+def m_telbo(model, x, spec: ModelSpec, K=1, beta=0.0, beta_prior=1.0, noise=None,
+            generator=None, **kw):
+    """TELBO (objectives.py:306-329) on the first two modalities' unimodal
+    terms: the joint reconstructions less the joint prior KL, plus beta
+    times each unimodal ELBO (its own reconstruction, batch mean, less its
+    prior KL). The reference toggles requires_grad_ after building the
+    graph, so every parameter gets its gradient; as the JAX package, this
+    reproduces those ungated gradients. noise: as m_multi_elbos'."""
+    noise = [None] * (1 + len(x)) if noise is None else list(noise)
+    out = model(x, noise=noise[0], generator=generator)
+    uni = model.unimodal_cross_forward(x, noise=noise[1:], generator=generator)
+    details = {"mloss": 0.0}
+    for m, xm in enumerate(x):
+        q_m = LocScale(*uni["qz_params"][m])
+        details[f"loss_{m}"] = (
+            torch.mean(recon_log_prob(spec.recon_dists[m], uni["recons"][m][m], xm, 1))
+            - beta_prior * _mean_kl(spec, q_m, prior(spec, q_m.loc)))
+        details["mloss"] = details["mloss"] + torch.mean(
+            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1))
+    qz_xy = LocScale(*out["qz_xy"])
+    details["reg"] = beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    obj = details["mloss"] - details["reg"] + beta * (details["loss_0"] + details["loss_1"])
+    return obj, _detached(details)
 
 
 # ===========================================================================
@@ -342,26 +551,36 @@ def m_self_built(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **k
     return model(x, noise=noise, generator=generator)["elbo"], {}
 
 
+# every objective of the JAX package, its OBJECTIVES and its
+# CUSTOM_GRAD_OBJECTIVES (here the DReG hooks) together
 OBJECTIVES = {
+    "elbo": elbo,
+    "iwae": iwae,
+    "dreg": dreg,
     "m_elbo_naive": m_elbo_naive,
     "m_elbo": m_elbo,
     "m_iwae": m_iwae,
     "m_iwae_looser": m_iwae_looser,
     "m_dreg": m_dreg,
     "m_dreg_looser": m_dreg_looser,
-    "m_elbo_nf": m_elbo_nf,
+    "m_jmvae": m_jmvae,
     "m_jmvae_nf": m_jmvae_nf,
+    "m_telbo": m_telbo,
     "m_telbo_nf": m_telbo_nf,
+    "m_vaevae_kl": m_vaevae_kl,
+    "m_vaevae_w2": m_vaevae_w2,
+    "m_svae": m_svae,
+    "m_multi_elbos": m_multi_elbos,
+    "m_elbo_nf": m_elbo_nf,
     "m_self_built": m_self_built,
 }
 
 
 def resolve(obj_name: str, multimodal: bool, looser: bool):
     """main.py:134-137 dispatch: ('m_' if multimodal) + obj + ('_looser' if
-    looser and obj != 'elbo'). Returns (name, fn)."""
+    looser and obj != 'elbo'). Returns (name, fn); a name the JAX package
+    does not have either raises KeyError, as there."""
     name = ("m_" if multimodal else "") + obj_name
     if looser and obj_name != "elbo":
         name = name + "_looser"
-    if name not in OBJECTIVES:
-        raise NotImplementedError(f"objective {name!r} not yet ported")
     return name, OBJECTIVES[name]

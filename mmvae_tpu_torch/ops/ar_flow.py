@@ -267,6 +267,7 @@ def kernel_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
             None if tape is None else tape.s.data_ptr(), stream)
     _raise_on(err, "forward")
     ar_solve.launches += 1
+    ar_solve.sign_minus_launches += int(sign < 0)
     return y, ld
 
 
@@ -306,6 +307,7 @@ def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
             _ptrs(tape.acts), tape.s.data_ptr(), gx.data_ptr(), _ptrs(deltas), stream)
     _raise_on(err, "backward")
     ar_solve.backward_launches += 1
+    ar_solve.sign_minus_backward_launches += int(sign < 0)
     return gx, deltas
 
 
@@ -369,6 +371,9 @@ def ar_solve(x, masked_weights: Sequence[torch.Tensor], biases: Sequence[torch.T
     return y.reshape(*lead, -1), ld.reshape(lead)
 
 
-# kernel launches since the last reset (plain integers; reset by assigning 0)
+# kernel launches since the last reset (plain integers; reset by assigning
+# 0), and among them those at sign -1, IAF's density direction
 ar_solve.launches = 0
 ar_solve.backward_launches = 0
+ar_solve.sign_minus_launches = 0
+ar_solve.sign_minus_backward_launches = 0

@@ -21,6 +21,10 @@ its kernel launches, the Cholesky CCA loss and the singular-value
 Function's backward on the card against float64 on the CPU, and the DCCA
 Solver's RMSprop step on the card against the CPU.
 
+JMVAE-NF with "flow": "iaf": a post-warmup step, whose density direction
+runs both kernels at sign -1, against the float64 CPU step on the card
+step's ReLU branches.
+
 TELBO-NF, MVAE and MoE-PoE: a post-warmup TELBO-NF step, whose unimodal
 VAE forwards run both kernels under autograd, against the same step through
 the plain solve on the card; an MVAE and a MoE-PoE step, which launch no
@@ -960,3 +964,67 @@ def test_kernels_at_latent_16_43_64(card, d, sign, s_bound):
         want = torch.autograd.grad(outs, inputs, (gy, gld))
         for got, ref in zip([y, ld, gx, *gws, *gbs], [*outs, *want]):
             torch.testing.assert_close(got, ref.detach(), **TOL)
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (it imports torch only inside
+    its functions): its `_ReluBranches` and `_SolveBranches`."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_iaf_jnf_step_on_card_matches_f64_cpu(card):
+    """A post-warmup step of jmvae_nf.json with "flow": "iaf" (latent 20,
+    B=16, full-width nets, frozen joint, unimodal reconstructions on) on the
+    card against float64 on the CPU, the same weights and noise (the joint
+    forward's, compute_kld's joint sample, each unimodal forward's), the CPU
+    step on the card step's ReLU branches, the kernels' hidden ones read
+    from their tapes (chip_smoke's `_ReluBranches`, `_SolveBranches`), each
+    element on another branch within 1e-5 of 0: the objective rtol 1e-5,
+    every trainable gradient within 1e-4 of its leaf's largest entry. On
+    the card IAF's density direction (compute_kld) launches 4 forward and 4
+    backward kernels, every one at sign -1."""
+    import contextlib
+
+    from mmvae_tpu_torch.nets import init_parameters
+    from mmvae_tpu_torch.objectives import m_jmvae_nf
+
+    smoke = _chip_smoke()
+    cfg = ExperimentConfig.from_json(JNF)
+    cfg.flow = "iaf"
+    bundle = registry.build(cfg)
+    init_parameters(bundle.model, torch.Generator().manual_seed(7))
+    xs, eps = _card_batch(card, n_noise=4, seed=26)
+    res, branches = {}, {}
+    for dev, dtype in ((card, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = copy.deepcopy(bundle.model).to(dev, dtype).train()
+        replay = None if dev.type == "cuda" else branches["cuda"].masks
+        branches[dev.type] = smoke._ReluBranches(replay)
+        kernels = (smoke._SolveBranches(branches["cuda"]) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+        ar_flow.ar_solve.launches = ar_flow.ar_solve.backward_launches = 0
+        ar_flow.ar_solve.sign_minus_launches = ar_flow.ar_solve.sign_minus_backward_launches = 0
+        with branches[dev.type], kernels:
+            obj, _ = m_jmvae_nf(model, [x.to(dev, dtype) for x in xs], bundle.spec,
+                                noise=[e.to(dev, dtype) for e in eps], epoch=2, warmup=2,
+                                past_warmup=True, frozen_joint=True)
+            named = [(n, p) for n, p in model.named_parameters()
+                     if "joint_encoder" not in n and "decoder" not in n]
+            grads = torch.autograd.grad(obj, [p for _, p in named])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            a = ar_flow.ar_solve
+            assert (a.launches, a.backward_launches) == (4, 4)
+            assert (a.sign_minus_launches, a.sign_minus_backward_launches) == (4, 4)
+        res[dev.type] = (obj.item(), [g.double().cpu() for g in grads])
+    rb = branches["cpu"]
+    assert len(rb.masks) == len(branches["cuda"].masks) and rb.flip_max_abs <= 1e-5
+    assert math.isclose(res["cuda"][0], res["cpu"][0], rel_tol=1e-5)
+    for (name, _), a, b in zip(named, res["cuda"][1], res["cpu"][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30), name

@@ -215,8 +215,10 @@ def test_registry_and_resolve(flagship):
                               ("iwae", False, "m_iwae"), ("iwae", True, "m_iwae_looser"),
                               ("dreg", False, "m_dreg"), ("dreg", True, "m_dreg_looser")]:
         assert pobj.resolve(obj, True, looser) == (name, getattr(pobj, name))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pobj.resolve("dreg", False, False)
+    # the unimodal objectives are ported too; a name JAX has not is refused
+    assert pobj.resolve("dreg", False, False) == ("dreg", pobj.dreg)
+    with pytest.raises(KeyError):
+        pobj.resolve("elbo_nf", False, False)
 
 
 def test_mmvae_forward_matches_jax(flagship, monkeypatch):

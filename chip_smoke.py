@@ -117,14 +117,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rows of an IS call trade between memory and time, and ten small test
    batches in one likelihood call against one call each.
 21. gen_slice: the ms_small augmentation experiment through the CLIs on
-   cuda at full width and half the published data (synthetic_n 10,000,
-   len_train 5,000; published 20,000 and 10,000): `jnf_synth.json` (2
+   cuda at full width and a quarter of the published data (synthetic_n
+   5,000, len_train 2,500; published 20,000 and 10,000): `jnf_synth.json` (2
    epochs, warmup 2; published 200/100) publishes the joint-encoder pool;
-   `generate_joint --n 4500` fits a 10-component mixture by EM on the
-   4,480 train latents and decodes 4,500 samples; `jnf_gen_synth.json` (1
+   `generate_joint --n 2250` fits a 10-component mixture by EM on the
+   2,176 train latents and decodes 2,250 samples; `jnf_gen_synth.json` (1
    epoch) appends them (use_gen); `validate --prd` on it; `plot_results`
    in its three modes; a `use_pretrain` resume (1 epoch). Checks the
-   printed count, the train pairs (4,500, then 9,000), the joint encoder
+   printed count, the train pairs (2,250, then 4,500), the joint encoder
    and decoders bit-unchanged,
    finite losses and no skipped step, PRD in [0, 1], valid PNGs, the
    resume's args and starting parameters, and each path's ar_solve launches
@@ -149,7 +149,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pixel within RADIUS_KINK_ATOL of the 0.5 threshold read on the card's
    side.
 25. mnist1ch_slice: jnf_mnist_fashion and jnf_mnist_contour (2 epochs,
-   warmup 2; MNIST-Fashion at a quarter of its default data) and
+   warmup 2; MNIST-Fashion at an eighth of its default data) and
    mnist_fashion (1 epoch) through the CLIs from configs written in the
    run's directory, their launches as predicted, the fashion JMVAE-NF's
    steady post-warmup step, validate on each.
@@ -172,13 +172,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and TELBO-NF latent: the forward at N = 256, 500 and 10,000, the
    backward at N = 256, checked, timed and bounded as at D = 16 and 64
    (it runs after phase 3's kernel phases).
-30. msf_slice: trimodal MNIST-SVHN-Fashion through the CLIs at half the
-   loader's default scale (8,631 train triples): jmvae_nf.json 2 epochs
+30. msf_slice: trimodal MNIST-SVHN-Fashion through the CLIs at a quarter
+   of the loader's default scale (4,370 train triples): jmvae_nf.json 2 epochs
    with warmup 2 and its 3x3 analytics grids (6 forward launches per
    unimodal pass over the three flows: epoch 1 its grids' 6, epoch 2 6 per
    train step and val batch, 6 backward per train step), its steady step,
    validate --mcmc-steps 100 (HMC over each 2-subset's product of experts,
-   whose start launches 12), one likelihood batch of 500 (1,200 launches,
+   whose start launches 12), one likelihood batch of 250 rows (720 launches,
    cond_lw_subset_m); dcca_train on the three views and jmvae_nf_dcca.json
    (latent 30) on its artifact, with validate and a likelihood batch;
    telbo_nf.json (latent 30) one epoch past warmup (both kernels at D = 30
@@ -202,8 +202,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
 35. tail_parity: the post-warmup IAF JMVAE-NF step, an m_telbo and an
    m_vaevae_w2 step and a unimodal DReG step at K=30 (MAF) on cuda in
    float32 against the float64 CPU step on the card's ReLU branches.
-36. The kernels line (with each slice-11 path's launches at sign -1), and
-   last the contract line
+36. ddp_parity: data-parallel steps, two ranks on the one card over gloo
+   (torch.multiprocessing's spawn) against one process on the card: an
+   MMVAE-NF step and a post-warmup JMVAE-NF step on jnf_mnist_fashion
+   (BatchNorm over the global batch), each rank on 64 rows with its rows of
+   the same noise; the ranks' all-reduced gradients equal, within 1e-4 of
+   each leaf of the float64 CPU step on the ranks' ReLU branches, the
+   summed objective against the one-process one, 4 forward and 4 backward
+   launches a step on each rank, the parameters equal after 3 steps.
+37. ddp_slice: the train CLI under `torchrun --standalone` (each rank
+   through `chip_smoke.py ddp-rank`): one rank over NCCL, then two ranks on
+   the card over gloo with mesh_data 2, one MMVAE-NF epoch each with its
+   analytics: each rank's launches as predicted (rank 0's grids apart),
+   rank 0 alone writes the run dir, each rank's train step and one
+   all-reduce of the gradient's size timed. (Phase 12's DCCA CLI also
+   writes embedding_{0,1}.png with the UMAP on the card, its layout timed.)
+38. The kernels line (with the launches at sign -1 of the IAF, tail and
+   LinearNF paths, and each rank's of the data-parallel paths), and last
+   the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -544,7 +560,7 @@ def phase_ar_solve():
         with torch.no_grad():
             k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
             call_ms = cuda_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
-            p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0))
+            p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
         flops = solve_flops(n, d, h, n_hidden)
         # each input read once (x, masked weights, biases), each output
         # written once (y, logdet)
@@ -575,7 +591,7 @@ def phase_ar_solve():
         ar_flow.reduce_grads(tape, deltas)
 
     br_ms = device_time_ms(bwd_reduce)
-    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld))
+    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
     # the function is the whole VJP, as its plain version computes it: read
     # once x, y, gy, gld, the weights and biases; written once gx and every
     # weight and bias gradient. The tape and the per-step deltas are scratch
@@ -599,10 +615,11 @@ def phase_ar_solve():
 
     with torch.no_grad():
         minus = dict(ms=device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, -1, 0.0)),
-                     plain_ms=cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, -1, 0.0)))
+                     plain_ms=cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, -1, 0.0),
+                                           rounds=5))
     minus_bwd = dict(ms=device_time_ms(bwd_reduce_minus), kernel_ms=device_time_ms(
         lambda: ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)),
-        plain_ms=cuda_time_ms(_plain_vjp(x, ws, bs, -1, 0.0, gy, gld)))
+        plain_ms=cuda_time_ms(_plain_vjp(x, ws, bs, -1, 0.0, gy, gld), rounds=5))
     results["sign_minus_n128"] = dict(forward=minus, backward=minus_bwd)
     emit({"phase": "ar_solve_time", "sign": -1, "n": n, "forward": minus, "backward": minus_bwd,
           "forward_bound_ms": results[128]["bound_ms"], "backward_bound_ms": b_bound_ms})
@@ -678,7 +695,7 @@ def phase_ar_solve_latent2():
         x = torch.randn(n, d, generator=gen).cuda()
         with torch.no_grad():
             k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
-            p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0))
+            p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
         flops, n_bytes = solve_flops(n, d, h, n_hidden), 4 * (2 * n * d + n + n_w + n_b)
         bound_ms, bound_by = bound(flops, n_bytes)
         results[f"n{n}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -697,7 +714,7 @@ def phase_ar_solve_latent2():
 
     br_ms = device_time_ms(bwd_reduce)
     b_ms = device_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
-    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld))
+    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
     b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), 4 * (4 * n * d + n + 2 * (n_w + n_b))
     b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
     results["backward_n128"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms,
@@ -850,10 +867,10 @@ def _trainer_batches(cfg, train_loader, epoch, n):
                      for r in list(pipeline.epoch_index_batches())[:n]]
 
 
-def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
+def _steady_steps(cfg, train_loader, n_warm=5, n_timed=10, epoch=1):
     """Steady-state train step and eval batch at the epoch's shapes,
     outside the counted run: host clock over `n_timed` steps after
-    `n_warm`, then a torch.profiler trace of 5 steps. `epoch` selects the
+    `n_warm`, then a torch.profiler trace of 3 steps. `epoch` selects the
     warmup phase (epoch < warmup) or the one after it, with the optimizer
     the Trainer resets to there."""
     import torch
@@ -868,8 +885,9 @@ def _steady_steps(cfg, train_loader, n_warm=5, n_timed=20, epoch=1):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n_timed
     gen = torch.Generator(device="cuda").manual_seed(0)
-    eval_ms = cuda_time_ms(lambda: trainer.eval_step(batches[0], epoch=epoch, generator=gen))
-    prof = profile_steps(trainer, batches[n_warm:n_warm + 5], cfg.learning_rate, epoch)
+    eval_ms = cuda_time_ms(lambda: trainer.eval_step(batches[0], epoch=epoch, generator=gen),
+                           rounds=5)
+    prof = profile_steps(trainer, batches[n_warm:n_warm + 3], cfg.learning_rate, epoch)
     if "device_us_per_step" in prof:
         # the profiler's own busy share is over a window its tracing slows;
         # this one is over the untraced step
@@ -1031,16 +1049,33 @@ def profile_steps(trainer, batches, lr, epoch=1):
             "top_kernels": [[e.key[:80], dev_us(e) / len(batches), e.count] for e in top]}
 
 
-def _step_errors(run, ref, names):
+def _step_errors(run, ref, names, scales=None):
     """`run` against `ref` (dicts with obj, loss and grads): the relative
     errors of the objective and the loss, and each gradient leaf's largest
-    error over its largest entry, the worst of them named."""
-    leaf = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-            for a, b in zip(run["grads"], ref["grads"])]
+    error over its largest entry (or over `scales`, one per leaf), the
+    worst of them named."""
+    scales = scales or [b.abs().max() for b in ref["grads"]]
+    leaf = [((a - b).abs().max() / s.clamp_min(1e-30)).item()
+            for a, b, s in zip(run["grads"], ref["grads"], scales)]
     worst = max(range(len(leaf)), key=leaf.__getitem__)
     return {"objective_rel_err": abs(run["obj"] - ref["obj"]) / abs(ref["obj"]),
             "loss_rel_err": abs(run["loss"] - ref["loss"]) / abs(ref["loss"]),
             "grad_max_rel_err": leaf[worst], "worst_leaf": names[worst]}
+
+
+def _leaf_scales(grads, names):
+    """Each gradient leaf's largest entry; for a bias whose gradient is 0
+    but for round-off, that of a conv right before a BatchNorm (training
+    mode cancels it), its weight's instead."""
+    by = {n: g for n, g in zip(names, grads)}
+    scales = []
+    for n, g in zip(names, grads):
+        scale = g.abs().max()
+        w = by.get(n[: -len("bias")] + "weight") if n.endswith("bias") else None
+        if w is not None and scale < 1e-6 * w.abs().max():
+            scale = w.abs().max()
+        scales.append(scale)
+    return scales
 
 
 def phase_parity(tmp):
@@ -1505,16 +1540,39 @@ def phase_dcca(tmp):
     from mmvae_tpu_torch.dcca.nets import DeepCCA, dcca_encoders_mnist_svhn
     from mmvae_tpu_torch.dcca.train import Solver, load_trunk_params
 
+    from mmvae_tpu_torch import embed
+
     data = os.path.join(tmp, "data")
     os.makedirs(data, exist_ok=True)
     log = io.StringIO()
+    layout_s, layout = [], embed._optimize_layout
+
+    def timed_layout(*args, **kwargs):  # the UMAP layout's epochs on the card
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = layout(*args, **kwargs)
+        layout_s.append(time.perf_counter() - t)
+        return out
+
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
-        path = dcca_main(["--device", "cuda", "--epochs", str(DCCA_EPOCHS), "--batch-size",
-                          str(DCCA_BATCH), "--synthetic-n", "2048", "--data-path", data,
-                          "--out", os.path.join(tmp, "dcca")])
+    embed._optimize_layout = timed_layout
+    try:
+        with contextlib.redirect_stdout(log):
+            path = dcca_main(["--device", "cuda", "--epochs", str(DCCA_EPOCHS), "--batch-size",
+                              str(DCCA_BATCH), "--synthetic-n", "2048", "--data-path", data,
+                              "--out", os.path.join(tmp, "dcca")])
+    finally:
+        embed._optimize_layout = layout
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    figures = {}
+    for v in (0, 1):
+        png = os.path.join(os.path.dirname(path), f"embedding_{v}.png")
+        with open(png + ".json") as f:
+            spec = json.load(f)
+        figures[f"embedding_{v}.png"] = {
+            "size": _png_ok(png), "classes": spec["panels"][0][0]["legend"],
+            "points": sum(len(x["points"]) for x in spec["panels"][0][0]["series"])}
     lines = log.getvalue().splitlines()
     epochs = [l.split() for l in lines if l.startswith("DCCA epoch")]
     losses = [(float(w[w.index("train") + 1]), float(w[w.index("val") + 1])) for w in epochs]
@@ -1557,11 +1615,14 @@ def phase_dcca(tmp):
     emit({"phase": "dcca", "epochs": len(losses), "batch": DCCA_BATCH,
           "train_pairs": train_l.num_examples, "losses_train_val": losses,
           "cli_wall_s_incl_setup": wall, "solver_fit_s": fit_s, "epoch_s": epoch_s,
+          "embedding_figures": figures, "umap_layout_s": layout_s,
           "artifact": os.path.relpath(path, tmp), "lcca_correlations": lcca["D"][:9].tolist(),
           "loss_cuda_chol_f32": v32.item(), "loss_cpu_eigh_f64": v64.item(),
           "grad_max_abs_err": grad_err, "value_tol": DCCA_VALUE_TOL,
           "grad_rtol": DCCA_GRAD_RTOL, "grad_atol": DCCA_GRAD_ATOL,
-          "ok": value_ok and grad_ok and finite and fitted})
+          "ok": value_ok and grad_ok and finite and fitted and len(layout_s) == 2})
+    if len(layout_s) != 2 or any(f["points"] != 300 for f in figures.values()):
+        raise AssertionError(f"DCCA embedding figures: {figures}, layouts {layout_s}")
     if len(losses) != DCCA_EPOCHS or not (finite and fitted):
         raise AssertionError(f"DCCA: {len(losses)} epochs, finite losses {finite}, "
                              f"LCCA fitted {fitted}")
@@ -1999,12 +2060,12 @@ def phase_eval_parity(tmp, runs):
 
 GEN_STAGE1 = os.path.join(ROOT, "configs", "ms_small", "jnf_synth.json")
 GEN_STAGE2 = os.path.join(ROOT, "configs", "ms_small", "jnf_gen_synth.json")
-# half the published data (synthetic_n 20,000, len_train 10,000), so that
-# the smoke keeps its time budget beside the trimodal phases
-GEN_N = 4500
-GEN_SYNTHETIC_N = 10_000
-GEN_LEN_TRAIN = 5_000
-GEN_TRAIN_PAIRS = 4500  # len_train 5,000 less the 500-pair val split
+# a quarter of the published data (synthetic_n 20,000, len_train 10,000), so
+# that the smoke keeps its time budget beside the data-parallel phases
+GEN_N = 2250
+GEN_SYNTHETIC_N = 5_000
+GEN_LEN_TRAIN = 2_500
+GEN_TRAIN_PAIRS = 2250  # len_train 2,500 less the 250-pair val split
 # published 200/100 epochs: cut to one warmup epoch and one after it
 # (past_warmup is epoch >= warmup, so warmup 2 leaves epoch 1 in warmup)
 GEN_RUN1 = dict(epochs=2, warmup=2)
@@ -2067,16 +2128,16 @@ def _train_count(lines):
 def phase_gen_slice(tmp, jnf_run):
     """The ms_small augmentation experiment through the port's CLIs on cuda,
     at full width (B=128, latent 20, MLP 512, SVHN f_base 32, 2 MAF blocks
-    of 3x128 per modality) and half the published data (synthetic_n 10,000,
-    len_train 5,000: 4,500 train pairs after the 500-pair val split):
+    of 3x128 per modality) and a quarter of the published data (synthetic_n
+    5,000, len_train 2,500: 2,250 train pairs after the 250-pair val split):
 
     1. train `jnf_synth.json` (epochs 2, warmup 2), which publishes the
        joint-encoder pool (save_joint);
-    2. `generate_joint --n 4500`: the joint encoder's means of the train
-       batches (35 of 128: 4,480 latents), a 10-component mixture by EM,
-       4,500 samples decoded, their joint coherence;
+    2. `generate_joint --n 2250`: the joint encoder's means of the train
+       batches (17 of 128: 2,176 latents), a 10-component mixture by EM,
+       2,250 samples decoded, their joint coherence;
     3. train `jnf_gen_synth.json` (one epoch): skip_warmup reloads the pool,
-       use_gen appends the 4,500 generated pairs;
+       use_gen appends the 2,250 generated pairs;
     4. `validate --fid-encoder classifier --prd --repeats 1` on stage 2;
     5. `plot_results` in its three modes (its acc_0_1 figure beside the
        validated JMVAE-NF run `jnf_run`);
@@ -2370,13 +2431,13 @@ CIRCLES_MMVAE_BATCHES, CIRCLES_JNF_BATCHES = (109, 23), (54, 11)
 # the single-channel MNIST runs: configs/mnist_svhn/jmvae_nf.json (MMVAE:
 # mmvae.json) with their model swapped and no DCCA; JMVAE-NF 2 epochs with
 # the first in warmup, MNIST-Contour at the loaders' default scale,
-# MNIST-Fashion's JMVAE-NF and MMVAE (1 epoch) at a quarter of it
-# (synthetic_n 1,024: 8,235 train pairs)
+# MNIST-Fashion's JMVAE-NF and MMVAE (1 epoch) at an eighth of it
+# (synthetic_n 512: 4,050 train pairs)
 MNIST1CH_JNF_RUN = dict(synthetic_n=None, epochs=2, warmup=2, skip_warmup=False)
-MNIST1CH = {"jnf_mnist_fashion": (JNF, dict(MNIST1CH_JNF_RUN, synthetic_n=1024)),
+MNIST1CH = {"jnf_mnist_fashion": (JNF, dict(MNIST1CH_JNF_RUN, synthetic_n=512)),
             "jnf_mnist_contour": (JNF, MNIST1CH_JNF_RUN),
             "mnist_fashion": (os.path.join(ROOT, "configs", "mnist_svhn", "mmvae.json"),
-                              dict(synthetic_n=1024))}
+                              dict(synthetic_n=512))}
 # HMC on the card against float64 on the CPU: one step of 10 leapfrogs from
 # the same start, momenta and accept-uniforms; the samples to this share of
 # their largest entry (float32 round-off through the flows' density and
@@ -2752,7 +2813,7 @@ def phase_mnist1ch_slice(tmp):
     jnf_mnist_fashion and jnf_mnist_contour for 2 epochs (warmup 2: the
     first trains the joint encoder, the second the unimodal encoders and
     flows with their reconstructions), mnist_fashion (MMVAE-DReG) for 1 at
-    a quarter of the data;
+    an eighth of the data;
     then `validate --repeats 1` on each. Launches from the code: epoch 1
     only its grids' 4 (2 modalities x 2 MAF blocks); epoch 2 4 forward per
     train step and val batch and 4 backward per train step (compute_kld's
@@ -2812,6 +2873,10 @@ MEDMNIST_FEW_STEPS = dict(synthetic_n=256)
 # the ResNet parity steps at B=32, not the configs' 128: their float64 CPU
 # steps, not the check, took the time
 RESNET_PARITY_B = dict(batch_size=32)
+# the later slices' spot likelihood batch (circles, MedMNIST, trimodal, IAF):
+# 250 test rows at K=1000, for the smoke's time; the MNIST-SVHN evaluation
+# phase keeps its test batch of 500
+SLICE_LL_ROWS = 250
 # CelebA's likelihood batch: 100 test rows at K=1000 (its 64x64 decoder
 # makes 500 rows cost several times MNIST-SVHN's batch)
 CELEBA_LL_ROWS = 100
@@ -2958,7 +3023,7 @@ def _jnf_expected(info):
     return [(0, 0), (4 * (steps + val_b), 4 * steps)]
 
 
-def _likelihood_batch(run, name, rows=500, n_mod=2, sequential_sampling=True):
+def _likelihood_batch(run, name, rows=SLICE_LL_ROWS, n_mod=2, sequential_sampling=True):
     """compute_likelihoods --bis on cuda at EVAL_K on the first test batch
     of `rows`: finite values, JAX's names, the ordered pairs of the n_mod
     modalities x 2 MAF blocks x 2 estimators x the K-chunks x the IS calls
@@ -3022,7 +3087,7 @@ def phase_medmnist_slice(tmp):
     with s_bound 8, gradient clipping at 40,000) for 2 epochs with warmup 2,
     its launches as `_jnf_expected` counts them; `validate --repeats 1`
     (pneumonia's and blood's classifiers trained into the pool first) and
-    one `compute_likelihoods --bis` test batch of 500 on it; mmvae.json
+    one `compute_likelihoods --bis` test batch of SLICE_LL_ROWS on it; mmvae.json
     (Laplace, DReG-looser, K=10) and mvae.json for a few steps, no launch;
     `dcca_train --dataset medmnist` (2 epochs) and jmvae_nf_dcca.json
     grafting its artifact (2 epochs, warmup 2, no_recon: no launch; trunks
@@ -3196,13 +3261,13 @@ def phase_resnet_parity(tmp):
                      align_relu=True, frozen_joint=True, no_recon=False)
 
 
-# trimodal MNIST-SVHN-Fashion: its published configs at full width, at half
-# the loader's default synthetic scale, cut for time (synthetic_n 2,048: 8,631
-# train triples, 2,225 test, 959 val; the default 4,096 gives 17,874, 4,690,
-# 1,986)
+# trimodal MNIST-SVHN-Fashion: its published configs at full width, at a
+# quarter of the loader's default synthetic scale, cut for time (synthetic_n
+# 1,024: 4,370 train triples, 1,070 test, 485 val; the default 4,096 gives
+# 17,874, 4,690, 1,986)
 MSF = {name: os.path.join(ROOT, "configs", "msf", f"{name}.json")
        for name in ("jmvae_nf", "jmvae_nf_dcca", "telbo_nf", "mmvae", "mvae")}
-MSF_SCALE = dict(synthetic_n=2048)
+MSF_SCALE = dict(synthetic_n=1024)
 MSF_JNF_RUN = dict(JNF_RUN, **MSF_SCALE)
 # TELBO-NF: one epoch, past its warmup from the first (published 200, 100)
 MSF_TELBO_RUN = dict(MSF_SCALE, epochs=1, warmup=1, skip_warmup=False)
@@ -3252,14 +3317,14 @@ def _msf_validate(run, exp, name, poe=None):
 def phase_msf_slice(tmp):
     """Trimodal MNIST-SVHN-Fashion through the CLIs on cuda at full width
     (MLP MNIST and Fashion nets, the SVHN conv nets; B=128, latent 20) at
-    half the loader's default scale (MSF_SCALE). jmvae_nf.json (a MultipleHeadJoint over
+    a quarter of the loader's default scale (MSF_SCALE). jmvae_nf.json (a MultipleHeadJoint over
     three 20-wide heads, 2 MAF blocks of 3x128 per modality) for 2 epochs
     with warmup 2 and its epoch-1 analytics (the 3x3 cond_samples grids
     and generate_001.png): epoch 1 launches only its grids' 6; epoch 2 6
     forward per train step and val batch (compute_kld's three unimodal VAE
     forwards) and 6 backward per train step; its steady post-warmup step;
     `validate --mcmc-steps 100` (HMC over each 2-subset's product of flow
-    posteriors) and one `compute_likelihoods --bis` test batch of 500
+    posteriors) and one `compute_likelihoods --bis` test batch of SLICE_LL_ROWS
     (cond_lw_subset_m). `dcca_train --dataset mnist_svhn_fashion` (three
     views, pairwise mcca loss) and jmvae_nf_dcca.json (latent 30, B=256,
     no_recon: no launch in training) grafting its three trunks behind the
@@ -3506,6 +3571,430 @@ def phase_tail_parity(tmp):
                  align_relu=True, unimodal=0)
 
 
+# data-parallel training: two ranks that share the one card over
+# gloo, and the train CLI under torchrun
+DDP_PARITY = (("mmvae_nf", CONFIG, {}, 2),
+              ("jnf_mnist_fashion", JNF, dict(JNF_RUN, model="jnf_mnist_fashion", dcca=False,
+                                              synthetic_n=1024), 4))
+DDP_TRAIN_STEPS = 3
+# forward and backward launches a step of each parity case, on every rank:
+# MMVAE-NF's 2 modalities x 2 MAF blocks sample under autograd; JMVAE-NF's
+# compute_kld runs each modality's 2 blocks past warmup
+DDP_STEP_LAUNCHES = {"mmvae_nf": (4, 4), "jnf_mnist_fashion": (4, 4)}
+DDP_RANKS = 2
+DDP_SLICE_TIMEOUT = 300
+# (ranks, backend) of phase_ddp_slice: one rank over NCCL, two on the card
+# over gloo ("" lets the CLI take NCCL)
+DDP_SLICE_RUNS = ((1, ""), (DDP_RANKS, "gloo"))
+# the steady data-parallel step after the epoch: steps timed after a warm-up
+DDP_STEADY_WARM, DDP_STEADY_STEPS = 3, 10
+
+
+def _ddp_case(tmp, name, config, overrides, n_noise):
+    """The parity case `name`: its config cut as the smoke cuts it, the
+    first train batch, `n_noise` standard-normal draws of (B, latent), the
+    initial weights (JAX layout) and the step's epoch, past any warmup."""
+    import numpy as np
+
+    from mmvae_tpu_torch.bridge import export_jax_params
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer
+
+    cfg_path, _ = _slice_config(tmp, config, **{"experiment": f"smoke/ddp_{name}", **overrides})
+    cfg = ExperimentConfig.from_json(cfg_path)
+    xs, _ = next(iter(_data_loaders(cfg)[0]))
+    rng = np.random.default_rng(0)
+    eps = [rng.standard_normal((cfg.batch_size, cfg.latent_dim)).astype(np.float32)
+           for _ in range(n_noise)]
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device="cpu")
+    trainer.init_parameters()
+    return dict(name=name, cfg=cfg_path, xs=[np.asarray(x) for x in xs], eps=eps,
+                weights=export_jax_params(trainer.model), epoch=max(cfg.warmup, 1))
+
+
+def _ddp_trainer(case, device, dtype, mesh=None):
+    import torch
+
+    from mmvae_tpu_torch.bridge import load_jax_params
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer
+
+    cfg = ExperimentConfig.from_json(case["cfg"])
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model.to(dtype), bundle.spec, cfg, device=device, mesh=mesh)
+    load_jax_params(trainer.model, case["weights"])
+    # the optimizer the Trainer runs there: reset to Adam at a warmup's end
+    trainer.init_opt_state(past_warmup=True, amsgrad=cfg.warmup == 0)
+    xs = [torch.tensor(x).to(device, dtype) for x in case["xs"]]
+    eps = [torch.tensor(e).to(device, dtype) for e in case["eps"]]
+    return cfg, trainer, xs, eps
+
+
+def _ddp_parity_rank(rank, world, port, job_path, out_dir, backend):
+    """One rank of `phase_ddp_parity` (torch.multiprocessing's spawn): over
+    gloo on cuda:0 beside the other ranks, or over NCCL on its own card
+    cuda:rank; for each case its block's step
+    with its rows of the noise, its ReLU branches recorded (the kernels'
+    from their tapes), then DDP_TRAIN_STEPS train steps on the same block
+    with its own noise. Each rank's ar_solve counts start at 0."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mmvae_tpu_torch.ops import ar_flow
+    from mmvae_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(world, 1, device="cuda", backend=backend)
+    out = {}
+    for case in torch.load(job_path, weights_only=False):
+        cfg, trainer, xs, eps = _ddp_trainer(case, mesh.device, torch.float32, mesh)
+        xs, block = shard_batch(mesh, xs)
+        eps = [e[block.start:block.stop] for e in eps]
+        _reset_counts()
+        relu = _ReluBranches()
+        with relu, _SolveBranches(relu):
+            loss, _, grads, finite = trainer.loss_and_grads(xs, epoch=case["epoch"], noise=eps,
+                                                            block=block)
+        torch.cuda.synchronize()
+        step = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+        for _ in range(DDP_TRAIN_STEPS):
+            trainer.train_step(xs, cfg.learning_rate, epoch=case["epoch"], block=block)
+        torch.cuda.synchronize()
+        out[case["name"]] = dict(
+            loss=loss.item(), finite=bool(finite), grads=[g.cpu() for g in grads],
+            masks=relu.masks, step_launches=step, device=str(mesh.device),
+            launches=(ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches),
+            params=[p.detach().cpu() for p in trainer.model.parameters()],
+            skipped=trainer.opt.count.item() != DDP_TRAIN_STEPS)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
+    """Data-parallel steps on the card: two ranks on cuda:0 over gloo
+    (`_ddp_parity_rank`; or `ranks` over NCCL, one card each) against one
+    process, for an MMVAE-NF step
+    (mmvae_nf_synth.json) and a post-warmup JMVAE-NF step on
+    jnf_mnist_fashion (BatchNorm over the global batch), both kernels
+    on every rank at 64 rows, the same noise cut by rows. Checks: the
+    ranks' objectives summed against the one-process objective on the card
+    (STEP_OBJ_RTOL); the ranks' all-reduced gradients bitwise equal, and
+    within STEP_GRAD_TOL of each leaf's largest entry of the float64 CPU
+    step on the ranks' ReLU branches (their masks concatenated by rows,
+    each flipped element within RELU_KINK_ATOL of 0); each rank's launches
+    as predicted; the parameters
+    bitwise equal on both ranks after DDP_TRAIN_STEPS steps; the one-process
+    step against the float64 step on its own branches, and the elements
+    whose branch differs between the two card runs. `specs`: the
+    cases, (name, config, overrides, draws). Returns the launches by path
+    and rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    cases = [_ddp_case(tmp, name, config, overrides, n) for name, config, overrides, n in specs]
+    job = os.path.join(tmp, "ddp_parity_job.pt")
+    torch.save(cases, job)
+    out_dir = os.path.join(tmp, "ddp_parity")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(_ddp_parity_rank, args=(ranks, _free_port(), job, out_dir, backend), nprocs=ranks,
+             join=True)
+    ranks_s = time.perf_counter() - t0
+    n_ranks, ranks = ranks, [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                             for r in range(ranks)]
+    launches = {}
+    for case in cases:
+        name = case["name"]
+        per_rank = [r[name] for r in ranks]
+        # one process on the card, the same weights, batch and noise
+        _, trainer, xs, eps = _ddp_trainer(case, "cuda", torch.float32)
+        _reset_counts()
+        relu1 = _ReluBranches()
+        with relu1, _SolveBranches(relu1):
+            loss1, _, grads1, _ = trainer.loss_and_grads(xs, epoch=case["epoch"], noise=eps)
+        torch.cuda.synchronize()
+        one_launches = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+        # the float64 CPU step on the two ranks' ReLU branches (their masks
+        # concatenated by rows), and on the one process's
+        replay = [torch.cat(ms) for ms in zip(*(r["masks"] for r in per_rank))]
+        refs, rbs = [], []
+        for masks in (replay, relu1.masks):
+            _, ref_trainer, xs64, eps64 = _ddp_trainer(case, "cpu", torch.float64)
+            with _ReluBranches(masks) as rb:
+                loss64, _, grads64, _ = ref_trainer.loss_and_grads(xs64, epoch=case["epoch"],
+                                                                   noise=eps64)
+            refs.append({"obj": -loss64.item(), "loss": loss64.item(), "grads": grads64})
+            rbs.append(rb)
+        names = [n for n, _ in ref_trainer.model.named_parameters()]
+        ddp = {"obj": -sum(r["loss"] for r in per_rank), "loss": sum(r["loss"] for r in per_rank),
+               "grads": [g.double() for g in per_rank[0]["grads"]]}
+        one = {"obj": -loss1.item(), "loss": loss1.item(),
+               "grads": [g.double().cpu() for g in grads1]}
+        scales = _leaf_scales(refs[0]["grads"], names)
+        ddp_err = _step_errors(ddp, refs[0], names, scales)
+        one_err = _step_errors(one, refs[1], names, scales)
+        ddp_vs_one = _step_errors(ddp, one, names, scales)
+        branches_apart = sum(int((a != b).sum()) for a, b in zip(replay, relu1.masks))
+        same_grads = all(torch.equal(a, b) for r in per_rank[1:]
+                         for a, b in zip(per_rank[0]["grads"], r["grads"]))
+        same_params = all(torch.equal(a, b) for r in per_rank[1:]
+                          for a, b in zip(per_rank[0]["params"], r["params"]))
+        f, b = DDP_STEP_LAUNCHES[name]
+        expected_step = (f, b)
+        expected = (f * (1 + DDP_TRAIN_STEPS), b * (1 + DDP_TRAIN_STEPS))
+        got = [tuple(r["launches"]) for r in per_rank]
+        ok = (ddp_vs_one["objective_rel_err"] <= STEP_OBJ_RTOL
+              and max(ddp_err["grad_max_rel_err"], one_err["grad_max_rel_err"]) <= STEP_GRAD_TOL
+              and same_grads and same_params and len(replay) == len(relu1.masks)
+              and all(len(rb.masks) == len(replay) and rb.flip_max_abs <= RELU_KINK_ATOL
+                      for rb in rbs)
+              and all(r["finite"] and not r["skipped"] for r in per_rank)
+              and [tuple(r["step_launches"]) for r in per_rank] == [expected_step] * n_ranks
+              and got == [expected] * n_ranks and one_launches == expected_step
+              and [r["device"] for r in per_rank] == [
+                  f"cuda:{0 if backend == 'gloo' else i}" for i in range(n_ranks)])
+        emit({"phase": "ddp_parity", "case": name, "ranks": n_ranks, "backend": backend,
+              "devices": [r["device"] for r in per_rank],
+              "rows_per_rank": len(xs[0]) // n_ranks, "epoch": case["epoch"],
+              "reference": "cpu float64 on each card run's own ReLU branches",
+              "ddp_vs_ref": ddp_err, "one_process_cuda_vs_ref": one_err,
+              "ddp_vs_one_process_cuda": ddp_vs_one, "grads_equal_on_ranks": same_grads,
+              "params_equal_after_steps": same_params, "train_steps": DDP_TRAIN_STEPS,
+              "relu_calls": len(replay), "relu_elements_apart_ranks_vs_one_process": branches_apart,
+              "relu_elements_on_other_branch": [rb.flips for rb in rbs],
+              "relu_other_branch_max_abs_preact": [rb.flip_max_abs for rb in rbs],
+              "step_launches_by_rank": [r["step_launches"] for r in per_rank],
+              "launches_by_rank": got, "expected_launches_by_rank": [expected] * n_ranks,
+              "one_process_step_launches": one_launches, "ranks_wall_s": ranks_s,
+              "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"ddp_parity {name}: ranks against one process failed")
+        for r, counts in enumerate(got):
+            launches[f"ddp_parity_{name}_{backend}_rank{r}"] = counts
+    return launches
+
+
+def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
+    """`chip_smoke.py ddp-rank ...` under torchrun: this rank's train CLI
+    epoch on cuda, its ar_solve launches counted from 0 (those of the
+    analytics apart, by a probe before the CLI's callbacks), the train
+    epoch's time a step, then the steady step on this rank's blocks and one
+    all-reduce of the gradient's size timed, and the files this rank
+    opened for writing; written to <out_json>.rank<r>."""
+    import builtins
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mmvae_tpu_torch.cli.train import main as train_main
+    from mmvae_tpu_torch.ops import ar_flow
+    from mmvae_tpu_torch.train import Trainer
+
+    rank = int(os.environ["RANK"])
+    counts, epoch_s, val_batches, trainers, pipelines = {}, [], [], [], []
+    fit, run_epoch = Trainer.fit, Trainer.run_epoch_device
+    run_val = Trainer.run_epoch_device_eval
+
+    def before_callbacks(trainer, epoch, *args, **kwargs):
+        torch.cuda.synchronize()
+        counts["epoch"] = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+
+    def fit_with_probe(self, *args, callbacks=None, **kwargs):
+        trainers.append(self)
+        return fit(self, *args, callbacks=[before_callbacks, *(callbacks or [])], **kwargs)
+
+    def timed_epoch(self, pipeline, *args, **kwargs):
+        pipelines.append(pipeline)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(self, pipeline, *args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append((time.perf_counter() - t0, len(pipeline)))
+        return out
+
+    def counted_val(self, pipeline, *args, **kwargs):
+        val_batches.append(len(pipeline))
+        return run_val(self, pipeline, *args, **kwargs)
+
+    writes = []
+    opened = builtins.open
+
+    def open_(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+"):
+            writes.append(str(file))
+        return opened(file, mode, *args, **kwargs)
+
+    # the group outlives the CLI's run, for the all-reduce's timing below
+    import torch.distributed as dist
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    dist.init_process_group(backend or "nccl")
+    Trainer.fit, Trainer.run_epoch_device = fit_with_probe, timed_epoch
+    Trainer.run_epoch_device_eval = counted_val
+    builtins.open = open_
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        argv = ["--config-path", cfg_path, "--experiments-dir", exp_dir, "--device", "cuda"]
+        run_path = train_main(argv + (["--dist-backend", backend] if backend else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        builtins.open = opened
+        Trainer.fit, Trainer.run_epoch_device = fit, run_epoch
+        Trainer.run_epoch_device_eval = run_val
+    total = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    # the steady train step on this rank's blocks, after the epoch
+    trainer, pipeline = trainers[0], pipelines[0]
+    block = trainer.mesh.block(pipeline.batch_size)
+    batches = [pipeline.gather(torch.from_numpy(r).cuda())
+               for r in list(pipeline.epoch_index_batches())[:DDP_STEADY_WARM + DDP_STEADY_STEPS]]
+    for i, xs in enumerate(batches):
+        if i == DDP_STEADY_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        trainer.train_step(xs, 1e-4, block=block)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / DDP_STEADY_STEPS * 1e3
+    # one all-reduce of the step's flat gradient, as the Trainer makes it
+    n = sum(p.numel() for p in trainer.model.parameters()) + 1
+    flat = torch.ones(n, device="cuda")
+    for _ in range(3):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) / 20 * 1e3
+    dist.destroy_process_group()
+    (train_s, steps), = epoch_s
+    with open(f"{out_json}.rank{rank}", "w") as f:
+        json.dump({"rank": rank, "run_path": run_path, "epoch_launches": counts["epoch"],
+                   "launches": total, "analytics_launches": total[0] - counts["epoch"][0],
+                   "train_steps": steps, "val_batches": val_batches[0],
+                   "epoch_ms_per_step": train_s / steps * 1e3, "steady_step_ms": steady_ms,
+                   "wall_s_incl_setup": wall, "allreduce_ms": allreduce_ms,
+                   "allreduce_floats": n, "files_written": writes,
+                   "device": str(trainer.device)}, f)
+
+
+def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
+    """The train CLI under `torchrun --standalone` on mmvae_nf_synth.json at
+    the smoke's scale, 1 epoch with its analytics: one rank (NCCL, a world
+    of 1, the flat all-reduce a no-op) and two ranks on cuda:0 with
+    mesh_data 2 over gloo, each rank through `chip_smoke.py ddp-rank`.
+    Launches from the code, each rank's: 4 x (68 + 7) forward and 4 x 68
+    backward at 128 rows a launch for one rank and 64 for two (the val
+    pipeline shards too); rank 0's epoch-1 grids 4 more, the other rank
+    none. Rank 0 writes the run dir (args, metrics, losses, checkpoint,
+    grids), the other ranks open no file for writing. Each rank's epoch
+    time a step and steady step (DDP_STEADY_STEPS after the epoch, on its
+    blocks of the next batches; their launches come after the counts),
+    beside the one-rank ones, and one all-reduce of the gradient's size.
+    Returns the launches by path and rank."""
+    results = {}
+    for ranks, backend in runs:
+        cfg_path, _ = _slice_config(tmp, CONFIG, analytics=True, mesh_data=ranks,
+                                    experiment=f"smoke/ddp_slice_{ranks}")
+        exp = os.path.join(tmp, f"ddp_slice_{ranks}")
+        out_json = os.path.join(tmp, f"ddp_slice_{ranks}.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={ranks}", os.path.join(ROOT, "chip_smoke.py"), "ddp-rank",
+               cfg_path, exp, out_json, backend]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DDP_SLICE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun with {ranks} rank(s) exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        per_rank = []
+        for r in range(ranks):
+            with open(f"{out_json}.rank{r}") as f:
+                per_rank.append(json.load(f))
+        run = per_rank[0]["run_path"]
+        files = sorted(os.listdir(run))
+        runs_made = [d for d, _, fs in os.walk(exp) if "args.json" in fs]
+        with open(os.path.join(run, "losses.json")) as f:
+            losses = json.load(f)
+        steps, val_b = per_rank[0]["train_steps"], per_rank[0]["val_batches"]
+        devices = [p["device"] for p in per_rank]
+        expected = [(4 * (steps + val_b) + (4 if r == 0 else 0), 4 * steps) for r in range(ranks)]
+        got = [tuple(p["launches"]) for p in per_rank]
+        ok = (got == expected and (steps, val_b) == (68, 7) and runs_made == [run]
+              and all(p["run_path"] == run for p in per_rank)
+              and {"args.json", "losses.json", "metrics.jsonl", "model.pt",
+                   "generate_001.png"} <= set(files)
+              and all(not p["files_written"] for p in per_rank[1:])
+              and devices == [f"cuda:{0 if backend == 'gloo' else r}" for r in range(ranks)]
+              and all(math.isfinite(v) for v in losses["train_loss"] + losses["test_loss"]))
+        emit({"phase": "ddp_slice", "ranks": ranks, "backend": backend or "nccl",
+              "mesh_data": ranks, "rows_per_launch": 128 // ranks, "torchrun_wall_s": wall,
+              "expected_launches_by_rank": expected, "launches_by_rank": got,
+              "run_files": files, "losses": losses,
+              **{k: [p[k] for p in per_rank] for k in
+                 ("analytics_launches", "epoch_ms_per_step", "steady_step_ms",
+                  "wall_s_incl_setup", "allreduce_ms",
+                  "allreduce_floats", "device")},
+              "files_written_by_rank": [len(p["files_written"]) for p in per_rank], "ok": ok})
+        if not ok:
+            raise AssertionError(f"ddp_slice with {ranks} rank(s): launches {got} (expected "
+                                 f"{expected}), run dirs {runs_made}, files {files}")
+        for r, counts in enumerate(got):
+            results[f"ddp_slice_{ranks}_{backend or 'nccl'}_rank{r}"] = counts
+    return results
+
+
+def ddp_cards(n):
+    """`chip_smoke.py ddp-cards N`, on a machine with N cards: the
+    data-parallel phases over NCCL with one rank a card (ddp_parity's two
+    steps, ddp_slice's epoch with mesh_data N), then the card line and the
+    contract line. The smoke itself, run with no argument, needs one card
+    and runs them over gloo on it."""
+    import torch
+
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke ddp-cards {n}: {torch.cuda.device_count()} card(s)", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    # float32 parity, as main() runs it: no TF32 in matmuls or cuDNN convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phase_build()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches = phase_ddp_parity(tmp, ranks=n, backend="nccl")
+        launches.update(phase_ddp_slice(tmp, runs=((n, ""),)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "ddp_cards", "cards": n, "launches_by_path": launches,
+          "seconds": time.perf_counter() - t0})
+    print(smi.stdout.strip().replace("\n", "; "), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main():
     import torch
 
@@ -3513,6 +4002,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["ddp-rank"]:  # one rank of phase_ddp_slice, under torchrun
+        _ddp_rank_cli(*sys.argv[2:6])
+        return 0
+    if sys.argv[1:2] == ["ddp-cards"]:
+        return ddp_cards(int(sys.argv[2]))
     sys.path.insert(0, ROOT)
     import mmvae_tpu_torch  # noqa: F401  (fails where the checkout is missing)
 
@@ -3578,6 +4072,8 @@ def main():
         tail, tail_minus, loader = timed("tail_slice", phase_tail_slice, tmp)
         linnf = timed("linnf_slice", phase_linnf_slice, tmp, loader)
         timed("tail_parity", phase_tail_parity, tmp)
+        ddp = timed("ddp_parity", phase_ddp_parity, tmp)
+        ddp.update(timed("ddp_slice", phase_ddp_slice, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3590,7 +4086,7 @@ def main():
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
                **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
-               **celeba, **msf, **iaf, **tail, **linnf}
+               **celeba, **msf, **iaf, **tail, **linnf, **ddp}
     # the slice-11 paths' launches at sign -1 (IAF's density direction);
     # every other path's solve is MAF's sampling direction, at sign +1
     by_sign = {**iaf_minus, **tail_minus, **{path: (0, 0) for path in linnf}}

@@ -12,9 +12,14 @@ pairwise mcca loss), fits the linear CCA on the first two views and writes
 
 The loss follows the device, as the JAX package's follows its platform:
 on the CPU the reference eigh loss in float64, on cuda the Cholesky loss in
-float32 (TF32 off). `--backend` overrides the loss. The SVM probe and the
-embedding plot of the JAX CLI need scikit-learn and umap; they are not yet
-ported (the evaluation slice), and the CLI says so instead of running them.
+float32 (TF32 off). `--backend` overrides the loss.
+
+Then, as the JAX CLI, the embedding figure of each view of the test set,
+<out>/<dataset>/embedding_{v}.png with its .json (vis.visualize_umap, the
+in-repo UMAP on the device): 300 test rows drawn with default_rng(0), the
+linear CCA applied to views 0 and 1, colored by class (uncolored on CelebA,
+whose targets are the 40 attribute bits). The JAX CLI's SVM probe needs
+scikit-learn's LinearSVC; it is not yet ported, and the CLI says so.
 """
 
 from __future__ import annotations
@@ -22,7 +27,11 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
+
+# test rows in each embedding figure: a scatter needs no more
+N_PLOT = 300
 
 
 def main(argv=None):
@@ -70,8 +79,8 @@ def main(argv=None):
         extra["confound_max"] = info.confound_max
     if info.fold:
         extra["fold"] = info.fold
-    train_l, _, val_l = get_dataloaders(info.dataset, batch_size=info.batch_size,
-                                        data_path=info.data_path, **extra)
+    train_l, test_l, val_l = get_dataloaders(info.dataset, batch_size=info.batch_size,
+                                             data_path=info.data_path, **extra)
     print(f"DCCA {info.dataset}: trunk dim {outdim}, {backend} loss in "
           f"{str(dtype).removeprefix('torch.')} on {device}; train {train_l.num_examples}, "
           f"val {val_l.num_examples}")
@@ -81,9 +90,42 @@ def main(argv=None):
     out_path = os.path.join(info.out, info.dataset, "dcca.npz")
     solver.save(out_path)
     print("saved", out_path)
-    print("SVM probe and embedding plot: not yet ported (they need scikit-learn and umap; "
-          "the evaluation slice)")
+    print("SVM probe: not yet ported (it needs scikit-learn's LinearSVC)")
+    embedding_figures(solver, test_l, info.dataset, os.path.join(info.out, info.dataset), device)
     return out_path
+
+
+def embedding_figures(solver, test_loader, dataset, out_dir, device):
+    """embedding_{v}.png of each view (mmvae_tpu/cli/dcca_train.py:129-147,
+    the reference's main_mnist_svhn.py:218-221): the trunks' test features,
+    linear-CCA projected on views 0 and 1 (the trimodal third view stays
+    raw), N_PLOT rows of a default_rng(0) permutation, so that a
+    class-ordered test set shows every class. Returns the files written."""
+    from ..vis import visualize_umap
+
+    solver.model.eval()
+    feats, labels = None, []
+    with torch.no_grad():
+        for xs, labs in test_loader:
+            outs = solver.model([torch.as_tensor(x).to(device, solver.dtype) for x in xs])
+            feats = [[] for _ in outs] if feats is None else feats
+            for v, out in enumerate(outs):
+                feats[v].append(out.cpu().numpy())
+            # celeba: the targets are the 40 attribute bits, not one label
+            labels.append(np.asarray(xs[1]).reshape(len(xs[1]), -1) if dataset == "celeba"
+                          else np.asarray(labs[0]))
+    labels = np.concatenate(labels)
+    classes = None if labels.ndim > 1 else labels
+    paths = []
+    for v, chunks in enumerate(feats):
+        h = np.concatenate(chunks)
+        if v < 2:
+            h = solver.lcca.transform(h, v)
+        sel = np.random.default_rng(0).permutation(len(h))[:N_PLOT]
+        paths.append(os.path.join(out_dir, f"embedding_{v}.png"))
+        visualize_umap(h[sel], None if classes is None else classes[sel], save_file=paths[-1],
+                       device=device)
+    return paths
 
 
 if __name__ == "__main__":

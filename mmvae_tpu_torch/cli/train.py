@@ -1,7 +1,15 @@
 """Train entry point (mmvae_tpu/cli/train.py; the reference's main.py).
 
 Usage: python -m mmvae_tpu_torch.cli.train --config-path path/to/config.json
-    [--experiments-dir DIR] [--device cuda|cpu]
+    [--experiments-dir DIR] [--device cuda|cpu] [--dist-backend nccl|gloo]
+
+Data-parallel over N ranks, as the JAX CLI trains over all of a host's chips:
+    torchrun --standalone --nproc_per_node=N -m mmvae_tpu_torch.cli.train \
+        --config-path path/to/config.json
+The config's "mesh_data" (null: every rank) and "mesh_k" lay the ranks out
+as the JAX package lays out its devices (parallel/mesh.py); rank r trains on
+cuda:r over NCCL. Ranks that share a card name `--dist-backend gloo`. Rank 0
+alone writes the run dir; every rank holds the same parameters.
 
 Takes the same JSON configs and writes the same run-dir layout:
 <experiments-dir>/<experiment>/<date>/<runId>/ with args.json, metrics.jsonl,
@@ -42,13 +50,6 @@ from tempfile import mkdtemp
 
 import numpy as np
 import torch
-
-
-def _not_yet_ported(cfg):
-    """Config features of the JAX CLI this port does not run yet."""
-    if cfg.mesh_data not in (None, 1) or cfg.mesh_k != 1:
-        return "multi-device meshes not yet ported"
-    return None
 
 
 def analytics_callback(cfg, bundle, val_loader, run_path, device):
@@ -116,23 +117,17 @@ def main(argv=None):
                         help="where run dirs go (default ./experiments)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda)")
+    parser.add_argument("--dist-backend", type=str, default="", choices=["", "nccl", "gloo"],
+                        help="torch.distributed backend under torchrun (default nccl on cuda, "
+                        "gloo on the CPU); gloo where ranks share a card")
     info = parser.parse_args(argv)
 
     from ..core.config import ExperimentConfig
-    from ..data import get_dataloaders
-    from ..data.loaders import ArrayLoader, PairedDataset
-    from ..models import registry
-    from ..train import Trainer, checkpoints
-    from ..utils import Tracker
-    from .common import loader_kwargs, torch_device
+    from ..parallel import make_mesh
+    from .common import torch_device
 
     cfg = ExperimentConfig.from_json(info.config_path)
-    problem = _not_yet_ported(cfg)
-    if problem:
-        raise NotImplementedError(problem)
-    device = torch_device(info.device)
     np.random.seed(cfg.seed)
-
     # use_pretrain resume (main.py:54-62, 88-91): adopt the old run's args,
     # extend the epoch budget, reload its checkpoint below
     pretrained_path = cfg.use_pretrain
@@ -145,15 +140,45 @@ def main(argv=None):
         cfg.freq_analytics = new_cfg.freq_analytics
         cfg.use_pretrain = pretrained_path
 
+    device = torch_device(info.device)
+    owns_group = not (torch.distributed.is_available() and torch.distributed.is_initialized())
+    mesh = make_mesh(cfg.mesh_data, cfg.mesh_k, device=device,
+                     backend=info.dist_backend or None)
+    try:
+        return _train(info, cfg, mesh, mesh.device if mesh.collective else device)
+    finally:
+        if mesh.collective and owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(info, cfg, mesh, device):
+    """The run on this rank of `mesh`; rank 0 alone writes."""
+    from ..data import get_dataloaders
+    from ..data.loaders import ArrayLoader, PairedDataset
+    from ..models import registry
+    from ..train import Trainer, checkpoints
+    from ..utils import Tracker
+    from .common import loader_kwargs
+
+    lead = mesh.rank == 0
+
+    def say(*args):
+        if lead:
+            print(*args)
+
+    pretrained_path = cfg.use_pretrain
     bundle = registry.build(cfg)
-    run_id = datetime.datetime.now().isoformat()
-    experiment = cfg.experiment or bundle.model_name
-    exp_dir = Path(info.experiments_dir) / experiment / datetime.date.today().isoformat()
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    run_path = mkdtemp(prefix=run_id, dir=str(exp_dir))
-    print("Expt:", run_path)
-    with open(os.path.join(run_path, "args.json"), "w") as f:
-        json.dump(cfg.to_dict(), f)
+    run_path = None
+    if lead:
+        run_id = datetime.datetime.now().isoformat()
+        experiment = cfg.experiment or bundle.model_name
+        exp_dir = Path(info.experiments_dir) / experiment / datetime.date.today().isoformat()
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        run_path = mkdtemp(prefix=run_id, dir=str(exp_dir))
+        print("Expt:", run_path)
+        with open(os.path.join(run_path, "args.json"), "w") as f:
+            json.dump(cfg.to_dict(), f)
+    run_path = mesh.from_rank0(run_path)
 
     train_loader, test_loader, val_loader = get_dataloaders(
         bundle.dataset, batch_size=cfg.batch_size, **loader_kwargs(cfg, bundle.dataset))
@@ -172,14 +197,16 @@ def main(argv=None):
             [np.concatenate([m, g]) for m, g in zip(ds.modalities, gen)],
             [np.concatenate([l, np.zeros(len(gen[0]), dtype=l.dtype)]) for l in ds.labels])
         train_loader = ArrayLoader(merged, cfg.batch_size, shuffle=True)
-        print(f"use_gen: appended {len(gen[0])} generated pairs")
-    print(f"Train: {train_loader.num_examples}, Test: {test_loader.num_examples}, "
-          f"Val: {val_loader.num_examples}")
+        say(f"use_gen: appended {len(gen[0])} generated pairs")
+    say(f"Train: {train_loader.num_examples}, Test: {test_loader.num_examples}, "
+        f"Val: {val_loader.num_examples}" + (f"; {mesh.world} ranks, mesh (data={mesh.n_data}, "
+                                             f"k={mesh.n_k}) over {mesh.backend}"
+                                             if mesh.collective else ""))
 
     hooks = []
     if pretrained_path:
         def load_pretrained(model):
-            print(f"Loading model from {pretrained_path}")
+            say(f"Loading model from {pretrained_path}")
             checkpoints.load_model(model, pretrained_path)
 
         hooks.append(load_pretrained)
@@ -187,25 +214,26 @@ def main(argv=None):
         dcca_path = cfg.extra.get("dcca_path", os.path.join(info.experiments_dir, "dcca",
                                                             bundle.dataset, "dcca.npz"))
         if os.path.exists(dcca_path):
-            print(f"grafting pretrained DCCA trunks from {dcca_path}")
+            say(f"grafting pretrained DCCA trunks from {dcca_path}")
             hooks.append(functools.partial(registry.graft_dcca_params, dcca_npz_path=dcca_path))
         else:
-            print(f"WARNING: dcca=true but no artifacts at {dcca_path}; "
-                  "trunks stay randomly initialized (frozen)")
+            say(f"WARNING: dcca=true but no artifacts at {dcca_path}; "
+                "trunks stay randomly initialized (frozen)")
 
     def variables_hook(model):
         for hook in hooks:
             hook(model)
 
     trainer = Trainer(bundle.model, bundle.spec, cfg, run_path=run_path, device=device,
-                      experiments_dir=info.experiments_dir)
+                      experiments_dir=info.experiments_dir, mesh=mesh, log_fn=say)
     compute = str(trainer.compute_dtype or torch.float32).removeprefix("torch.")
     stored = str(trainer.activation_dtype or "as computed").removeprefix("torch.")
-    print(f"objective: {trainer.obj_name} on {device} (compute {compute}, activations {stored}"
-          + (f"; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-             f"cuDNN {torch.backends.cudnn.allow_tf32}" if device.type == "cuda" else "") + ")")
+    say(f"objective: {trainer.obj_name} on {device} (compute {compute}, activations {stored}"
+        + (f"; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+           f"cuDNN {torch.backends.cudnn.allow_tf32}" if device.type == "cuda" else "") + ")")
 
-    tracker = Tracker(run_path)
+    # rank 0 alone writes: the metrics, the grids, the losses
+    tracker = Tracker(run_path if lead else None)
 
     def track(trainer_, epoch, tr_det, va_det, **metrics):
         payload = {"train_loss": metrics.get("tr_loss"), "val_loss": metrics.get("va_loss"),
@@ -214,17 +242,18 @@ def main(argv=None):
         payload.update({f"val_{k}": v for k, v in (va_det or {}).items()})
         tracker.log(payload, step=epoch)
 
-    callbacks = [track]
-    if not cfg.no_analytics:
+    callbacks = [track] if lead else []
+    if lead and not cfg.no_analytics:
         callbacks.append(analytics_callback(cfg, bundle, val_loader, run_path, device))
     use_dp = bool(cfg.extra.get("device_pipeline", True))
     trainer.fit(train_loader, val_loader, callbacks=callbacks,
                 variables_hook=variables_hook if hooks else None, use_device_pipeline=use_dp)
     tracker.close()
 
-    with open(os.path.join(run_path, "losses.json"), "w") as f:
-        json.dump(trainer._history, f)
-    print("done; best checkpoints in", run_path)
+    if lead:
+        with open(os.path.join(run_path, "losses.json"), "w") as f:
+            json.dump(trainer._history, f)
+    say("done; best checkpoints in", run_path)
     return run_path
 
 

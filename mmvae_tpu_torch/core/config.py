@@ -68,7 +68,8 @@ class ExperimentConfig:
     device: str = "tpu"
     logp: bool = False
 
-    # parallelism keys of the JAX package (read, not used by the port yet)
+    # the data-parallel mesh (parallel/mesh.py): data ranks (None: every
+    # rank) and k replicas of each
     mesh_data: Optional[int] = None
     mesh_k: int = 1
 

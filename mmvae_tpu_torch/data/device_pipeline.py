@@ -10,6 +10,11 @@ the plain choice and gives identical values.)
 Float arrays with values <= 1 are stored as round(x*255) uint8 and decoded
 as u8 * (1/255), exactly as the JAX pipeline does, so both packages feed
 the model the same inputs.
+
+Under a mesh of several ranks (parallel/mesh.py) every rank keeps the whole
+data and the same permutation (the same seed), and each step yields this
+rank's contiguous block of the batch's row ids, which it gathers alone: the
+JAX pipeline's row batches sharded with P(None, "data").
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ class DeviceDataPipeline:
     def __init__(self, base_arrays: Sequence[np.ndarray],
                  pair_indices: Sequence[np.ndarray],
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 store_uint8: bool = True, device="cuda"):
+                 store_uint8: bool = True, device="cuda", mesh=None):
         if len(base_arrays) != len(pair_indices):
             raise ValueError("one pairing table per modality")
         self.device = torch.device(device)
@@ -36,6 +41,7 @@ class DeviceDataPipeline:
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
         self.n_pairs = len(pair_indices[0])
+        self.mesh = mesh
 
         self.device_arrays = []
         self.is_uint8 = []
@@ -56,12 +62,14 @@ class DeviceDataPipeline:
 
     def epoch_index_batches(self):
         """Host-side: per-step arrays of pair-row ids (int32), the ragged
-        tail dropped."""
+        tail dropped; under a mesh, this rank's block of each."""
         order = (self._rng.permutation(self.n_pairs) if self.shuffle
                  else np.arange(self.n_pairs)).astype(np.int32)
         stop = self.n_pairs - self.n_pairs % self.batch_size
+        block = None if self.mesh is None else self.mesh.block(self.batch_size)
         for s in range(0, stop, self.batch_size):
-            yield order[s: s + self.batch_size]
+            rows = order[s: s + self.batch_size]
+            yield rows if block is None else rows[block.start:block.stop]
 
     def gather(self, pair_rows: torch.Tensor) -> List[torch.Tensor]:
         """pair_rows (B,) int on the device -> [x_m (B, *event) float32]."""
@@ -73,10 +81,10 @@ class DeviceDataPipeline:
         return out
 
 
-def from_array_loader(loader, shuffle=None, device="cuda") -> DeviceDataPipeline:
+def from_array_loader(loader, shuffle=None, device="cuda", mesh=None) -> DeviceDataPipeline:
     """Wrap an ArrayLoader's dataset: LazyGather modalities ship their
     deduplicated base array and the real pairing table, materialized ones an
-    identity table."""
+    identity table. `mesh`: as DeviceDataPipeline's."""
     from .loaders import LazyGather
 
     ds = loader.dataset
@@ -91,4 +99,4 @@ def from_array_loader(loader, shuffle=None, device="cuda") -> DeviceDataPipeline
             idx.append(np.arange(n, dtype=np.int32))
     return DeviceDataPipeline(
         arrays, idx, loader.batch_size,
-        shuffle=loader.shuffle if shuffle is None else shuffle, device=device)
+        shuffle=loader.shuffle if shuffle is None else shuffle, device=device, mesh=mesh)

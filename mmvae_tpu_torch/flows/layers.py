@@ -30,8 +30,17 @@ class BatchNormFlow(RunningStats):
 
     def forward(self, x, inverse: bool = False):
         if self.training and not inverse:
-            mean = torch.mean(x, dim=0)
-            var = torch.var(x, dim=0, correction=1)
+            if self.stats_block is None:
+                mean = torch.mean(x, dim=0)
+                var = torch.var(x, dim=0, correction=1)
+            else:
+                # the global batch's, from the ranks' summed sums and counts
+                count = x.new_full((1,), x.shape[0])
+                sums = self.stats_block.sum(torch.cat([x.sum(0), (x * x).sum(0), count]))
+                n = sums[-1]
+                mean, sq = sums[:-1].chunk(2)
+                mean = mean / n
+                var = (sq - n * mean * mean) / (n - 1)
             with torch.no_grad():
                 self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * mean)
                 self.var.copy_((1 - self.momentum) * self.var + self.momentum * var)

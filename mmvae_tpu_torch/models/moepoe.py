@@ -36,10 +36,11 @@ class MOEPOE(nn.Module):
     def n_mod(self):
         return len(self.vaes)
 
-    def forward(self, x, K: int = 1, noise=None, generator=None):
+    def forward(self, x, K: int = 1, noise=None, generator=None, block=None):
         """ELBO-building forward (moepoe.py:85-139). K is not used. Returns
         dict(elbo, z_joint, mus, log_vars), the last two stacked over the
-        mixture's components."""
+        mixture's components. `block`: x is this rank's block of a batch
+        sharded over ranks (parallel/mesh.py), for the stratified selection."""
         mus, log_vars = [], []
         for m, vae in enumerate(self.vaes):
             mu_m, lv_m = vae.encode(x[m])
@@ -48,7 +49,7 @@ class MOEPOE(nn.Module):
         poe_mus, poe_lvs = poe_for_all_subsets(mus, log_vars)
         mus, log_vars = mus + poe_mus, log_vars + poe_lvs
 
-        mu_sel, lv_sel = mixture_component_selection(mus, log_vars)
+        mu_sel, lv_sel = mixture_component_selection(mus, log_vars, block)
         z = D.normal_sample(LocScale(mu_sel, torch.exp(0.5 * lv_sel)),
                             eps=None if noise is None else noise[0], generator=generator)
 

@@ -55,7 +55,7 @@ class MVAE(nn.Module):
         without its 2 pi constant (mvae.py:96)."""
         return -0.5 * torch.sum((x_m - recon) ** 2) * self.lik_scaling[m]
 
-    def forward(self, x, K: int = 1, noise=None, generator=None):
+    def forward(self, x, K: int = 1, noise=None, generator=None, block=None):
         """ELBO-building forward (mvae.py:73-139). K is not used. Returns
         dict(elbo, z_joint, joint_mu, joint_std).
 
@@ -65,7 +65,10 @@ class MVAE(nn.Module):
         the reference's k random subsets per step (mvae.py:114-130). Here the
         mask is noise[n_mod + 1], (S,), and subset s's sample noise
         noise[n_mod + 2 + s]; only the subsets the mask selects are
-        computed, which gives the same value and gradients."""
+        computed, which gives the same value and gradients. `block`: x is
+        this rank's block of a batch sharded over ranks (parallel/mesh.py);
+        a drawn mask is then rank 0's on every rank, one draw per global
+        batch as in the JAX package."""
         subsets = all_subsets(self.n_mod) if self.subsampling else []
         n_noise = self.n_mod + 1 + (1 + len(subsets) if subsets else 0)
         noise = [None] * n_noise if noise is None else list(noise)
@@ -92,6 +95,8 @@ class MVAE(nn.Module):
                 sel = torch.randperm(len(subsets), generator=generator, device=joint_mu.device)
                 mask = torch.zeros(len(subsets), dtype=joint_mu.dtype, device=joint_mu.device)
                 mask[sel[: self.k_subsample]] = 1.0
+                if block is not None:
+                    block.mesh.broadcast_(mask)
             for si in torch.nonzero(mask).flatten().tolist():
                 s = subsets[si]
                 mu, std = poe([mus[i] for i in s], [log_vars[i] for i in s])

@@ -47,12 +47,17 @@ def poe_for_all_subsets(mus, log_vars) -> Tuple[List[torch.Tensor], List[torch.T
     return poe_mus, poe_lvs
 
 
-def mixture_component_selection(mus, log_vars):
+def mixture_component_selection(mus, log_vars, block=None):
     """Stratified selection (moepoe.py:20-39): component k takes batch rows
-    [k*(B//M), (k+1)*(B//M)), the last component the tail up to B."""
+    [k*(B//M), (k+1)*(B//M)), the last component the tail up to B. With
+    `block` (parallel/mesh.py), the rows are this rank's block of a global
+    batch, and the components split the global batch as one process would."""
     m, b = len(mus), mus[0].shape[0]
-    starts = [k * (b // m) for k in range(m)]
-    ends = starts[1:] + [b]
-    mu_sel = torch.cat([mus[k][starts[k]:ends[k]] for k in range(m)], dim=0)
-    lv_sel = torch.cat([log_vars[k][starts[k]:ends[k]] for k in range(m)], dim=0)
+    first, rows = (0, b) if block is None else (block.start, block.rows)
+    starts = [k * (rows // m) for k in range(m)]
+    ends = starts[1:] + [rows]
+    # each component's global rows, in this rank's coordinates
+    cuts = [(max(s - first, 0), min(e - first, b)) for s, e in zip(starts, ends)]
+    mu_sel = torch.cat([mus[k][lo:hi] for k, (lo, hi) in enumerate(cuts) if hi > lo], dim=0)
+    lv_sel = torch.cat([log_vars[k][lo:hi] for k, (lo, hi) in enumerate(cuts) if hi > lo], dim=0)
     return mu_sel, lv_sel

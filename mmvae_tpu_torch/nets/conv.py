@@ -98,6 +98,10 @@ class RunningStats(nn.Module):
     module's own path."""
 
     jax_scope: tuple = ()
+    # this rank's block of a batch sharded over ranks, while the Trainer's
+    # step runs on one (parallel/mesh.batch_stats_over): the batch
+    # statistics are then the global batch's
+    stats_block = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -133,8 +137,11 @@ class _BatchNorm(RunningStats):
         shape = [1] * x.dim()
         shape[self.axis] = -1
         if self.training:
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            if self.stats_block is None:
+                mean = x.mean(dims)
+                var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            else:
+                mean, var = self._global_moments(x, dims)
             with torch.no_grad():
                 self.mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
                 self.var.mul_(1.0 - self.momentum).add_(self.momentum * var)
@@ -142,6 +149,16 @@ class _BatchNorm(RunningStats):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+    def _global_moments(self, x, dims):
+        """The mean and flax's variance over the global batch: this rank's
+        sums of x and x^2 and its element count, summed over the ranks."""
+        count = x.new_full((1,), x.numel() / x.shape[self.axis])
+        sums = self.stats_block.sum(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        n = sums[-1]
+        mean, sq = sums[:-1].chunk(2)
+        mean, sq = mean / n, sq / n
+        return mean, torch.clamp_min(sq - mean * mean, 0.0)
 
 
 def batchnorm_stats(model: nn.Module):

@@ -401,14 +401,24 @@ def m_telbo_nf(model, x, spec: ModelSpec, K=1, epoch=1, warmup=0, beta_prior=1.0
 # 261-329)
 # ===========================================================================
 
-def _mean_kl(spec: ModelSpec, p: LocScale, q: LocScale):
+def _batch_mean(t, block, dim=None):
+    """torch.mean of `t`, whose axis 0 is the batch, over `dim` (every
+    element when None). With `block` (parallel/mesh.py), t holds this
+    rank's rows of a batch sharded over ranks, and the result is this
+    rank's share of the global batch's mean, so that the ranks' values and
+    gradients sum to the one-process ones, as the batch sums do."""
+    m = torch.mean(t) if dim is None else torch.mean(t, dim=dim)
+    return m if block is None else m * (t.shape[0] / block.rows)
+
+
+def _mean_kl(spec: ModelSpec, p: LocScale, q: LocScale, block=None):
     """sum over latents of the batch mean of KL(p || q), the reference's
     .mean(0).sum()."""
-    return torch.sum(torch.mean(D.kl(spec.posterior, p, q), dim=0))
+    return torch.sum(_batch_mean(D.kl(spec.posterior, p, q), block, 0))
 
 
 def m_jmvae(model, x, spec: ModelSpec, K=1, beta=0.0, epoch=1, warmup=0, beta_prior=1.0,
-            past_warmup=None, noise=None, generator=None, **kw):
+            past_warmup=None, noise=None, generator=None, block=None, **kw):
     """The original JMVAE loss (objectives.py:157-174): the joint forward's
     reconstructions and prior KL (batch means), and past warmup beta times
     the KLs of the joint posterior to each unimodal one. Past warmup the
@@ -421,21 +431,21 @@ def m_jmvae(model, x, spec: ModelSpec, K=1, beta=0.0, epoch=1, warmup=0, beta_pr
     uni = model.encode_all_unimodal(x)
     loss = 0.0
     for m, xm in enumerate(x):
-        loss = loss + torch.sum(torch.mean(
-            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1), dim=0))
+        loss = loss + torch.sum(_batch_mean(
+            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1), block, 0))
     qz_xy = LocScale(*out["qz_xy"])
-    loss = loss - beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    loss = loss - beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc), block)
     details = {"loss": loss}
     kls = []
     for m, (mu_m, std_m) in enumerate(uni):
-        details[f"kl{m + 1}"] = _mean_kl(spec, qz_xy, LocScale(mu_m, std_m))
+        details[f"kl{m + 1}"] = _mean_kl(spec, qz_xy, LocScale(mu_m, std_m), block)
         kls.append(details[f"kl{m + 1}"])
     obj = loss - beta * sum(kls) if past_warmup else loss
     return obj, _detached(details)
 
 
 def _m_vaevae(model, x, spec: ModelSpec, dist_fn, beta, epoch, warmup, beta_prior,
-              past_warmup, noise, generator):
+              past_warmup, noise, generator, block):
     """VAEVAE (objectives.py:133-155) on the first two modalities: each
     unimodal VAE's ELBO SUMMED over the batch (the reference's elbo, its
     .mean(0) over the K=1 axis) against a symmetric alignment term of the
@@ -453,29 +463,30 @@ def _m_vaevae(model, x, spec: ModelSpec, dist_fn, beta, epoch, warmup, beta_prio
         losses.append(torch.sum(lpx - beta_prior * kld))
         qs.append(q_m)
     cut = slice(None) if spec.align == -1 else slice(None, spec.align)
-    reg = 0.5 * (torch.sum(torch.mean(dist_fn(qs[0], qs[1])[:, cut], dim=0))
-                 + torch.sum(torch.mean(dist_fn(qs[1], qs[0])[:, cut], dim=0)))
+    reg = 0.5 * (torch.sum(_batch_mean(dist_fn(qs[0], qs[1])[:, cut], block, 0))
+                 + torch.sum(_batch_mean(dist_fn(qs[1], qs[0])[:, cut], block, 0)))
     details = dict(loss=losses[0] + losses[1], reg=reg, loss1=losses[0], loss2=losses[1])
     obj = losses[0] + losses[1] - (beta * reg if past_warmup else 0.0)
     return obj, _detached(details)
 
 
 def m_vaevae_kl(model, x, spec: ModelSpec, K=1, beta=1000.0, epoch=1, warmup=0, beta_prior=1.0,
-                past_warmup=None, noise=None, generator=None, **kw):
+                past_warmup=None, noise=None, generator=None, block=None, **kw):
     """VAEVAE with the KL alignment term. noise: [each VAE's sample, 0 and 1]."""
     return _m_vaevae(model, x, spec, lambda p, q: D.kl(spec.posterior, p, q), beta, epoch,
-                     warmup, beta_prior, past_warmup, noise, generator)
+                     warmup, beta_prior, past_warmup, noise, generator, block)
 
 
 def m_vaevae_w2(model, x, spec: ModelSpec, K=1, beta=1000.0, epoch=1, warmup=0, beta_prior=1.0,
-                past_warmup=None, noise=None, generator=None, **kw):
+                past_warmup=None, noise=None, generator=None, block=None, **kw):
     """VAEVAE with the reference's W2 alignment term (D.wasserstein_2).
     noise: as m_vaevae_kl's."""
     return _m_vaevae(model, x, spec, D.wasserstein_2, beta, epoch, warmup, beta_prior,
-                     past_warmup, noise, generator)
+                     past_warmup, noise, generator, block)
 
 
-def m_svae(model, x, spec: ModelSpec, K=1, beta=0.0, noise=None, generator=None, **kw):
+def m_svae(model, x, spec: ModelSpec, K=1, beta=0.0, noise=None, generator=None, block=None,
+           **kw):
     """SVAE (objectives.py:284-303): the unimodal and joint reconstructions,
     each a .mean() over ALL elements, as the reference takes them, against
     the unimodal prior KLs and the joint-to-unimodal KLs (.mean(0).sum()).
@@ -488,13 +499,16 @@ def m_svae(model, x, spec: ModelSpec, K=1, beta=0.0, noise=None, generator=None,
         vout = model.vae_forward(xm, m, noise=noise[1 + m], generator=generator)
         q_m = LocScale(vout["mu"], vout["std"])
         for recon in (vout["recon"], out["recons"][m]):
-            loss = loss + torch.mean(
-                D.log_prob(spec.recon_dists[m], LocScale(recon, torch.ones_like(recon)), xm))
-        reg = reg + _mean_kl(spec, q_m, prior(spec, q_m.loc)) + _mean_kl(spec, qz_xy, q_m)
+            loss = loss + _batch_mean(
+                D.log_prob(spec.recon_dists[m], LocScale(recon, torch.ones_like(recon)), xm),
+                block)
+        reg = (reg + _mean_kl(spec, q_m, prior(spec, q_m.loc), block)
+               + _mean_kl(spec, qz_xy, q_m, block))
     return 0.5 * (loss - beta * reg), _detached({"loss": loss, "reg": reg})
 
 
-def m_multi_elbos(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+def m_multi_elbos(model, x, spec: ModelSpec, K=1, noise=None, generator=None, block=None,
+                  **kw):
     """Sutter et al.'s sum of ELBOs (objectives.py:261-281): the joint
     reconstructions, every unimodal cross reconstruction, the unimodal and
     the joint prior KLs (batch means), divided by 3.0 whatever the number
@@ -505,19 +519,20 @@ def m_multi_elbos(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **
     uni = model.unimodal_cross_forward(x, noise=noise[1:], generator=generator)
     loss = 0.0
     for m, xm in enumerate(x):
-        loss = loss + torch.mean(recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1))
+        loss = loss + _batch_mean(
+            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1), block)
         for r in range(len(x)):
-            loss = loss + torch.mean(
-                recon_log_prob(spec.recon_dists[m], uni["recons"][r][m], xm, 1))
+            loss = loss + _batch_mean(
+                recon_log_prob(spec.recon_dists[m], uni["recons"][r][m], xm, 1), block)
         q_m = LocScale(*uni["qz_params"][m])
-        loss = loss - _mean_kl(spec, q_m, prior(spec, q_m.loc))
+        loss = loss - _mean_kl(spec, q_m, prior(spec, q_m.loc), block)
     qz_xy = LocScale(*out["qz_xy"])
-    loss = loss - _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    loss = loss - _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc), block)
     return loss / 3.0, {}
 
 
 def m_telbo(model, x, spec: ModelSpec, K=1, beta=0.0, beta_prior=1.0, noise=None,
-            generator=None, **kw):
+            generator=None, block=None, **kw):
     """TELBO (objectives.py:306-329) on the first two modalities' unimodal
     terms: the joint reconstructions less the joint prior KL, plus beta
     times each unimodal ELBO (its own reconstruction, batch mean, less its
@@ -531,12 +546,12 @@ def m_telbo(model, x, spec: ModelSpec, K=1, beta=0.0, beta_prior=1.0, noise=None
     for m, xm in enumerate(x):
         q_m = LocScale(*uni["qz_params"][m])
         details[f"loss_{m}"] = (
-            torch.mean(recon_log_prob(spec.recon_dists[m], uni["recons"][m][m], xm, 1))
-            - beta_prior * _mean_kl(spec, q_m, prior(spec, q_m.loc)))
-        details["mloss"] = details["mloss"] + torch.mean(
-            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1))
+            _batch_mean(recon_log_prob(spec.recon_dists[m], uni["recons"][m][m], xm, 1), block)
+            - beta_prior * _mean_kl(spec, q_m, prior(spec, q_m.loc), block))
+        details["mloss"] = details["mloss"] + _batch_mean(
+            recon_log_prob(spec.recon_dists[m], out["recons"][m], xm, 1), block)
     qz_xy = LocScale(*out["qz_xy"])
-    details["reg"] = beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc))
+    details["reg"] = beta_prior * _mean_kl(spec, qz_xy, prior(spec, qz_xy.loc), block)
     obj = details["mloss"] - details["reg"] + beta * (details["loss_0"] + details["loss_1"])
     return obj, _detached(details)
 
@@ -545,10 +560,12 @@ def m_telbo(model, x, spec: ModelSpec, K=1, beta=0.0, beta_prior=1.0, noise=None
 # MVAE / MoE-PoE (objectives.py:481-483)
 # ===========================================================================
 
-def m_self_built(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+def m_self_built(model, x, spec: ModelSpec, K=1, noise=None, generator=None, block=None,
+                 **kw):
     """The model's own ELBO (MVAE, MoE-PoE build it in their forward), with
-    no details. K reaches nothing, as in the JAX package."""
-    return model(x, noise=noise, generator=generator)["elbo"], {}
+    no details. K reaches nothing, as in the JAX package. `block`: as the
+    models take it."""
+    return model(x, noise=noise, generator=generator, block=block)["elbo"], {}
 
 
 # every objective of the JAX package, its OBJECTIVES and its

@@ -10,6 +10,7 @@ included, which keeps a build to seconds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,10 +63,16 @@ def _build(source: str, out: str) -> None:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<source>, built first if needed."""
+    """The loaded library for csrc/<source>, built first if needed. A lock
+    on the build directory lets one process build while the others (the
+    ranks of a data-parallel run) wait for its library."""
     if source not in _loaded:
         out = _lib_path(source)
         if not os.path.exists(out):
-            _build(source, out)
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(out):
+                    _build(source, out)
         _loaded[source] = ctypes.CDLL(out)
     return _loaded[source]

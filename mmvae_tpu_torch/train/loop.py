@@ -13,6 +13,19 @@ JAX package (one fixed val key).
 Both steps run under the config's precision policy (core/precision.py:
 "compute_dtype", "activation_dtype"); parameters and optimizer state stay
 float32.
+
+Under a mesh of several ranks (parallel/mesh.py) each rank steps on its
+block of every batch, or on all of a batch whose rows the data axis does
+not divide. The ranks' gradients are summed over the world in one flat
+all-reduce a step and divided by the number of ranks that hold each row,
+which gives the gradient of the global batch, since the objectives are
+batch sums; the nan_guard flag is reduced with them, so that every rank
+skips the same steps. BatchNorm takes the global batch's statistics. The
+loss and details sums of an epoch are summed over the ranks before the
+host reads them, so the schedule, the early stop and the best checkpoint
+are the same on every rank. Each data index draws its noise from its own
+generator (`parallel.rank_seed`), its k replicas alike; rank 0 alone
+writes checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from ..core import precision
 from ..core.config import ExperimentConfig
 from ..nets.conv import batchnorm_stats, init_parameters
 from ..objectives import objectives as obj_mod
+from ..parallel import mesh as mesh_lib
 from . import checkpoints, freezing
 from .optim import Adam
 from .schedule import BetaKlSchedule, ReduceLROnPlateau
@@ -39,7 +53,9 @@ _VAL_SEED_OFFSET = 0x7FFFFFFF
 class Trainer:
     def __init__(self, model, spec, cfg: ExperimentConfig, run_path: Optional[str] = None,
                  multimodal: bool = True, log_fn: Callable[[str], None] = print,
-                 device="cuda", experiments_dir: Optional[str] = None):
+                 device="cuda", experiments_dir: Optional[str] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None):
+        self.mesh = mesh if mesh is not None else mesh_lib.SINGLE
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.spec = spec
@@ -53,7 +69,8 @@ class Trainer:
         self._bn_stats = batchnorm_stats(self.model)
         self.compute_dtype = precision.parse(cfg.extra.get("compute_dtype"))
         self.activation_dtype = precision.parse(cfg.extra.get("activation_dtype"))
-        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            mesh_lib.rank_seed(cfg.seed, self.mesh.data_index))
         self.opt: Optional[Adam] = None
         self._history: Dict[str, List[float]] = {}
 
@@ -90,20 +107,42 @@ class Trainer:
     def _policy(self):
         return precision.use(self.compute_dtype, self.activation_dtype)
 
-    def train_step(self, xs, lr: float, beta_kl: float = 1.0, epoch: int = 1, noise=None):
+    def train_step(self, xs, lr: float, beta_kl: float = 1.0, epoch: int = 1, noise=None,
+                   block: Optional[mesh_lib.Block] = None):
         """One optimizer step on batch `xs`. Returns (loss, details) as
         device tensors; details["nan_skipped"] is 1 when nan_guard skipped
         the step. `noise`: the sampler's noise per modality, or None to
-        draw it from the trainer's generator."""
-        self.model.train()
+        draw it from the trainer's generator. `block`: xs is this rank's
+        block of a batch sharded over the mesh (None: all of the batch).
+        Under a mesh the loss and details are this rank's."""
         named = list(self.model.named_parameters())
         bn_before = [t.clone() for t in self._bn_stats] if self.guard else []
-        with self._policy():
-            obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
-                                       generator=self.gen, **self._obj_kwargs(beta_kl, epoch))
+        loss, details, grads, finite = self.loss_and_grads(xs, beta_kl, epoch, noise, block)
+        if self.guard:
+            details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
+            # nor the BatchNorm statistics, as the JAX Trainer keeps its batch_stats
+            with torch.no_grad():
+                for t, old in zip(self._bn_stats, bn_before):
+                    t.copy_(torch.where(finite, t, old))
+        self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr, finite)
+        return loss, details
+
+    def loss_and_grads(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None,
+                       block: Optional[mesh_lib.Block] = None):
+        """The train step's objective and gradients, in training mode, with
+        no update: (loss, details, a gradient per named parameter, 0 for
+        one the loss does not reach, and nan_guard's finite flag or None).
+        Under a mesh the gradients are the global batch's, the same on
+        every rank, and so is the flag; the loss and details are this
+        rank's."""
+        self.model.train()
+        params = list(self.model.parameters())
+        with self._policy(), mesh_lib.batch_stats_over(self.model, block):
+            obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise, generator=self.gen,
+                                       block=block, **self._obj_kwargs(beta_kl, epoch))
             loss = -obj
-            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         finite = None
         if self.guard:
             # a non-finite step (MAF exp overflow, ...) must not reach the
@@ -111,22 +150,36 @@ class Trainer:
             finite = torch.isfinite(loss.detach())
             for g in grads:
                 finite = finite & torch.isfinite(g).all()
-            details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
-            # nor the BatchNorm statistics, as the JAX Trainer keeps its batch_stats
-            with torch.no_grad():
-                for t, old in zip(self._bn_stats, bn_before):
-                    t.copy_(torch.where(finite, t, old))
-        self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr, finite)
-        return loss.detach(), details
+        if self.mesh.collective:
+            grads, finite = self._reduce_grads(grads, finite, block)
+        return loss.detach(), details, grads, finite
+
+    def _reduce_grads(self, grads, finite, block):
+        """The gradient of the global batch on every rank: `grads` summed
+        over the world in one flat all-reduce, divided by the ranks that
+        hold each row. A nan_guard flag rides along as a count of the
+        ranks whose step was not finite, so that all skip it or none."""
+        flat = [g.reshape(-1) for g in grads]
+        if finite is not None:
+            flat.append((~finite).to(flat[0].dtype).reshape(1))
+        flat = self.mesh.all_sum_(torch.cat(flat))
+        if finite is not None:
+            finite, flat = flat[-1] == 0, flat[:-1]
+        flat = flat / self.mesh.holders(block)
+        return [g.view_as(p) for g, p in zip(flat.split([g.numel() for g in grads]), grads)], \
+            finite
 
     @torch.no_grad()
-    def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None, generator=None):
+    def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None, generator=None,
+                  block: Optional[mesh_lib.Block] = None):
         """The objective's value only: no gradient is recorded, so the DReG
-        objectives return their surrogate's value and register no hook."""
+        objectives return their surrogate's value and register no hook.
+        `block`: as train_step's."""
         self.model.eval()
         with self._policy():
             obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
-                                       generator=generator, **self._obj_kwargs(beta_kl, epoch))
+                                       generator=generator, block=block,
+                                       **self._obj_kwargs(beta_kl, epoch))
         return -obj, details
 
     # ------------------------------------------------------------------
@@ -134,34 +187,47 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _run(self, batches: Iterable, n_norm: int, step) -> Tuple[float, Dict[str, float]]:
-        """Sum loss and details over `batches` on the device; one host read
-        at the end. Returns (total / n_norm, {k: sum / n_norm})."""
+        """Sum loss and details over `batches`, (xs, block) pairs, on the
+        device; one host read at the end, after one all-reduce under a
+        mesh, each rank's sums weighted by 1 / the ranks that hold its rows.
+        Returns (total / n_norm, {k: sum / n_norm})."""
         total, acc = None, {}
-        for xs in batches:
-            loss, details = step(xs)
+        for xs, block in batches:
+            loss, details = step(xs, block)
+            if self.mesh.collective:
+                w = 1.0 / self.mesh.holders(block)
+                loss, details = loss * w, {k: v * w for k, v in details.items()}
             total = loss if total is None else total + loss
             for k, v in details.items():
                 acc[k] = v if k not in acc else acc[k] + v
         if total is None:
             return 0.0, {}
+        if self.mesh.collective:
+            sums = self.mesh.all_sum_(torch.stack(
+                [torch.as_tensor(v, device=self.device).to(torch.float64)
+                 for v in (total, *acc.values())]))
+            total, acc = sums[0], dict(zip(acc, sums[1:]))
         return float(total) / n_norm, {k: float(v) / n_norm for k, v in acc.items()}
 
     def _host_batches(self, loader):
         for xs, _ in loader:
-            yield [torch.as_tensor(x).to(self.device, torch.float32) for x in xs]
+            xs, block = mesh_lib.shard_batch(self.mesh, xs)
+            yield [torch.as_tensor(x).to(self.device, torch.float32) for x in xs], block
 
     def _device_batches(self, pipeline):
+        block = self.mesh.block(pipeline.batch_size)
         for rows in pipeline.epoch_index_batches():
-            yield pipeline.gather(torch.from_numpy(rows).to(self.device))
+            yield pipeline.gather(torch.from_numpy(rows).to(self.device)), block
 
     def run_epoch_device(self, pipeline, lr, beta_kl, epoch: int = 1):
         """Train epoch over a device pipeline; normalized by all pairs, as
         the JAX package does."""
         return self._run(self._device_batches(pipeline), pipeline.num_examples,
-                         lambda xs: self.train_step(xs, lr, beta_kl, epoch))
+                         lambda xs, block: self.train_step(xs, lr, beta_kl, epoch, block=block))
 
     def _val_generator(self):
-        return torch.Generator(device=self.device).manual_seed(self.cfg.seed + _VAL_SEED_OFFSET)
+        return torch.Generator(device=self.device).manual_seed(
+            mesh_lib.rank_seed(self.cfg.seed + _VAL_SEED_OFFSET, self.mesh.data_index))
 
     def run_epoch_device_eval(self, pipeline, beta_kl, epoch: int = 1):
         """Val epoch over a device pipeline; the ragged tail batch is dropped
@@ -169,21 +235,31 @@ class Trainer:
         gen = self._val_generator()
         n = len(pipeline) * pipeline.batch_size
         return self._run(self._device_batches(pipeline), n,
-                         lambda xs: self.eval_step(xs, beta_kl, epoch, generator=gen))
+                         lambda xs, block: self.eval_step(xs, beta_kl, epoch, generator=gen,
+                                                          block=block))
 
     def run_epoch(self, loader, lr, beta_kl, train: bool = True, epoch: int = 1):
         """Epoch over a host ArrayLoader, normalized by its examples."""
         if train:
-            step = lambda xs: self.train_step(xs, lr, beta_kl, epoch)  # noqa: E731
+            def step(xs, block):
+                return self.train_step(xs, lr, beta_kl, epoch, block=block)
         else:
             gen = self._val_generator()
-            step = lambda xs: self.eval_step(xs, beta_kl, epoch, generator=gen)  # noqa: E731
+
+            def step(xs, block):
+                return self.eval_step(xs, beta_kl, epoch, generator=gen, block=block)
         return self._run(self._host_batches(loader), loader.num_examples, step)
 
     def make_device_pipeline(self, loader):
+        """The loader's data on the device; under a mesh each step yields
+        this rank's block of the batch, which n_data must divide (as the
+        JAX Trainer asserts)."""
         from ..data.device_pipeline import from_array_loader
 
-        return from_array_loader(loader, device=self.device)
+        if loader.batch_size % self.mesh.n_data:
+            raise ValueError(f"batch_size {loader.batch_size} must divide the mesh's data axis "
+                             f"({self.mesh.n_data}) for the device pipeline")
+        return from_array_loader(loader, device=self.device, mesh=self.mesh)
 
     def fit(self, train_loader, val_loader, callbacks: Optional[List[Callable]] = None,
             min_epoch: int = 1, variables_hook: Optional[Callable[[torch.nn.Module], None]] = None,
@@ -193,6 +269,9 @@ class Trainer:
         place (e.g. grafting pretrained DCCA trunks)."""
         cfg = self.cfg
         self.init_parameters()
+        # what rank 0 wrote before (a use_pretrain run, the joint pool) is
+        # complete before any rank reads it
+        self.mesh.barrier()
         if variables_hook is not None:
             variables_hook(self.model)
         if cfg.skip_warmup and self.run_path is not None:
@@ -203,6 +282,7 @@ class Trainer:
                 self.log(f"Loaded joint encoder/decoders from {pool}")
             except FileNotFoundError:
                 self.log(f"skip_warmup: no pool at {pool}; training from scratch")
+        mesh_lib.replicate(self.mesh, self.model)
         self.init_opt_state(past_warmup=min_epoch >= cfg.warmup, amsgrad=True)
 
         plateau = ReduceLROnPlateau(lr=cfg.learning_rate)
@@ -253,7 +333,7 @@ class Trainer:
 
             if va_loss < best_loss:
                 bad_epochs = 0
-                if self.run_path is not None:
+                if self.run_path is not None and self.mesh.rank == 0:
                     checkpoints.save_model(self.model, self.run_path)
                     if cfg.save_joint and epoch <= warmup and self._has_joint():
                         checkpoints.save_joint_vae(self.model, self._joint_pool_path())

@@ -7,8 +7,9 @@ as (grid * 255).astype(uint8), as the JAX package's PIL path does.
 
 The line plots, histograms and scatter panels stand in for the JAX
 package's matplotlib figures (PRD curves, plot_results, the circles' radius
-histograms and product-of-posteriors figure): the same series on the same
-axes, drawn without text or font. The series, bins, labels, limits and
+histograms and product-of-posteriors figure, the UMAP embeddings of the
+latents and of the DCCA features): the same series on the same axes, drawn
+without text or font. The series, bins, labels, limits and
 legend order go beside each PNG as <out>.json.
 """
 
@@ -20,6 +21,7 @@ import zlib
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2) -> np.ndarray:
@@ -286,6 +288,66 @@ def scatter_panels(panels, path: str, panel_size: int = 240):
     with open(path + ".json", "w") as f:
         json.dump(spec, f)
     return spec
+
+
+def _class_series(z, classes):
+    """The points of `z` (n, 2) as one series per class value, in sorted
+    order (the color of class i is the i-th of the color cycle, tab10's for
+    the labels 0-9), or one series where there are no classes."""
+    z = np.asarray(z, np.float64).reshape(len(z), -1)
+    if classes is None:
+        return [{"label": "points", "points": z}]
+    classes = np.asarray(classes).reshape(len(z))
+    return [{"label": c.item(), "points": z[classes == c]} for c in np.unique(classes)]
+
+
+def reduce_latents(z, dim: int = 2, method: str = "umap", device="cuda") -> np.ndarray:
+    """A `dim`-D embedding for latent scatter plots (mmvae_tpu/vis.py:69;
+    the reference reduces with umap.UMAP, multi_vaes.py:143-146): the
+    in-repo UMAP (embed.py, its layout on `device`), or method "pca", the
+    principal components in float64 with scikit-learn's signs (each
+    component's largest entry positive, PCA's svd_flip). Latents of `dim`
+    or fewer dimensions pass through unchanged."""
+    z = np.asarray(z)
+    if z.shape[1] <= dim:
+        return z
+    if method == "pca":
+        x = torch.as_tensor(z, dtype=torch.float64, device=device)
+        xc = x - x.mean(0)
+        _, _, vt = torch.linalg.svd(xc, full_matrices=False)
+        vt = vt[:dim]
+        signs = torch.sign(vt.gather(1, vt.abs().argmax(1, keepdim=True)))
+        return (xc @ (vt * signs).T).cpu().numpy()
+    from .embed import UMAP
+
+    return UMAP(n_components=dim, device=device).fit_transform(z)
+
+
+def visualize_umap(z, classes, save_file=None, device="cuda"):
+    """The DCCA-embedding scatter (mmvae_tpu/vis.py:85; the reference's
+    dcca/utils.py:113-122): latents of more than 2 dimensions reduced by the
+    in-repo UMAP, colored by class, as one text-free PNG with <save_file>.json
+    beside it (`scatter_panels`). The JAX package takes scikit-learn's TSNE
+    where it is importable and this UMAP where it is not; the port, whose
+    card has no scikit-learn, always takes the UMAP. Returns the 2-D points."""
+    z = np.asarray(z).reshape(len(z), -1)
+    z_embed = z
+    if z.shape[1] > 2:
+        from .embed import UMAP
+
+        z_embed = UMAP(device=device).fit_transform(z)
+        print("visualize_umap: reduced with umap")
+    if save_file is not None:
+        scatter_panels([[_class_series(z_embed, classes)]], save_file)
+    return z_embed
+
+
+def plot_embeddings_colorbars(zxy, zx, classes0, classes1, path: str):
+    """The joint and the unimodal embeddings side by side, each colored by
+    its classes (mmvae_tpu/vis.py:120; the reference's vis.py:38-101), as
+    one text-free PNG of two panels with <path>.json beside it; the
+    colorbars' classes are the legend of each panel there."""
+    return scatter_panels([[_class_series(zxy, classes0), _class_series(zx, classes1)]], path)
 
 
 def extract_rayon(images) -> np.ndarray:

@@ -1,8 +1,7 @@
 """Which of the repo's configs the port runs: every
 `configs/mnist_svhn/**/*.json` and the two `configs/ms_small/*gen*` configs
-(use_gen) pass the train CLI's check of unported features, build their
-model through the port's registry and resolve their objective; over all of
-`configs/**`, all 96 do. Models are built only, with no forward pass.
+(use_gen) build their model through the port's registry and resolve their
+objective; over all of `configs/**`, all 96 do. Models are built only, with no forward pass.
 """
 
 import glob
@@ -11,7 +10,6 @@ import os
 import pytest
 
 from mmvae_tpu.models import registry as jreg
-from mmvae_tpu_torch.cli.train import _not_yet_ported
 from mmvae_tpu_torch.core.config import ExperimentConfig
 from mmvae_tpu_torch.models import registry
 from mmvae_tpu_torch.objectives import resolve
@@ -26,10 +24,9 @@ def test_census_counts_every_mnist_svhn_config():
 
 @pytest.mark.parametrize("path", MNIST_SVHN, ids=lambda p: os.path.relpath(p, "configs"))
 def test_mnist_svhn_config_builds(path):
-    """The config passes `_not_yet_ported`, builds, and resolves its
-    objective as the Trainer does (multimodal, the config's `looser`)."""
+    """The config builds and resolves its objective as the Trainer does
+    (multimodal, the config's `looser`)."""
     cfg = ExperimentConfig.from_json(path)
-    assert _not_yet_ported(cfg) is None
     bundle = registry.build(cfg)
     assert bundle.dataset == "mnist_svhn" and len(list(bundle.model.parameters())) > 0
     name, fn = resolve(cfg.obj, True, cfg.looser)
@@ -38,8 +35,8 @@ def test_mnist_svhn_config_builds(path):
 
 @pytest.mark.parametrize("path", GEN, ids=os.path.basename)
 def test_gen_configs_are_refused(path):
-    """The use_gen configs, refused until use_gen was ported, now pass the
-    check and build as the MNIST-SVHN ones do."""
+    """The use_gen configs, refused until use_gen was ported, now build as
+    the MNIST-SVHN ones do."""
     cfg = ExperimentConfig.from_json(path)
     assert cfg.use_gen and cfg.skip_warmup
     test_mnist_svhn_config_builds(path)
@@ -48,8 +45,6 @@ def test_gen_configs_are_refused(path):
 def _builds(path):
     try:
         cfg = ExperimentConfig.from_json(path)
-        if _not_yet_ported(cfg) is not None:
-            return False
         registry.build(cfg)
         resolve(cfg.obj, True, cfg.looser)
     except NotImplementedError:
@@ -58,7 +53,7 @@ def _builds(path):
 
 
 def test_census_of_every_config():
-    """All 96 of the repo's configs pass the check, build and resolve: the
+    """All 96 of the repo's configs build and resolve: the
     56 MNIST-SVHN ones, the 4 of ms_small, the 3 of circles, the 9 of
     MedMNIST (mmvae_nf.json and moepoe.json name MNIST-SVHN builders), the
     2 of chest-SVHN, the 11 of CelebA and the 11 trimodal ones of

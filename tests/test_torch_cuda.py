@@ -1028,3 +1028,51 @@ def test_iaf_jnf_step_on_card_matches_f64_cpu(card):
     assert math.isclose(res["cuda"][0], res["cpu"][0], rel_tol=1e-5)
     for (name, _), a, b in zip(named, res["cuda"][1], res["cpu"][1]):
         assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30), name
+
+
+@pytest.mark.cuda
+def test_ddp_two_gloo_ranks_on_card_match_one_process(card, tmp_path):
+    """Two ranks on the one card over gloo (chip_smoke's ddp_parity at
+    B=16): a post-warmup jnf_mnist_fashion step (BatchNorm over the global
+    batch, both kernels on each rank's 8 rows) against one process on the
+    card, the objective rtol 1e-5, the ranks' all-reduced gradients equal
+    and within 1e-4 of each leaf of the float64 CPU step on their ReLU
+    branches, 4 forward and 4 backward launches a step on each rank, the
+    parameters equal on both after 3 steps (the phase raises otherwise)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir))
+    import chip_smoke
+
+    spec = ("jnf_mnist_fashion", chip_smoke.JNF,
+            dict(chip_smoke.JNF_RUN, model="jnf_mnist_fashion", dcca=False, synthetic_n=256,
+                 batch_size=16), 4)
+    launches = chip_smoke.phase_ddp_parity(str(tmp_path), specs=[spec])
+    assert launches == {f"ddp_parity_jnf_mnist_fashion_gloo_rank{r}": (16, 16) for r in (0, 1)}
+
+
+@pytest.mark.cuda
+def test_umap_layout_on_card_matches_cpu(card):
+    """The UMAP layout's epochs on the card against the CPU, float32, the
+    same start and draws, at learning rate 0.1 over 30 epochs (where the
+    CPU is within 2.4e-6 of JAX's loop): within 1e-4; and a default UMAP
+    on the card keeps two blobs apart."""
+    from mmvae_tpu_torch import embed
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(0, 0.3, (20, 6)) + 4, rng.normal(0, 0.3, (20, 6))])
+    x = x.astype(np.float32)
+    idx, dists = embed._knn(x, 8)
+    heads, tails, weights = embed._fuzzy_graph(idx, dists, 8)
+    emb0 = embed.pca_init(x, 2, 0)
+    draws = (rng.uniform(size=(30, len(heads))), rng.integers(0, len(x), (30, len(heads), 5)))
+    kw = dict(a=1.5769434603113077, b=0.8950608779109733, n_epochs=30, neg_rate=5, lr=0.1,
+              seed=0, draws=draws)
+    on_card = embed._optimize_layout(emb0, heads, tails, weights, device=card, **kw)
+    on_cpu = embed._optimize_layout(emb0, heads, tails, weights, device="cpu", **kw)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
+    emb = embed.UMAP(n_neighbors=8, device=card).fit_transform(x)
+    gap = np.linalg.norm(emb[:20].mean(0) - emb[20:].mean(0))
+    spread = max(np.linalg.norm(emb[:20] - emb[:20].mean(0), axis=1).mean(),
+                 np.linalg.norm(emb[20:] - emb[20:].mean(0), axis=1).mean())
+    assert np.isfinite(emb).all() and gap > 2.0 * spread

@@ -7,6 +7,7 @@ and its conversion, and the DCCA CLI on the CPU.
 """
 
 import contextlib
+import json
 
 import jax
 import jax.numpy as jnp
@@ -299,15 +300,22 @@ def test_other_datasets_wait_for_slice_6():
 
 
 def test_dcca_cli_cpu(solvers, tmp_path, capsys):
-    """The DCCA CLI on the CPU: the eigh loss in float64, the artifact, and
-    the probe it does not pretend to run."""
+    """The DCCA CLI on the CPU: the eigh loss in float64, the artifact, the
+    probe it does not pretend to run, and the embedding figure of each view
+    (test_torch_embed.py holds their UMAP to JAX's)."""
     out = dcca_train.main(["--device", "cpu", "--epochs", "1", "--batch-size", str(BATCH),
                            "--synthetic-n", str(SYNTH_N), "--outdim", str(OUTDIM),
                            "--data-path", solvers["data"], "--out", str(tmp_path / "dcca")])
     text = capsys.readouterr().out
     assert out == str(tmp_path / "dcca" / "mnist_svhn" / "dcca.npz")
     assert "eigh loss in float64 on cpu" in text and "DCCA epoch 1/1 train" in text
-    assert "SVM probe and embedding plot: not yet ported" in text
+    assert "SVM probe: not yet ported" in text
+    for v in (0, 1):
+        png = tmp_path / "dcca" / "mnist_svhn" / f"embedding_{v}.png"
+        assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        spec = json.loads((tmp_path / "dcca" / "mnist_svhn" / f"embedding_{v}.png.json")
+                          .read_text())
+        assert 0 < sum(len(s["points"]) for s in spec["panels"][0][0]["series"]) <= 300
     trunks = load_trunk_params(out)
     assert sorted(trunks) == ["encoders_0", "encoders_1"]
     with np.load(out) as npz:

@@ -216,8 +216,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
    analytics: each rank's launches as predicted (rank 0's grids apart),
    rank 0 alone writes the run dir, each rank's train step and one
    all-reduce of the gradient's size timed. (Phase 12's DCCA CLI also
-   writes embedding_{0,1}.png with the UMAP on the card, its layout timed.)
-38. The kernels line (with the launches at sign -1 of the IAF, tail and
+   writes embedding_{0,1}.png with the UMAP on the card, its layout timed,
+   and prints its SVM probe's accuracies, the probe timed.)
+38. fid_validate: `cli/validate.py` with its default FID flags (the
+   InceptionV3 FID net at its seeded random init, --repeats 1) on the
+   MMVAE-NF run over the full test set: an FID per direction, the net's
+   seconds, images a second and peak memory, the forward launches as with
+   the classifier encoder.
+39. fid_parity: the InceptionV3 on the card in float32 against float64 on
+   the CPU at the same weights (torch's default init, randomised
+   BatchNorm statistics), 8 images at 299 x 299, rtol 1e-3 and atol 1e-4;
+   then those weights as a pytorch-fid checkpoint through
+   `make_inception_fn(weights_path)`: the same activations.
+40. real_layout: `data/make_real_layout.py` writes a layout of 512 a split;
+   with MMVAE_TPU_REQUIRE_REAL=1 the MNIST-SVHN and CelebA loaders read it
+   (no PIL on the card's machine) and one mmvae_nf_synth.json epoch trains
+   from it, its launches 4 x (steps + val batches) and 4 x steps.
+41. probes: dcca_train's SVM probe accuracies of phase 12, and
+   `classify_latent` (the hinge SGD probe) on the MMVAE-NF run's joint
+   latents, each timed.
+42. sweep: `cli/sweep.py` from a JSON spec, two random trials of a tiny
+   circles config through the train CLI on cuda.
+43. ksplit_parity: the flagship's step (MMVAE-DReG-looser, K=30, B=32)
+   with the K split over 'k' (`parallel.split_k`, MMVAE.k_split), two gloo
+   ranks on the card at mesh (1, 2) and four at (2, 2), against one
+   process at the same global noise cut by K, then by rows: the ranks'
+   summed objective within STEP_OBJ_RTOL of the one process's, their
+   gradient within MMVAE_GRAD_TOL of each leaf of the float64 CPU step,
+   the same on every rank; the gather of the log-weights timed.
+44. The kernels line (with the launches at sign -1 of the IAF, tail and
    LinearNF paths, and each rank's of the data-parallel paths), and last
    the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1534,6 +1561,7 @@ def phase_dcca(tmp):
     import torch
 
     from mmvae_tpu_torch.bridge import load_jax_params
+    from mmvae_tpu_torch.cli import dcca_train
     from mmvae_tpu_torch.cli.dcca_train import main as dcca_main
     from mmvae_tpu_torch.data import get_dataloaders
     from mmvae_tpu_torch.dcca import objectives as O
@@ -1554,15 +1582,25 @@ def phase_dcca(tmp):
         layout_s.append(time.perf_counter() - t)
         return out
 
+    probe_s, probe = [], dcca_train.svm_probe
+
+    def timed_probe(*args, **kwargs):  # the SVM probe's solves on the card
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = probe(*args, **kwargs)
+        torch.cuda.synchronize()
+        probe_s.append(time.perf_counter() - t)
+        return out
+
     t0 = time.perf_counter()
-    embed._optimize_layout = timed_layout
+    embed._optimize_layout, dcca_train.svm_probe = timed_layout, timed_probe
     try:
         with contextlib.redirect_stdout(log):
             path = dcca_main(["--device", "cuda", "--epochs", str(DCCA_EPOCHS), "--batch-size",
                               str(DCCA_BATCH), "--synthetic-n", "2048", "--data-path", data,
                               "--out", os.path.join(tmp, "dcca")])
     finally:
-        embed._optimize_layout = layout
+        embed._optimize_layout, dcca_train.svm_probe = layout, probe
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     figures = {}
@@ -1629,7 +1667,8 @@ def phase_dcca(tmp):
     if not (value_ok and grad_ok):
         raise AssertionError(f"DCCA: cuda chol loss {v32.item()} vs cpu eigh {v64.item()}, "
                              f"gradient max abs err {grad_err}")
-    return path
+    probe_lines = [l for l in lines if l.startswith("SVM probe view ")]
+    return path, {"lines": probe_lines, "seconds": probe_s}
 
 
 def phase_jnf_dcca_slice(tmp, dcca_path):
@@ -3583,6 +3622,16 @@ DDP_TRAIN_STEPS = 3
 DDP_STEP_LAUNCHES = {"mmvae_nf": (4, 4), "jnf_mnist_fashion": (4, 4)}
 DDP_RANKS = 2
 DDP_SLICE_TIMEOUT = 300
+# a collective that waits longer for another rank raises; a spawn of ranks
+# still running after its deadline is killed and fails the phase
+RANK_TIMEOUT_S = 120
+SPAWN_DEADLINE_S = 300
+# the new phases of the port's last slice
+FID_RTOL, FID_ATOL = 1e-3, 1e-4  # tests/test_fid_parity.py's
+REAL_LAYOUT_N = 512
+PROBE_ROWS = 500
+KSPLIT_MESHES = ((1, 2), (2, 2))
+KSPLIT_GATHERS = 20
 # (ranks, backend) of phase_ddp_slice: one rank over NCCL, two on the card
 # over gloo ("" lets the CLI take NCCL)
 DDP_SLICE_RUNS = ((1, ""), (DDP_RANKS, "gloo"))
@@ -3633,24 +3682,26 @@ def _ddp_trainer(case, device, dtype, mesh=None):
     return cfg, trainer, xs, eps
 
 
-def _ddp_parity_rank(rank, world, port, job_path, out_dir, backend):
+def _ddp_parity_rank(rank, store, world, job_path, out_dir, backend):
     """One rank of `phase_ddp_parity` (torch.multiprocessing's spawn): over
     gloo on cuda:0 beside the other ranks, or over NCCL on its own card
     cuda:rank; for each case its block's step
     with its rows of the noise, its ReLU branches recorded (the kernels'
     from their tapes), then DDP_TRAIN_STEPS train steps on the same block
     with its own noise. Each rank's ar_solve counts start at 0."""
+    import datetime
+
     import torch
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from mmvae_tpu_torch.ops import ar_flow
     from mmvae_tpu_torch.parallel import make_mesh, shard_batch
 
-    mesh = make_mesh(world, 1, device="cuda", backend=backend)
+    mesh = make_mesh(world, 1, device="cuda", backend=backend, init_method=f"file://{store}",
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     out = {}
     for case in torch.load(job_path, weights_only=False):
         cfg, trainer, xs, eps = _ddp_trainer(case, mesh.device, torch.float32, mesh)
@@ -3676,12 +3727,31 @@ def _ddp_parity_rank(rank, world, port, job_path, out_dir, backend):
     torch.distributed.destroy_process_group()
 
 
-def _free_port():
-    import socket
+def _start_ranks(fn, args, nprocs, store_dir):
+    """torch.multiprocessing's spawn of `nprocs` ranks, fn(rank, store, *args),
+    the ranks meeting at a new file store in `store_dir` (no TCP port to
+    collide on), not joined: `_join_ranks`."""
+    import torch.multiprocessing as mp
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    store = os.path.join(store_dir, f"store_{time.monotonic_ns()}")
+    return mp.spawn(fn, args=(store, *args), nprocs=nprocs, join=False)
+
+
+def _join_ranks(context, deadline=SPAWN_DEADLINE_S):
+    """Wait for `_start_ranks`' ranks: they are killed, and the phase fails
+    with their exit codes, once `deadline` seconds pass. A rank that raises
+    fails it at once (spawn then ends the others)."""
+    nprocs = len(context.processes)
+    end = time.monotonic() + deadline
+    while not context.join(timeout=max(0.0, min(5.0, end - time.monotonic()))):
+        if time.monotonic() >= end:
+            for p in context.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in context.processes:
+                p.join(10)
+            raise AssertionError(f"{nprocs} ranks still running after {deadline} s; exit "
+                                 f"codes {[p.exitcode for p in context.processes]}")
 
 
 def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
@@ -3703,7 +3773,6 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
     cases, (name, config, overrides, draws). Returns the launches by path
     and rank."""
     import torch
-    import torch.multiprocessing as mp
 
     from mmvae_tpu_torch.ops import ar_flow
 
@@ -3713,8 +3782,7 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
     out_dir = os.path.join(tmp, "ddp_parity")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    mp.spawn(_ddp_parity_rank, args=(ranks, _free_port(), job, out_dir, backend), nprocs=ranks,
-             join=True)
+    _join_ranks(_start_ranks(_ddp_parity_rank, (ranks, job, out_dir, backend), ranks, out_dir))
     ranks_s = time.perf_counter() - t0
     n_ranks, ranks = ranks, [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
                              for r in range(ranks)]
@@ -3845,8 +3913,10 @@ def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
     # the group outlives the CLI's run, for the all-reduce's timing below
     import torch.distributed as dist
 
+    import datetime
+
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
-    dist.init_process_group(backend or "nccl")
+    dist.init_process_group(backend or "nccl", timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     Trainer.fit, Trainer.run_epoch_device = fit_with_probe, timed_epoch
     Trainer.run_epoch_device_eval = counted_val
     builtins.open = open_
@@ -3963,6 +4033,374 @@ def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
     return results
 
 
+def _inception_timer(made):
+    """A wrapper of eval.fid's `made` (make_inception_fn) whose activation
+    functions add their images and their seconds (synchronised) to the
+    returned dict."""
+    import torch
+
+    stats = {"images": 0, "seconds": 0.0, "calls": 0}
+
+    def make(*args, **kwargs):
+        fn = made(*args, **kwargs)
+
+        def timed(images):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(images)
+            torch.cuda.synchronize()
+            stats["seconds"] += time.perf_counter() - t0
+            stats["images"] += len(out)
+            stats["calls"] += 1
+            return out
+
+        return timed
+
+    return make, stats
+
+
+def phase_fid_validate(tmp, run):
+    """`cli/validate.py` with its default FID flags (--fid-encoder inception,
+    no --fid-weights: the net at its seeded random init), --repeats 1, on
+    the MMVAE-NF run over the full test set: the FID of each direction
+    finite, the coherences in [0, 1], the forward launches those of the
+    classifier-encoder validate, and the net's seconds, images a second
+    and the run's peak memory. Returns the launches by path."""
+    import torch
+
+    from mmvae_tpu_torch.cli import validate
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.eval import fid
+
+    exp = os.path.join(tmp, "experiments")
+    _, _, loaders = reload_model(run, 500, "cuda")
+    nb = len(loaders[1])
+    made = fid.make_inception_fn
+    fid.make_inception_fn, stats = _inception_timer(made)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        summary, lines, launches, wall = _counted(validate.main, [
+            "--run-path", run, "--experiments-dir", exp, "--repeats", "1", "--device", "cuda"])
+    finally:
+        fid.make_inception_fn = made
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: v["mean"] for k, v in summary.items()}
+    expected = (4 * (2 * nb + 1), 0)
+    marks = {l.split("] ", 1)[1]: float(l[1:].split("s]")[0]) for l in lines if l.startswith("[")}
+    ok = (launches == expected and all(math.isfinite(values[k]) for k in ("fid_0", "fid_1"))
+          and all(0.0 <= values[k] <= 1.0 for k in ("acc_0_1", "acc_1_0", "joint_coherence"))
+          and stats["images"] == 4 * len(loaders[1].dataset))
+    emit({"phase": "fid_validate", "encoder": "inception (random init, seed 0)",
+          "test_pairs": len(loaders[1].dataset), "test_batches": nb,
+          "fid": {k: values[k] for k in ("fid_0", "fid_1")}, "metrics": values,
+          "inception_images": stats["images"], "inception_calls": stats["calls"],
+          "inception_s": stats["seconds"],
+          "inception_images_per_s": stats["images"] / max(stats["seconds"], 1e-9),
+          "fid_repeat_s": marks["repeat 0: fid done"] - marks["repeat 0: accuracies done"],
+          "validate_s": wall, "peak_mem_gib": peak / 2 ** 30, "launches": list(launches),
+          "expected_launches": list(expected), "ok": ok})
+    if not ok:
+        raise AssertionError(f"fid_validate: launches {launches} (expected {expected}), "
+                             f"metrics {values}, inception images {stats['images']}")
+    return {"validate_inception_mmvae_nf": launches}
+
+
+def phase_fid_parity(tmp):
+    """The InceptionV3 FID net on the card in float32 (TF32 off) against
+    float64 on the CPU at the same weights (torch's default conv init from
+    seed 0, the BatchNorm statistics and affine drawn as
+    tests/test_fid_parity.py draws them), 8 images at 299 x 299, within
+    FID_RTOL and FID_ATOL; then the weights written as a pytorch-fid
+    checkpoint (with its fc.* head and a num_batches_tracked) and read by
+    `make_inception_fn(path)`: the card's activations again."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.eval import fid
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = fid.InceptionV3FID().eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, fid.FrozenBatchNorm):
+                n = m.weight.numel()
+                m.running_mean.copy_(torch.rand(n, generator=gen) * 0.2 - 0.1)
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(torch.rand(n, generator=gen) * 0.2 - 0.1)
+    x = torch.rand(8, 3, 299, 299, generator=torch.Generator().manual_seed(1))
+    sd = dict(net.state_dict())
+    with torch.no_grad():
+        cuda = net.cuda()(x.cuda())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cuda = net(x.cuda())
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        ref = net.cpu().double()(x.double())
+    err = (cuda.double().cpu() - ref).abs()
+    ok_f32 = bool(torch.allclose(cuda.double().cpu(), ref, rtol=FID_RTOL, atol=FID_ATOL))
+    path = os.path.join(tmp, "inception_smoke.pth")
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
+    sd["Conv2d_1a_3x3.bn.num_batches_tracked"] = torch.tensor(0)
+    torch.save(sd, path)
+    loaded = fid.make_inception_fn(path, device="cuda")(x)
+    load_err = float(np.abs(loaded - cuda.float().cpu().numpy()).max())
+    ok = ok_f32 and load_err <= FID_ATOL and bool(np.isfinite(loaded).all())
+    emit({"phase": "fid_parity", "images": 8, "size": 299, "reference": "cpu float64",
+          "max_abs_err": err.max().item(), "max_rel_err": (err / ref.abs().clamp_min(1e-30))
+          .max().item(), "act_max_abs": ref.abs().max().item(), "rtol": FID_RTOL,
+          "atol": FID_ATOL, "cuda_f32_batch8_s": cuda_s,
+          "pth_load_max_abs_diff": load_err, "ok": ok})
+    if not ok:
+        raise AssertionError(f"fid_parity: cuda float32 vs cpu float64 max abs err "
+                             f"{err.max().item()}, checkpoint reload diff {load_err}")
+
+
+def phase_real_layout(tmp):
+    """`make_real_layout.build_layout` of REAL_LAYOUT_N a split; with
+    MMVAE_TPU_REQUIRE_REAL=1 the MNIST-SVHN and CelebA loaders read it on
+    this machine (PIL absent or not, the port reads CelebA's PNGs itself),
+    and one mmvae_nf_synth.json epoch trains from it through the CLI: its
+    launches 4 x (train steps + val batches) forward and 4 x train steps
+    backward, as the synthetic epoch's at its own size. Returns the
+    launches by path."""
+    import importlib.util
+
+    import numpy as np
+
+    from mmvae_tpu_torch.data import get_dataloaders
+    from mmvae_tpu_torch.data.make_real_layout import build_layout
+
+    root = os.path.join(tmp, "real_layout")
+    t0 = time.perf_counter()
+    build_layout(root, REAL_LAYOUT_N)
+    write_s = time.perf_counter() - t0
+    prev = os.environ.get("MMVAE_TPU_REQUIRE_REAL")
+    os.environ["MMVAE_TPU_REQUIRE_REAL"] = "1"
+    try:
+        sizes = {}
+        t0 = time.perf_counter()
+        for name in ("mnist_svhn", "celeba"):
+            loaders = get_dataloaders(name, data_path=root, batch_size=16)
+            xs, _ = next(iter(loaders[0]))
+            sizes[name] = {"splits": [l.num_examples for l in loaders],
+                           "shapes": [list(np.asarray(x).shape) for x in xs],
+                           "finite_in_unit": all(float(np.min(x)) >= 0 and float(np.max(x)) <= 1
+                                                 for x in xs)}
+        read_s = time.perf_counter() - t0
+        _, _, info, _ = _cli_epoch(tmp, CONFIG, synthetic_n=None, data_path=root,
+                                   experiment="smoke/real_layout")
+    finally:
+        if prev is None:
+            os.environ.pop("MMVAE_TPU_REQUIRE_REAL")
+        else:
+            os.environ["MMVAE_TPU_REQUIRE_REAL"] = prev
+    steps, val_b = info["train_steps"], info["val_batches"]
+    expected = (4 * (steps + val_b), 4 * steps)
+    got = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
+    ok = (got == expected and steps > 0 and info["losses_finite"] and info["params_on_cuda"]
+          and all(v["finite_in_unit"] for v in sizes.values()))
+    emit({"phase": "real_layout", "n": REAL_LAYOUT_N,
+          "pil_present": importlib.util.find_spec("PIL") is not None, "write_s": write_s,
+          "read_s": read_s, "datasets": sizes, "train_pairs": info["train_pairs"],
+          "train_steps": steps, "val_batches": val_b, "launches": list(got),
+          "expected_launches": list(expected), "train_loss": info["train_loss"],
+          "epoch_wall_s_incl_setup": info["epoch_wall_s_incl_setup"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"real_layout: launches {got} (expected {expected}), {sizes}")
+    return {"real_layout_mmvae_nf": got}
+
+
+def phase_probes(dcca_probe, run):
+    """The linear probes on the card: dcca_train's SVM probe of phase 12
+    (its printed accuracies, the solves' seconds), and `classify_latent`,
+    the hinge SGD probe, fitted on the MMVAE-NF run's flow-posterior
+    latents of modality 0 (MNIST) for PROBE_ROWS train rows and scored on
+    as many test rows, against the class labels."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.cli.common import reload_model
+    from mmvae_tpu_torch.eval.generation import Noise
+    from mmvae_tpu_torch.eval.latent_analysis import analyse_uni_posterior, classify_latent
+
+    accs = {l.split(":")[0]: float(l.split()[-1]) for l in dcca_probe["lines"]}
+    _, bundle, (train_l, test_l, _) = reload_model(run, PROBE_ROWS, "cuda")
+    noise = Noise([torch.Generator(device="cuda").manual_seed(0)])
+    latents = []
+    with torch.no_grad():
+        for loader in (train_l, test_l):
+            xs, labs = next(iter(loader))
+            xs = [torch.as_tensor(x).cuda() for x in xs]
+            z = analyse_uni_posterior(bundle.model, xs, noise, PROBE_ROWS)[0]
+            latents += [z, np.asarray(labs[0])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latent_acc = classify_latent(*latents, generator=torch.Generator().manual_seed(0),
+                                 device="cuda")
+    sgd_s = time.perf_counter() - t0
+    ok = (len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs.values())
+          and 0.0 <= latent_acc <= 1.0 and len(dcca_probe["seconds"]) == 1)
+    emit({"phase": "probes", "dcca_svm_probe": accs, "dcca_svm_probe_s": dcca_probe["seconds"],
+          "latent_rows": PROBE_ROWS, "classify_latent_acc": latent_acc,
+          "classify_latent_s": sgd_s, "ok": ok})
+    if not ok:
+        raise AssertionError(f"probes: {accs}, latent accuracy {latent_acc}")
+
+
+def phase_sweep(tmp):
+    """`cli/sweep.py` on cuda from a JSON spec (what a machine without
+    PyYAML takes): two random trials of beta_kl over a tiny circles-squares
+    config through the train CLI, ranked, sweep_results.json written."""
+    from mmvae_tpu_torch.cli import sweep
+
+    spec = {"method": "random", "metric": {"name": "", "goal": "maximize"},
+            "parameters": {"beta-kl": {"min": 0.1, "max": 1.0},
+                           "model": {"value": "circles_squares"}}}
+    base = {"model": "circles_squares", "obj": "elbo", "K": 1, "latent_dim": 2, "epochs": 1,
+            "dist": "normal", "recon_losses": ["normal", "normal"], "no_nf": True,
+            "batch_size": 16, "learning_rate": 1e-3, "dataset_size": 40, "n_repeat": 2,
+            "no_analytics": True, "seed": 1, "warmup": 0, "data_path": ""}
+    paths = [os.path.join(tmp, n) for n in ("sweep_spec.json", "sweep_base.json")]
+    for path, obj in zip(paths, (spec, base)):
+        with open(path, "w") as f:
+            json.dump(obj, f)
+    exp = os.path.join(tmp, "sweep")
+    out, _, launches, wall = _counted(sweep.main, [
+        "--spec", paths[0], "--base-config", paths[1], "--trials", "2",
+        "--experiments-dir", exp, "--device", "cuda"])
+    scores = [t["score"] for t in out["trials"]]
+    ok = (len(scores) == 2 and all(math.isfinite(v) for v in scores)
+          and out["best"]["score"] == max(scores)
+          and os.path.exists(os.path.join(exp, "sweep_results.json")))
+    emit({"phase": "sweep", "trials": out["trials"], "best": out["best"], "seconds": wall,
+          "launches": list(launches), "ok": ok})
+    if not ok:
+        raise AssertionError(f"sweep: {out}")
+
+
+def _ksplit_rank(rank, store, n_data, n_k, job_path, out_dir):
+    """One rank of `phase_ksplit_parity`: over gloo on cuda:0 beside the
+    other ranks, the flagship's loss_and_grads on its rows and its K / n_k
+    samples (MMVAE.k_split), then the gather of a log-weight tensor of its
+    shape timed."""
+    import datetime
+
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n_data * n_k), LOCAL_RANK=str(rank))
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mmvae_tpu_torch.parallel import make_mesh, shard_batch, split_k
+
+    mesh = make_mesh(n_data, n_k, device="cuda", backend="gloo", init_method=f"file://{store}",
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    split = split_k(mesh)
+    case = torch.load(job_path, weights_only=False)
+    cfg, trainer, xs, us = _ddp_trainer(case, mesh.device, torch.float32, mesh)
+    trainer.model.k_split = split
+    xs, block = shard_batch(mesh, xs)
+    rows = slice(None) if block is None else slice(block.start, block.stop)
+    us = [u[split.samples(cfg.K), rows] for u in us]
+    loss, _, grads, finite = trainer.loss_and_grads(xs, noise=us, block=block)
+    torch.cuda.synchronize()
+    lws = torch.randn(2, cfg.K // n_k, len(xs[0]), device=mesh.device)
+    for _ in range(3):
+        split.gather(lws, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(KSPLIT_GATHERS):
+        split.gather(lws, 1)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) / KSPLIT_GATHERS * 1e3
+    torch.save(dict(loss=loss.item(), finite=bool(finite), grads=[g.cpu() for g in grads],
+                    applies=split.applies(cfg.K), gather_ms=gather_ms,
+                    gathered_shape=[2, cfg.K, len(xs[0])]),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_ksplit_parity(tmp):
+    """The flagship's DReG-looser step with the K split over 'k' on the
+    card (KSPLIT_MESHES, ranks over gloo sharing cuda:0, spawned together),
+    against one process on the card at the same weights and the same
+    global Laplace noise (cut by K, then by rows, on the ranks): the ranks'
+    objectives summed within STEP_OBJ_RTOL of the one process's; their
+    all-reduced gradient bitwise equal on every rank and within
+    MMVAE_GRAD_TOL of each leaf of the float64 CPU step (the one process's
+    beside it); the gather's milliseconds."""
+    import numpy as np
+    import torch
+
+    from mmvae_tpu_torch.bridge import export_jax_params
+    from mmvae_tpu_torch.core import distributions as D
+    from mmvae_tpu_torch.core.config import ExperimentConfig
+    from mmvae_tpu_torch.models import registry
+    from mmvae_tpu_torch.train import Trainer
+
+    cfg_path, _ = _slice_config(tmp, FLAGSHIP, batch_size=MMVAE_PARITY_B,
+                                experiment="smoke/ksplit")
+    cfg = ExperimentConfig.from_json(cfg_path)
+    xs, _ = next(iter(_data_loaders(cfg)[0]))
+    rng = np.random.default_rng(0)
+    us = [rng.uniform(D.LAPLACE_U_MIN, D.LAPLACE_U_MAX,
+                      (cfg.K, cfg.batch_size, cfg.latent_dim)).astype(np.float32) for _ in xs]
+    bundle = registry.build(cfg)
+    trainer = Trainer(bundle.model, bundle.spec, cfg, device="cpu")
+    trainer.init_parameters()
+    case = dict(name="flagship", cfg=cfg_path, xs=[np.asarray(x) for x in xs], eps=us,
+                weights=export_jax_params(trainer.model), epoch=1)
+    job = os.path.join(tmp, "ksplit_job.pt")
+    torch.save(case, job)
+    started = {}
+    for n_data, n_k in KSPLIT_MESHES:
+        out_dir = os.path.join(tmp, f"ksplit_{n_data}x{n_k}")
+        os.makedirs(out_dir, exist_ok=True)
+        started[n_data, n_k] = out_dir, _start_ranks(
+            _ksplit_rank, (n_data, n_k, job, out_dir), n_data * n_k, out_dir)
+    refs = {}
+    for run, dev, dtype in (("cuda_f32", "cuda", torch.float32),
+                            ("cpu_f64", "cpu", torch.float64)):
+        _, one, xs_t, us_t = _ddp_trainer(case, dev, dtype)
+        loss, _, grads, _ = one.loss_and_grads(xs_t, noise=us_t)
+        refs[run] = {"obj": -loss.item(), "loss": loss.item(),
+                     "grads": [g.double().cpu() for g in grads]}
+    names = [n for n, _ in one.model.named_parameters()]
+    scales = _leaf_scales(refs["cpu_f64"]["grads"], names)
+    one_err = _step_errors(refs["cuda_f32"], refs["cpu_f64"], names, scales)
+    results, ok_all = {}, True
+    for (n_data, n_k), (out_dir, context) in started.items():
+        _join_ranks(context)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(n_data * n_k)]
+        loss = sum(r["loss"] for r in ranks)
+        split = {"obj": -loss, "loss": loss, "grads": [g.double() for g in ranks[0]["grads"]]}
+        vs_one = _step_errors(split, refs["cuda_f32"], names, scales)
+        vs_f64 = _step_errors(split, refs["cpu_f64"], names, scales)
+        same = all(torch.equal(a, b) for r in ranks[1:]
+                   for a, b in zip(ranks[0]["grads"], r["grads"]))
+        ok = (all(r["applies"] and r["finite"] for r in ranks) and same
+              and vs_one["objective_rel_err"] <= STEP_OBJ_RTOL
+              and vs_f64["grad_max_rel_err"] <= MMVAE_GRAD_TOL)
+        ok_all = ok_all and ok
+        results[f"{n_data}x{n_k}"] = ok
+        emit({"phase": "ksplit_parity", "mesh": [n_data, n_k], "K": cfg.K,
+              "batch": cfg.batch_size, "samples_per_rank": cfg.K // n_k,
+              "rows_per_rank": cfg.batch_size // n_data, "objective_one_process": -refs[
+                  "cuda_f32"]["loss"], "objective_ranks_summed": -loss,
+              "vs_one_process_cuda": vs_one, "vs_cpu_f64": vs_f64,
+              "one_process_cuda_vs_cpu_f64": one_err, "grads_equal_on_ranks": same,
+              "gather_ms_by_rank": [r["gather_ms"] for r in ranks],
+              "gathered_shape": ranks[0]["gathered_shape"], "objective_rtol": STEP_OBJ_RTOL,
+              "grad_tol": MMVAE_GRAD_TOL, "ok": ok})
+    if not ok_all:
+        raise AssertionError(f"ksplit_parity: {results}")
+
+
 def ddp_cards(n):
     """`chip_smoke.py ddp-cards N`, on a machine with N cards: the
     data-parallel phases over NCCL with one rank a card (ddp_parity's two
@@ -4046,7 +4484,7 @@ def main():
         jnf_loader, jnf = timed("jnf_slice", phase_jnf_slice, tmp)
         timed("jnf_slice_time", phase_jnf_time, tmp, jnf_loader)
         timed("jnf_parity", phase_jnf_parity, tmp)
-        dcca_path = timed("dcca", phase_dcca, tmp)
+        dcca_path, dcca_probe = timed("dcca", phase_dcca, tmp)
         jnf_dcca = timed("jnf_dcca_slice", phase_jnf_dcca_slice, tmp, dcca_path)
         telbo = timed("telbo_nf_slice", phase_telbo_slice, tmp)
         mvae, mvae_run = timed("mvae_slice", phase_poe_slice, tmp, MVAE, "mvae")
@@ -4074,6 +4512,12 @@ def main():
         timed("tail_parity", phase_tail_parity, tmp)
         ddp = timed("ddp_parity", phase_ddp_parity, tmp)
         ddp.update(timed("ddp_slice", phase_ddp_slice, tmp))
+        fid = timed("fid_validate", phase_fid_validate, tmp, runs["mmvae_nf"])
+        timed("fid_parity", phase_fid_parity, tmp)
+        real = timed("real_layout", phase_real_layout, tmp)
+        timed("probes", phase_probes, dcca_probe, runs["mmvae_nf"])
+        timed("sweep", phase_sweep, tmp)
+        timed("ksplit_parity", phase_ksplit_parity, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4086,7 +4530,7 @@ def main():
                **{f"validate_{k}": v for k, v in validate.items()},
                **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
                **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
-               **celeba, **msf, **iaf, **tail, **linnf, **ddp}
+               **celeba, **msf, **iaf, **tail, **linnf, **ddp, **fid, **real}
     # the slice-11 paths' launches at sign -1 (IAF's density direction);
     # every other path's solve is MAF's sampling direction, at sign +1
     by_sign = {**iaf_minus, **tail_minus, **{path: (0, 0) for path in linnf}}

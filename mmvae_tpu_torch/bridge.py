@@ -142,3 +142,27 @@ def gmm_from_numpy(weights, means, covariances, device=None):
     from .eval.gmm import GaussianMixtureSampler
 
     return GaussianMixtureSampler.from_params(weights, means, covariances, device=device)
+
+
+def inception_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX's InceptionV3FID variables ({"params", "batch_stats"}, numpy or
+    jax arrays) as the state dict of the port's `eval.fid.InceptionV3FID`,
+    pytorch-fid's key names: each BasicConv2d's OIHW `kernel` is
+    `<path>.conv.weight` (the same layout), its `bn` scale, bias, mean and
+    var `<path>.bn.weight`, `.bn.bias`, `.bn.running_mean`,
+    `.bn.running_var`."""
+    stats = _flatten(variables["batch_stats"])
+    out = {}
+    for path, arr in _flatten(variables["params"]).items():
+        head = ".".join(path[:-1])
+        if path[-1] == "kernel":
+            out[f"{head}.conv.weight"] = torch.from_numpy(np.array(arr))
+        elif path[-2:] == ("bn", "scale"):
+            out[f"{head}.weight"] = torch.from_numpy(np.array(arr))
+            out[f"{head}.running_mean"] = torch.from_numpy(np.array(stats[path[:-1] + ("mean",)]))
+            out[f"{head}.running_var"] = torch.from_numpy(np.array(stats[path[:-1] + ("var",)]))
+        elif path[-2:] == ("bn", "bias"):
+            out[f"{head}.bias"] = torch.from_numpy(np.array(arr))
+        else:
+            raise ValueError(f"not a leaf of JAX's InceptionV3FID: {'/'.join(path)}")
+    return out

@@ -14,12 +14,20 @@ The loss follows the device, as the JAX package's follows its platform:
 on the CPU the reference eigh loss in float64, on cuda the Cholesky loss in
 float32 (TF32 off). `--backend` overrides the loss.
 
-Then, as the JAX CLI, the embedding figure of each view of the test set,
-<out>/<dataset>/embedding_{v}.png with its .json (vis.visualize_umap, the
-in-repo UMAP on the device): 300 test rows drawn with default_rng(0), the
-linear CCA applied to views 0 and 1, colored by class (uncolored on CelebA,
-whose targets are the 40 attribute bits). The JAX CLI's SVM probe needs
-scikit-learn's LinearSVC; it is not yet ported, and the CLI says so.
+Then, as the JAX CLI (mmvae_tpu/cli/dcca_train.py:88-147), on the trunks'
+test features, the linear CCA applied to views 0 and 1 (the trimodal third
+view stays raw):
+- the SVM probe of each view (dcca/utils.py:33; the reference's
+  dcca/validate/main_{celeba,msf}.py protocol): a linear SVC
+  (eval/linear.py, scikit-learn's LinearSVC solved exactly, on the device)
+  fitted on the first half of the test rows and scored on the second, on
+  the class label, or on CelebA one per attribute bit, a column that takes
+  one value in the first half skipped; it prints JAX's lines,
+  "SVM probe view v: acc a" (and "SVM probe view v attribute i: acc a");
+- the embedding figure of each view, <out>/<dataset>/embedding_{v}.png
+  with its .json (vis.visualize_umap, the in-repo UMAP on the device): 300
+  test rows drawn with default_rng(0), colored by class (uncolored on
+  CelebA, whose targets are the 40 attribute bits).
 """
 
 from __future__ import annotations
@@ -90,19 +98,17 @@ def main(argv=None):
     out_path = os.path.join(info.out, info.dataset, "dcca.npz")
     solver.save(out_path)
     print("saved", out_path)
-    print("SVM probe: not yet ported (it needs scikit-learn's LinearSVC)")
-    embedding_figures(solver, test_l, info.dataset, os.path.join(info.out, info.dataset), device)
+    feats, labels = probe_features(solver, test_l, info.dataset, device)
+    svm_probe(feats, labels, device)
+    embedding_figures(feats, labels, os.path.join(info.out, info.dataset), device)
     return out_path
 
 
-def embedding_figures(solver, test_loader, dataset, out_dir, device):
-    """embedding_{v}.png of each view (mmvae_tpu/cli/dcca_train.py:129-147,
-    the reference's main_mnist_svhn.py:218-221): the trunks' test features,
-    linear-CCA projected on views 0 and 1 (the trimodal third view stays
-    raw), N_PLOT rows of a default_rng(0) permutation, so that a
-    class-ordered test set shows every class. Returns the files written."""
-    from ..vis import visualize_umap
-
+def probe_features(solver, test_loader, dataset, device):
+    """The trunks' features of the test set, linear-CCA projected on views
+    0 and 1 (the trimodal third view stays raw; main_mnist_svhn.py:218-221),
+    and its targets: ([numpy (rows, dim) per view], labels (rows,) or, on
+    CelebA, the 40 attribute bits (rows, 40))."""
     solver.model.eval()
     feats, labels = None, []
     with torch.no_grad():
@@ -114,13 +120,44 @@ def embedding_figures(solver, test_loader, dataset, out_dir, device):
             # celeba: the targets are the 40 attribute bits, not one label
             labels.append(np.asarray(xs[1]).reshape(len(xs[1]), -1) if dataset == "celeba"
                           else np.asarray(labs[0]))
-    labels = np.concatenate(labels)
+    feats = [np.concatenate(chunks) for chunks in feats]
+    return [solver.lcca.transform(h, v) if v < 2 else h for v, h in enumerate(feats)], \
+        np.concatenate(labels)
+
+
+def svm_probe(feats, labels, device):
+    """The SVM probe of each view (mmvae_tpu/cli/dcca_train.py:101-127): a
+    LinearSVC per target column fitted on the first half of the rows and
+    scored on the second; a column with one value in the first half is
+    skipped. Prints JAX's lines; returns {view: [accuracy per column]}."""
+    from ..eval.linear import LinearSVC
+
+    cols = labels.reshape(len(labels), -1).T if labels.ndim > 1 else labels[None]
+    out = {}
+    for v, h in enumerate(feats):
+        n = len(h) // 2
+        accs = []
+        for ci, col in enumerate(cols):
+            if len(np.unique(col[:n])) < 2:
+                continue
+            accs.append(LinearSVC(device=device).fit(h[:n], col[:n]).score(h[n:], col[n:]))
+            if len(cols) > 1:
+                print(f"SVM probe view {v} attribute {ci}: acc {accs[-1]:.4f}")
+        print(f"SVM probe view {v}: acc {float(np.mean(accs)):.4f}")
+        out[v] = accs
+    return out
+
+
+def embedding_figures(feats, labels, out_dir, device):
+    """embedding_{v}.png of each view (mmvae_tpu/cli/dcca_train.py:129-147)
+    from `probe_features`: N_PLOT rows of a default_rng(0) permutation, so
+    that a class-ordered test set shows every class, colored by class where
+    the targets are one label. Returns the files written."""
+    from ..vis import visualize_umap
+
     classes = None if labels.ndim > 1 else labels
     paths = []
-    for v, chunks in enumerate(feats):
-        h = np.concatenate(chunks)
-        if v < 2:
-            h = solver.lcca.transform(h, v)
+    for v, h in enumerate(feats):
         sel = np.random.default_rng(0).permutation(len(h))[:N_PLOT]
         paths.append(os.path.join(out_dir, f"embedding_{v}.png"))
         visualize_umap(h[sel], None if classes is None else classes[sel], save_file=paths[-1],

@@ -2,15 +2,21 @@
 validate.py).
 
     python -m mmvae_tpu_torch.cli.validate --model jmvae_nf/mnist_svhn \\
-        --experiments-dir DIR --fid-encoder classifier [--device cuda|cpu]
+        --experiments-dir DIR [--fid-encoder inception|classifier]
+        [--fid-weights pt_inception-2015-12-05-6726825d.pth] [--device cuda|cpu]
 
 Reloads the latest run of the experiment (or --run-path), then over the
 full test set, in --repeats repeats (validate.py:98-154): the
 cross-coherences acc_i_j and the joint coherence from the eval classifiers
 (trained into <experiments-dir>/classifiers on first use), and the
-conditional FID fid_j on the classifiers' penultimate features, and with
---prd the PRD pair prd_f8_j / prd_f1_8_j from the same features, its curves
-prd_curve_j.npz, .png and .png.json written on repeat 0.
+conditional FID fid_j, and with --prd the PRD pair prd_f8_j / prd_f1_8_j
+from the same activations, its curves prd_curve_j.npz, .png and .png.json
+written on repeat 0. The FID's activations (validate.py:34-46, 89-99) are
+the InceptionV3 FID net's pool3 features (--fid-encoder inception, the
+default; eval/fid.py), at flax's random init drawn from seed 0 unless
+--fid-weights names pytorch-fid's checkpoint, which is hash-checked and
+loaded strictly, or the eval classifiers' penultimate features
+(--fid-encoder classifier).
 On circles-squares also `neg_entropy`, the negative entropy of the
 conditional radius distribution on the first test batch (min(100, batch)
 rows, min(100, 10 ns) samples each; its histogram hist_000.png on repeat
@@ -45,17 +51,6 @@ import numpy as np
 import torch
 
 
-def _unported(info):
-    """The JAX CLI's options this port does not run yet, with the reason."""
-    if not info.skip_fid and info.fid_encoder == "inception":
-        return ("--fid-encoder inception not yet ported: the InceptionV3 weights "
-                "(pt_inception-2015-12-05-6726825d.pth) are not in the repository; "
-                "use --fid-encoder classifier or --skip-fid")
-    if info.fid_weights:
-        return "--fid-weights not yet ported: it loads the InceptionV3 FID network"
-    return None
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Coherence and FID of a trained run")
     parser.add_argument("--model", type=str, default="",
@@ -70,24 +65,23 @@ def main(argv=None):
     parser.add_argument("--skip-fid", action="store_true")
     parser.add_argument("--fid-batches", type=int, default=0,
                         help="cap FID on the first N test batches; 0 = the full test loader")
-    parser.add_argument("--fid-weights", type=str, default="")
+    parser.add_argument("--fid-weights", type=str, default="",
+                        help="pytorch-fid's inception weights "
+                        "(pt_inception-2015-12-05-6726825d.pth), hash-checked before use")
     parser.add_argument("--prd", action="store_true",
                         help="also the per-direction PRD f8/f1_8 from the FID activations")
     parser.add_argument("--fid-encoder", type=str, default="inception",
                         choices=["inception", "classifier"],
-                        help="activation network for FID: the Inception FID net (not yet "
-                        "ported) or the eval classifiers' penultimate features")
+                        help="activation network for FID: the Inception FID net or the eval "
+                        "classifiers' penultimate features")
     parser.add_argument("--mcmc-steps", type=int, default=100,
                         help="HMC chain length of the trimodal PoE-subset accuracies")
     parser.add_argument("--device", type=str, default="cuda")
     info = parser.parse_args(argv)
-    problem = _unported(info)
-    if problem:
-        raise NotImplementedError(problem)
 
     from ..eval.classifiers import make_feature_fn
     from ..eval.coherence import compute_accuracies, compute_accuracies_dataset
-    from ..eval.fid import cross_modal_fid
+    from ..eval.fid import cross_modal_fid, make_inception_fn
     from ..eval.generation import Noise, generate, generate_from_conditional
     from ..eval.latent_analysis import conditional_rdist_metrics, visualize_poe
     from ..eval.modalities import BATCH_COHERENCE, poe_subset_accuracy
@@ -113,8 +107,13 @@ def main(argv=None):
     _mark("model reloaded")
     classifiers = get_or_train_classifiers(bundle, (train_l, test_l, val_l),
                                            info.experiments_dir, cfg.seed, cfg=cfg, device=device)
-    encoders = None if info.skip_fid else [make_feature_fn(c.model) for c in classifiers]
     _mark("classifiers ready")
+    encoders = None
+    if not info.skip_fid and info.fid_encoder == "classifier":
+        encoders = [make_feature_fn(c.model) for c in classifiers]
+    elif not info.skip_fid:
+        encoders = make_inception_fn(info.fid_weights or None, device=device)
+        _mark("inception initialized")
 
     def noise(*keys):
         return Noise([generator(device, cfg.seed, *keys)], dtype=dtype)

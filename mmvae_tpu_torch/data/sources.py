@@ -1,8 +1,9 @@
-"""Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy only but
-for PIL in CelebA's PNG reader):
-MNIST and FashionMNIST IDX files, SVHN .mat files, the MedMNIST .npz
-archives and CelebA's torchvision layout, with the class-structured
-synthetic fallback when they are absent."""
+"""Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy and
+scipy only; CelebA's PNGs through the port's own reader, data/png.py, so
+that the card's machine, which has no PIL, reads them): MNIST and
+FashionMNIST IDX files, SVHN .mat files, the MedMNIST .npz archives and
+CelebA's torchvision layout, with the class-structured synthetic fallback
+when they are absent. `data/make_real_layout.py` writes every layout."""
 
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ def load_celeba(data_path: str, split: str):
     by (a + 1) // 2), and the 64x64 crops
     ``img_align_celeba/celeba_64x64/train/<stem>.png``: the reference reads
     every split from the ``train`` directory, with the extension swapped to
-    .png, as here. PIL is imported only when the files are there.
+    .png, as here. A gray PNG is taken as RGB of equal channels and an
+    alpha channel is dropped, as PIL's convert("RGB") does.
 
     -> (images float32 (N, 3, 64, 64) in [0, 1], attributes float32 (N, 40)
     in {0, 1})."""
@@ -79,7 +81,7 @@ def load_celeba(data_path: str, split: str):
     part_path = os.path.join(root, "list_eval_partition.txt")
     if not os.path.exists(part_path):
         raise FileNotFoundError(part_path)
-    from PIL import Image
+    from .png import read_png
 
     with open(part_path) as f:
         fnames = [p[0] for p in (line.split() for line in f)
@@ -95,8 +97,11 @@ def load_celeba(data_path: str, split: str):
     imgs, attrs = [], []
     img_dir = os.path.join(root, "img_align_celeba", "celeba_64x64", "train")
     for name in fnames:
-        with Image.open(os.path.join(img_dir, os.path.splitext(name)[0] + ".png")) as im:
-            imgs.append(np.transpose(np.asarray(im.convert("RGB"), dtype=np.uint8), (2, 0, 1)))
+        img = read_png(os.path.join(img_dir, os.path.splitext(name)[0] + ".png"))
+        if img.ndim == 2:
+            img = img[..., None]
+        rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
+        imgs.append(np.transpose(rgb, (2, 0, 1)))
         attrs.append(attrs_by_name[name])
     return np.stack(imgs).astype(np.float32) / 255.0, np.stack(attrs).astype(np.float32)
 

@@ -5,8 +5,10 @@ true radii with radii read off cross-modal samples, the negative entropy of
 the conditional radius distribution, and the product-of-posteriors figure
 from Hamiltonian Monte Carlo.
 
-Not ported: `classify_latent` and `analyse`, which need scikit-learn's SGD
-probe and a UMAP reduction; no CLI calls them.
+`classify_latent` is the hinge-loss SGD probe (eval/linear.py, scikit-learn's
+SGDClassifier in distribution) and `analyse` the latent scatter of the
+joint and first unimodal posteriors through the in-repo UMAP; no CLI calls
+them, in neither package.
 
 Samplers take a `Noise` (eval/generation.py) or, for HMC, a generator.
 Callers run these under `torch.no_grad()`; HMC turns gradients on for its
@@ -21,8 +23,22 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..vis import extract_rayon, plot_hist, scatter_panels
+from ..vis import (
+    extract_rayon, plot_embeddings_colorbars, plot_hist, reduce_latents, scatter_panels,
+)
 from .generation import Noise, sample_from_conditional
+
+
+def classify_latent(z_train, t_train, z_test, t_test, generator: Optional[torch.Generator] = None,
+                    device="cuda") -> float:
+    """The hinge-loss SGD probe's accuracy (multi_vaes.py:160-164): fit on
+    (z_train, t_train), scored on (z_test, t_test), on `device`, its
+    shuffles from `generator` (default seed 0)."""
+    from .linear import SGDClassifier
+
+    z = [np.asarray(torch.as_tensor(a).detach().cpu()) for a in (z_train, z_test)]
+    clf = SGDClassifier(generator=generator, device=device).fit(z[0], np.asarray(t_train))
+    return clf.score(z[1], np.asarray(t_test))
 
 
 def analyse_joint_posterior(model, data, noise=None, generator=None, n_samples: int = 10):
@@ -55,6 +71,32 @@ def analyse_uni_posterior(model, data, noise: Noise, n_samples: int):
         eps = noise.draw(model.vaes[m].posterior, (x.shape[0], model.vaes[m].latent_dim))
         out.append(model.infer_latent_from_mod(m, x, noise=eps))
     return out
+
+
+def analyse(model, data, classes, noise: Noise, run_path: str, epoch: int,
+            train_latents=None, generator: Optional[torch.Generator] = None) -> Dict:
+    """The latent scatter of every row of `data` (multi_vaes.py:133-158):
+    joint_embedding_{epoch:03d}.png (and its .json) in `run_path`, the
+    joint posterior's samples beside modality 0's unimodal ones, each
+    reduced to 2-D by the in-repo UMAP on the model's device and colored by
+    classes[0] and classes[1]. With `train_latents` (z, labels), also
+    `latent_acc`, the SGD probe fitted on them and scored on the joint
+    samples against classes[0]. The joint forward draws from `noise`'s
+    first generator, the unimodal samples from `noise`; `generator` seeds
+    the probe's shuffles."""
+    device = next(model.parameters()).device
+    n = len(data[0])
+    _, _, zxy = analyse_joint_posterior(model, data, generator=noise.generators[0], n_samples=n)
+    zx = analyse_uni_posterior(model, data, noise, n)
+    metrics = {}
+    if train_latents is not None:
+        metrics["latent_acc"] = classify_latent(train_latents[0], train_latents[1], zxy,
+                                                classes[0], generator=generator, device=device)
+    zxy, zx0 = (z.detach().cpu().numpy() for z in (zxy, zx[0]))
+    plot_embeddings_colorbars(reduce_latents(zxy, device=device), reduce_latents(zx0, device=device),
+                              classes[0], classes[1],
+                              os.path.join(run_path, f"joint_embedding_{epoch:03d}.png"))
+    return metrics
 
 
 def negative_entropy(rayons, rng, bins) -> float:

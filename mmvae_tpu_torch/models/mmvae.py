@@ -9,6 +9,12 @@ same math with K times less encoder work.
 Samplers take one noise tensor per modality, `noise=[n_0, n_1, ...]`, of
 the posterior family's kind (uniform u for "laplace", standard-normal eps
 for "normal"; core/distributions.py), or draw it from `generator`.
+
+`k_split` (None, or a `parallel.KSplit`) cuts the IWAE sample axis over the
+mesh's 'k' ranks, as JAX's `zss_sharding` does (mmvae_tpu/models/mmvae.py:
+30,55-60), where n_k divides K: each rank draws and decodes only its
+K / n_k samples, and the objectives gather the log-weights over K. JAX's
+dry run sets it (__graft_entry__.py:96); the train CLI never does.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ class MMVAE(nn.Module):
         super().__init__()
         self.vaes = nn.ModuleList(vaes)
         self.posterior = posterior  # params.dist: posterior AND prior family
+        self.k_split = None
 
     @property
     def n_mod(self):
@@ -41,11 +48,24 @@ class MMVAE(nn.Module):
                           generator=None):
         """Posterior params + (M, K, B, D) samples. Split from decoding so
         that the DReG objectives can reweight the samples' gradient between
-        the two (objectives.py:398-401)."""
+        the two (objectives.py:398-401). Under an active `k_split` the
+        samples are this rank's K / n_k, (M, K / n_k, B, D): from `noise`
+        when given (this rank's cut of the global noise), else the rank's
+        cut of K draws from `generator`, which the k ranks of a data index
+        share, so that together they hold the global K."""
         qz_params = self.encode_all(x)
-        zss = [D.sample(self.posterior, LocScale(mu, std), (K,),
-                        noise=None if noise is None else noise[m], generator=generator)
-               for m, (mu, std) in enumerate(qz_params)]
+        split = self.k_split if self.k_split is not None and self.k_split.applies(K) else None
+        zss = []
+        for m, (mu, std) in enumerate(qz_params):
+            n = None if noise is None else noise[m]
+            k = K
+            if split is not None:
+                k = K // split.n_k
+                if n is None:
+                    n = D.draw_noise(self.posterior, (K,) + mu.shape, generator, mu.device,
+                                     mu.dtype)[split.samples(K)]
+            zss.append(D.sample(self.posterior, LocScale(mu, std), (k,), noise=n,
+                                generator=generator))
         return qz_params, torch.stack(zss)
 
     def decode_cross(self, zss):

@@ -208,34 +208,58 @@ def _m_lws(x, spec: ModelSpec, qz_params, zss, recons, detach_post: bool):
     return torch.stack(lws)
 
 
-def m_iwae(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
-    """Multimodal IWAE, tight bound: log-mean over M*K (objectives.py:333-340)."""
+def _k_split(model, K):
+    """The model's K split (MMVAE.k_split) where it applies to K, else None:
+    the model then drew only this rank's K / n_k samples, and every
+    reduction over K reads all the k ranks' log-weights."""
+    split = getattr(model, "k_split", None)
+    return split if split is not None and split.applies(K) else None
+
+
+def _iwae_lws(model, x, spec: ModelSpec, K, noise, generator):
+    """The IWAE log-weights over all K, (M, K, B), and the share of the
+    objective this rank holds (1 / n_k under a K split, whose gather
+    passes each rank its part of the gradient)."""
     out = model(x, K=K, noise=noise, generator=generator)
     lws = _m_lws(x, spec, out["qz_params"], out["zss"], out["recons"], False)
+    split = _k_split(model, K)
+    if split is None:
+        return lws, 1.0
+    return split.gather(lws, 1), 1.0 / split.n_k
+
+
+def m_iwae(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
+    """Multimodal IWAE, tight bound: log-mean over M*K (objectives.py:333-340)."""
+    lws, share = _iwae_lws(model, x, spec, K, noise, generator)
     m, k, b = lws.shape
-    return torch.sum(log_mean_exp(lws.reshape(m * k, b), dim=0)), {}
+    return torch.sum(log_mean_exp(lws.reshape(m * k, b), dim=0)) * share, {}
 
 
 def m_iwae_looser(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
     """Looser bound: modality average outside the log (objectives.py:343-369)."""
-    out = model(x, K=K, noise=noise, generator=generator)
-    lws = _m_lws(x, spec, out["qz_params"], out["zss"], out["recons"], False)
-    return torch.sum(torch.mean(log_mean_exp(lws, dim=1), dim=0)), {}
+    lws, share = _iwae_lws(model, x, spec, K, noise, generator)
+    return torch.sum(torch.mean(log_mean_exp(lws, dim=1), dim=0)) * share, {}
 
 
 def _m_dreg(model, x, spec: ModelSpec, K, looser: bool, noise, generator):
-    """Shared DReG machinery (objectives.py:372-438)."""
+    """Shared DReG machinery (objectives.py:372-438). Under a K split the
+    softmax weights are taken over every k rank's log-weights, and each
+    rank's surrogate sums its own samples' terms."""
     qz_params, zss = model.encode_and_sample(x, K=K, noise=noise, generator=generator)
     recons = model.decode_cross(zss)
     lws = _m_lws(x, spec, qz_params, zss, recons, detach_post=True)
+    split = _k_split(model, K)
     with torch.no_grad():
+        full = lws if split is None else split.gather(lws, 1)
         if looser:
             # softmax over K per (modality, batch) (objectives.py:435)
-            w = torch.softmax(lws, dim=1)
+            w = torch.softmax(full, dim=1)
         else:
             # softmax over the joint (M*K) axis (objectives.py:399)
-            m, k, b = lws.shape
-            w = torch.softmax(lws.reshape(m * k, b), dim=0).reshape(m, k, b)
+            m, k, b = full.shape
+            w = torch.softmax(full.reshape(m * k, b), dim=0).reshape(m, k, b)
+        if split is not None:
+            w = w[:, split.samples(K)]
     if zss.requires_grad:
         # the z-gradient additionally scaled by w (objectives.py:401, 437)
         zss.register_hook(lambda g: g * w[..., None])

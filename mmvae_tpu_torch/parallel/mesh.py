@@ -9,8 +9,9 @@ JAX reshapes its device list, so rank r holds data index r // n_k:
 - a batch whose rows n_data divides is cut into n_data contiguous blocks,
   and data index i takes block i (JAX's P("data") sharding); a ragged one
   is replicated, every rank taking all of it (`shard_batch`);
-- 'k' replicates: the train CLI's mesh shards nothing over it in the JAX
-  package either (only its dry run shards the IWAE samples over 'k');
+- 'k' replicates under the train CLI, as in the JAX package; only JAX's dry
+  run shards the IWAE samples over 'k', and so does `split_k` here (a
+  `KSplit`, which MMVAE and its objectives read);
 - the objectives are batch sums, so the gradient of the global batch is
   the sum of the ranks' gradients over the ranks that hold distinct rows:
   the Trainer all-reduces (sums) over the world and divides by the number
@@ -24,6 +25,7 @@ process and nothing here calls torch.distributed.
 
 from __future__ import annotations
 
+import datetime
 import os
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -132,8 +134,81 @@ class _WorldSum(torch.autograd.Function):
         return grad
 
 
+@dataclass(frozen=True)
+class KSplit:
+    """The IWAE sample axis K cut over the 'k' ranks of each data index
+    (JAX's MMVAE.zss_sharding, P(None, "k", "data")): where n_k divides K,
+    the rank of k index i holds samples [i K / n_k, (i + 1) K / n_k). The
+    objectives' reductions over K read every k rank's log-weights through
+    `gather`. Each rank's objective is then its share of the global one:
+    the shares and their gradients sum over the k ranks to the one-device
+    objective and gradient of the data block, so the Trainer divides by
+    `holders`, not by n_k."""
+
+    mesh: Mesh
+    group: object = None  # the k ranks of this rank's data index
+
+    @property
+    def n_k(self) -> int:
+        return self.mesh.n_k
+
+    def applies(self, K: int) -> bool:
+        """JAX's guard: the split holds only where n_k divides K."""
+        return self.n_k > 1 and K % self.n_k == 0
+
+    def samples(self, K: int) -> slice:
+        """This rank's samples of the K."""
+        size = K // self.n_k
+        i = self.mesh.rank % self.n_k
+        return slice(i * size, (i + 1) * size)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every k rank's `t` (this data index's), concatenated in k order
+        along `dim`, differentiably: the backward sums the upstream
+        gradients over the k ranks and hands each its own slice, so that a
+        share computed on the gathered tensor passes its part of the
+        gradient to every rank's samples."""
+        return _KGather.apply(t, dim, self.group, self.n_k, self.mesh.rank % self.n_k)
+
+    def holders(self, block: Optional["Block"]) -> int:
+        """How many ranks' shares make up each row's objective once: 1 for
+        a sharded batch (the k ranks hold different samples), n_data for a
+        replicated one (every data index holds every row)."""
+        return 1 if block is not None else self.mesh.n_data
+
+
+class _KGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, n, index):
+        ctx.dim, ctx.group, ctx.n, ctx.index = dim, group, n, index
+        parts = [torch.empty_like(t) for _ in range(n)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad.tensor_split(ctx.n, ctx.dim)[ctx.index], None, None, None, None
+
+
+def split_k(mesh: Mesh) -> Optional[KSplit]:
+    """The K split of `mesh`, its k groups made with
+    torch.distributed.new_group (a collective: every rank calls it, in the
+    same order); None for one k index or no process group."""
+    if not mesh.collective or mesh.n_k == 1:
+        return None
+    mine = None
+    for d in range(mesh.n_data):
+        group = torch.distributed.new_group(list(range(d * mesh.n_k, (d + 1) * mesh.n_k)))
+        if d == mesh.data_index:
+            mine = group
+    return KSplit(mesh, mine)
+
+
 def make_mesh(n_data: Optional[int] = None, n_k: int = 1, device="cuda",
-              backend: Optional[str] = None) -> Mesh:
+              backend: Optional[str] = None, init_method: Optional[str] = None,
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """The mesh of the ranks `torchrun` started (RANK, WORLD_SIZE,
     LOCAL_RANK in the environment), setting up the process group; one
     process without them. n_data None is world // n_k, as in JAX.
@@ -142,7 +217,12 @@ def make_mesh(n_data: Optional[int] = None, n_k: int = 1, device="cuda",
     NCCL. Ranks that share a card (more ranks on a host than cards) must
     name backend "gloo", which then places local rank l on card
     l % device_count; NCCL refuses two ranks on one card. On the CPU the
-    backend is gloo. Raises when n_data * n_k is not the world size."""
+    backend is gloo. Raises when n_data * n_k is not the world size.
+
+    `init_method` and `timeout` go to init_process_group: the rendezvous
+    (default env://, the launcher's MASTER_ADDR and MASTER_PORT; a
+    file://<path> store needs no port) and how long a collective waits for
+    the other ranks before it raises (default the backend's)."""
     launched = "WORLD_SIZE" in os.environ
     world = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
@@ -170,7 +250,9 @@ def make_mesh(n_data: Optional[int] = None, n_k: int = 1, device="cuda",
     else:
         backend = "gloo"
     if not torch.distributed.is_initialized():
-        torch.distributed.init_process_group(backend, rank=rank, world_size=world)
+        kw = {} if timeout is None else {"timeout": timeout}
+        torch.distributed.init_process_group(backend, init_method=init_method, rank=rank,
+                                             world_size=world, **kw)
     return Mesh(n_data, n_k, rank, device, backend, collective=True)
 
 

@@ -78,9 +78,9 @@ def _models(name, made_bias_seed=None):
     method = "init_all" if name == "jmvae_nf" else None
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_ar, "ar_solve", jax_ar.unrolled_solve)  # init needs shapes only
-        params = jax.jit(lambda k, x: jb.model.init({"params": k, "sample": k}, x, K=1,
-                                                    method=method)["params"])(
-            jax.random.PRNGKey(0), xs)
+        # op by op: compiling the init costs more than running it
+        params = jb.model.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(0)},
+                               xs, K=1, method=method)["params"]
     params = jax.tree.map(np.asarray, params)
     if made_bias_seed is not None:
         rng = np.random.default_rng(made_bias_seed)

@@ -47,9 +47,11 @@ def test_jnf_celeba_at_zero_made_biases(monkeypatch):
     def jax_value_and_grads():
         _draws(monkeypatch, "float32")
         with _jax_dtype("float32", monkeypatch):
-            value, grads = jax.jit(jax.value_and_grad(lambda p: jobj.m_jmvae_nf(
+            # op by op: the unrolled solve at D = 64 compiles for a minute
+            # or more under jit (test_torch_celeba_models._compare)
+            value, grads = jax.value_and_grad(lambda p: jobj.m_jmvae_nf(
                 jb.model, {"params": p}, jx, jax.random.PRNGKey(3), jb.spec, train=True,
-                **_PAST_WARMUP)[0]))(params)
+                **_PAST_WARMUP)[0])(params)
         return float(value), dict(_flat(grads))
 
     j_value, j_grads = jax_value_and_grads()

@@ -76,8 +76,10 @@ def models():
             jb = jreg.build(JCfg.from_json(path))
             xs = [jnp.zeros((2,) + SHAPE)] * 2
             method = "init_all" if fam == "jnf" else None
-            params = jax.jit(lambda k, x, jb=jb, m=method: jb.model.init(
-                {"params": k, "sample": k}, x, K=1, method=m)["params"])(jax.random.PRNGKey(0), xs)
+            # op by op: compiling the init costs more than running it
+            params = jb.model.init({"params": jax.random.PRNGKey(0),
+                                    "sample": jax.random.PRNGKey(0)}, xs, K=1,
+                                   method=method)["params"]
             out[fam] = (jb, jax.tree.map(np.asarray, params))
     return out
 

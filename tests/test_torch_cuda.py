@@ -38,6 +38,13 @@ The k-means, the mixture EM, PRD and the Bernoulli family on the card in
 float64 against the CPU in float64 from the same inputs and starts, and the
 ms_small augmentation pipeline (train, generate_joint, use_gen retrain,
 validate --prd) at a tiny size on cuda with its launch counts.
+
+The last slice: the InceptionV3 FID net on the card in float32 against
+float64 on the CPU at randomised BatchNorm statistics (rtol 1e-3, atol
+1e-4, tests/test_fid_parity.py's), the linear probes on the card against
+the CPU (LinearSVC's minimiser to 1e-9 of the largest coefficient, the SGD
+probe's accuracy exactly: the same shuffles, float64 on both), and the K
+split over two gloo ranks on the card (chip_smoke's ksplit_parity at B=8).
 """
 
 import copy
@@ -1076,3 +1083,65 @@ def test_umap_layout_on_card_matches_cpu(card):
     spread = max(np.linalg.norm(emb[:20] - emb[:20].mean(0), axis=1).mean(),
                  np.linalg.norm(emb[20:] - emb[20:].mean(0), axis=1).mean())
     assert np.isfinite(emb).all() and gap > 2.0 * spread
+
+
+@pytest.mark.cuda
+def test_inception_on_card_matches_f64_cpu(card):
+    """The FID net at torch's default init with randomised BatchNorm
+    statistics, 4 images at 299 x 299: float32 on the card (TF32 off)
+    against float64 on the CPU."""
+    from mmvae_tpu_torch.eval import fid
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = fid.InceptionV3FID().eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, fid.FrozenBatchNorm):
+                n = m.weight.numel()
+                m.running_mean.copy_(torch.rand(n, generator=gen) * 0.2 - 0.1)
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(torch.rand(n, generator=gen) * 0.2 - 0.1)
+        x = torch.rand(4, 1, 28, 28, generator=torch.Generator().manual_seed(1))
+        on_card = net.to(card)(fid.fid_preprocess(x.to(card))).double().cpu()
+        ref = net.cpu().double()(fid.fid_preprocess(x.double()))
+    assert ref.abs().max() > 1e-2
+    np.testing.assert_allclose(on_card.numpy(), ref.numpy(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_linear_probes_on_card_match_cpu(card):
+    """LinearSVC and the SGD probe on the card against the CPU, float64,
+    the same data and shuffles."""
+    from mmvae_tpu_torch.eval.linear import LinearSVC, SGDClassifier
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(10, 16)) * 1.5
+    y = rng.integers(0, 10, 600)
+    x = centers[y] + rng.normal(size=(600, 16))
+    svc = [LinearSVC(device=d).fit(x[:400], y[:400]) for d in (card, "cpu")]
+    scale = np.abs(svc[1].coef_).max()
+    np.testing.assert_allclose(svc[0].coef_, svc[1].coef_, rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(svc[0].intercept_, svc[1].intercept_, rtol=0, atol=1e-9 * scale)
+    sgd = [SGDClassifier(device=d, generator=torch.Generator().manual_seed(0)).fit(x[:400], y[:400])
+           for d in (card, "cpu")]
+    assert sgd[0].n_iter_ == sgd[1].n_iter_
+    np.testing.assert_allclose(sgd[0].coef_, sgd[1].coef_, rtol=1e-9, atol=1e-9)
+    assert sgd[0].score(x[400:], y[400:]) == sgd[1].score(x[400:], y[400:])
+
+
+@pytest.mark.cuda
+def test_k_split_on_card_matches_one_process(card, tmp_path, monkeypatch):
+    """chip_smoke's ksplit_parity at B=8: the flagship step with the K split
+    on two gloo ranks sharing the card against one process (the phase
+    raises otherwise)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "MMVAE_PARITY_B", 8)
+    monkeypatch.setattr(chip_smoke, "KSPLIT_MESHES", ((1, 2),))
+    chip_smoke.phase_ksplit_parity(str(tmp_path))

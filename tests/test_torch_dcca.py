@@ -301,15 +301,18 @@ def test_other_datasets_wait_for_slice_6():
 
 def test_dcca_cli_cpu(solvers, tmp_path, capsys):
     """The DCCA CLI on the CPU: the eigh loss in float64, the artifact, the
-    probe it does not pretend to run, and the embedding figure of each view
-    (test_torch_embed.py holds their UMAP to JAX's)."""
+    SVM probe's lines of each view, as JAX prints them (test_torch_linear.py
+    holds the probe to scikit-learn's), and the embedding figure of each
+    view (test_torch_embed.py holds their UMAP to JAX's)."""
     out = dcca_train.main(["--device", "cpu", "--epochs", "1", "--batch-size", str(BATCH),
                            "--synthetic-n", str(SYNTH_N), "--outdim", str(OUTDIM),
                            "--data-path", solvers["data"], "--out", str(tmp_path / "dcca")])
     text = capsys.readouterr().out
     assert out == str(tmp_path / "dcca" / "mnist_svhn" / "dcca.npz")
     assert "eigh loss in float64 on cpu" in text and "DCCA epoch 1/1 train" in text
-    assert "SVM probe: not yet ported" in text
+    for v in (0, 1):
+        line, = [ln for ln in text.splitlines() if ln.startswith(f"SVM probe view {v}: acc ")]
+        assert 0.0 <= float(line.split()[-1]) <= 1.0
     for v in (0, 1):
         png = tmp_path / "dcca" / "mnist_svhn" / f"embedding_{v}.png"
         assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

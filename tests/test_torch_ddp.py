@@ -6,7 +6,8 @@ device at float64 for two steps: the flagship MMVAE-DReG (Laplace
 posteriors, K=4) and JMVAE-NF past warmup on jnf_mnist_fashion, whose conv
 nets have BatchNorm, at B=8 and latent 4. Here the same two steps run in
 2 and 4 processes (meshes (n_data, n_k) = (2, 1) and (2, 2); ranks started
-with torch.multiprocessing's spawn, one free port each), every rank on its
+with torch.multiprocessing's spawn, meeting at a file store of their own
+under a deadline: `spawn_ranks`), every rank on its
 block of the batch with its rows of the noise, and their gradients, summed
 over the ranks by the Trainer (`loss_and_grads`), are held to JAX's float64
 gradients on the whole batch (the port's initial weights exported through
@@ -16,8 +17,9 @@ the tree, no leaf skipped; the gradients bitwise equal on every rank; the
 BatchNorm running statistics after the JMVAE-NF step equal to JAX's.
 """
 
+import datetime
 import os
-import socket
+import time
 import types
 
 import numpy as np
@@ -52,15 +54,49 @@ def cfg_kwargs(kind):
                 recon_losses=("normal", "normal"), fix_jencoder=False, fix_decoders=False)
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+# a collective that waits longer than this for a rank raises
+RANK_TIMEOUT = datetime.timedelta(seconds=120)
+# a spawn whose ranks have not all ended by then is killed and fails
+SPAWN_DEADLINE_S = 180.0
 
 
-def set_rank_env(rank, world, port):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+def set_rank_env(rank, world):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+
+
+def store_method(store):
+    """The init_method of a rendezvous at the file `store`: no TCP port, so
+    that two tests running at once cannot draw the same one."""
+    return f"file://{store}"
+
+
+def start_ranks(fn, args, nprocs, store_dir):
+    """torch.multiprocessing's spawn of `nprocs` ranks, fn(rank, store, *args),
+    `store` a new rendezvous file in `store_dir`, not joined: `join_ranks`."""
+    store = os.path.join(str(store_dir), f"store_{time.monotonic_ns()}")
+    return mp.spawn(fn, args=(store, *args), nprocs=nprocs, join=False)
+
+
+def join_ranks(context, deadline=SPAWN_DEADLINE_S):
+    """Wait for the ranks of `start_ranks`; they are killed and the test
+    fails with their exit codes once `deadline` seconds pass. A rank that
+    raises fails the test at once (spawn then ends the others)."""
+    end = time.monotonic() + deadline
+    while not context.join(timeout=max(0.0, min(5.0, end - time.monotonic()))):
+        if time.monotonic() >= end:
+            for p in context.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in context.processes:
+                p.join(10)
+            raise AssertionError(f"{len(context.processes)} ranks still running after "
+                                 f"{deadline} s; exit codes "
+                                 f"{[p.exitcode for p in context.processes]}")
+
+
+def spawn_ranks(fn, args, nprocs, store_dir, deadline=SPAWN_DEADLINE_S):
+    """`start_ranks` and `join_ranks`."""
+    join_ranks(start_ranks(fn, args, nprocs, store_dir), deadline)
 
 
 def made_biases_off_zero(model, seed=5):
@@ -116,14 +152,15 @@ def rows_of(block, a, axis):
     return a.narrow(axis, block.start, block.stop - block.start)
 
 
-def _step_worker(rank, world, port, n_data, n_k, out_dir):
+def _step_worker(rank, store, world, n_data, n_k, out_dir):
     """One rank: both kinds' loss_and_grads on this rank's block, saved."""
-    set_rank_env(rank, world, port)
+    set_rank_env(rank, world)
     torch.set_num_threads(1)
     from mmvae_tpu_torch.parallel import make_mesh, shard_batch
     from mmvae_tpu_torch.train import Trainer
 
-    mesh = make_mesh(n_data, n_k, device="cpu")
+    mesh = make_mesh(n_data, n_k, device="cpu", init_method=store_method(store),
+                     timeout=RANK_TIMEOUT)
     out = {}
     for kind in KINDS:
         cfg, bundle = port_model(kind)
@@ -139,16 +176,26 @@ def _step_worker(rank, world, port, n_data, n_k, out_dir):
 
 
 @pytest.fixture(scope="module")
-def ranks_out(tmp_path_factory):
-    """{(n_data, n_k): [each rank's saved steps]}, one spawn per mesh."""
+def started(tmp_path_factory):
+    """{(n_data, n_k): (the spawned ranks, their output dir)}, every mesh's
+    ranks started at once, so that they run while JAX computes."""
     res = {}
     for n_data, n_k in MESHES:
         out_dir = tmp_path_factory.mktemp(f"ddp_{n_data}x{n_k}")
         world = n_data * n_k
-        mp.spawn(_step_worker, args=(world, free_port(), n_data, n_k, str(out_dir)),
-                 nprocs=world, join=True)
+        res[n_data, n_k] = (start_ranks(_step_worker, (world, n_data, n_k, str(out_dir)), world,
+                                        out_dir), out_dir)
+    return res
+
+
+@pytest.fixture(scope="module")
+def ranks_out(started, jax_steps):
+    """{(n_data, n_k): [each rank's saved steps]}, once JAX's steps are done."""
+    res = {}
+    for (n_data, n_k), (context, out_dir) in started.items():
+        join_ranks(context)
         res[n_data, n_k] = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
-                            for r in range(world)]
+                            for r in range(n_data * n_k)]
     return res
 
 

@@ -1,5 +1,6 @@
 """Data-parallel training of the port in CPU processes over gloo (ranks
-started with torch.multiprocessing's spawn, one free port each): the
+started with torch.multiprocessing's spawn at a file store, under a
+deadline: `test_torch_ddp.spawn_ranks`): the
 optimizer and nan_guard across ranks, and the train CLI.
 
 - Three Trainer steps of JMVAE-NF past warmup on jnf_mnist_fashion
@@ -21,9 +22,10 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
-from test_torch_ddp import free_port, port_model, set_rank_env
+from test_torch_ddp import (
+    RANK_TIMEOUT, port_model, set_rank_env, spawn_ranks, store_method,
+)
 
 CONFIG = "configs/mnist_svhn/mmvae_nf_synth.json"
 LATENT = 4
@@ -40,13 +42,13 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def _opt_worker(rank, world, port, out_dir):
-    set_rank_env(rank, world, port)
+def _opt_worker(rank, store, world, out_dir):
+    set_rank_env(rank, world)
     torch.set_num_threads(1)
     from mmvae_tpu_torch.parallel import make_mesh, shard_batch
     from mmvae_tpu_torch.train import Trainer
 
-    mesh = make_mesh(2, 2, device="cpu")
+    mesh = make_mesh(2, 2, device="cpu", init_method=store_method(store), timeout=RANK_TIMEOUT)
     cfg, bundle = port_model("jnf_postwarmup")
     model = bundle.model.float()
     trainer = Trainer(model, bundle.spec, cfg, device="cpu", mesh=mesh)
@@ -80,7 +82,7 @@ def _opt_worker(rank, world, port, out_dir):
 
 
 def test_optimizer_state_equal_on_every_rank_and_poisoned_step_skipped(tmp_path):
-    mp.spawn(_opt_worker, args=(4, free_port(), str(tmp_path)), nprocs=4, join=True)
+    spawn_ranks(_opt_worker, (4, str(tmp_path)), 4, tmp_path)
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(4)]
     for r in ranks:
         assert r["count"] == 3, "three steps taken, the fourth skipped"
@@ -130,9 +132,12 @@ def global_noise_steps():
     Trainer.train_step, Trainer.eval_step = train_step, eval_step
 
 
-def _cli_worker(rank, world, port, configs, exp_dirs, out_dir):
-    set_rank_env(rank, world, port)
+def _cli_worker(rank, store, world, configs, exp_dirs, out_dir):
+    set_rank_env(rank, world)
     torch.set_num_threads(1)
+    # the CLI's make_mesh takes this group and leaves it to the caller
+    torch.distributed.init_process_group("gloo", init_method=store_method(store), rank=rank,
+                                         world_size=world, timeout=RANK_TIMEOUT)
     global_noise_steps()
     from mmvae_tpu_torch.cli import train
 
@@ -153,6 +158,7 @@ def _cli_worker(rank, world, port, configs, exp_dirs, out_dir):
         builtins.open, torch.save = opened, saved
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"runs": runs, "writes": writes}, f)
+    torch.distributed.destroy_process_group()
 
 
 def test_cli_two_ranks_match_one_process(tmp_path, monkeypatch):
@@ -170,8 +176,7 @@ def test_cli_two_ranks_match_one_process(tmp_path, monkeypatch):
                                "--device", "cpu"]))
     configs = [_write_config(tmp_path, mesh_data=2, **kw) for kw in variants]
     exp_dirs = [str(tmp_path / f"two{i}") for i in range(len(variants))]
-    mp.spawn(_cli_worker, args=(2, free_port(), configs, exp_dirs, str(tmp_path)), nprocs=2,
-             join=True)
+    spawn_ranks(_cli_worker, (2, configs, exp_dirs, str(tmp_path)), 2, tmp_path)
     ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
     assert ranks[0]["runs"] == ranks[1]["runs"] and ranks[1]["writes"] == []
     for run_one, run_two, exp in zip(one, ranks[0]["runs"], exp_dirs):

@@ -353,12 +353,14 @@ def test_cross_modal_fid_matches_jax(jax_models, monkeypatch):
 
 
 def test_unported_eval_options_raise():
-    """What evaluation still refuses: the InceptionV3 network (its weights
-    are not in the repository). PRD and the fitted samplers are ported
-    (tests/test_torch_gen.py), and so are CelebA's attribute accuracies
-    (tests/test_torch_celeba.py): all 40 bits of equal attributes agree."""
-    with pytest.raises(NotImplementedError, match="weights"):
-        F.make_inception_fn()
+    """Evaluation refuses nothing now: the InceptionV3 network runs at its
+    random init without weights (tests/test_torch_fid.py), and raises only
+    for a weights file that is not there. PRD and the fitted samplers are
+    ported (tests/test_torch_gen.py), and so are CelebA's attribute
+    accuracies (tests/test_torch_celeba.py): all 40 bits of equal
+    attributes agree."""
+    with pytest.raises(FileNotFoundError):
+        F.make_inception_fn("absent_weights.pth", device="cpu")
     attrs = (np.arange(80).reshape(2, 40) % 3 == 0).astype(np.float32)
     assert C.attribute_accuracies(None, torch.tensor(attrs).reshape(2, 1, 1, 40), attrs) == 1.0
 

@@ -10,7 +10,6 @@ CLIs' on the same JMVAE-NF run (its weights and classifiers exported to
 the JAX package's checkpoint format).
 """
 
-import argparse
 import json
 import math
 import os
@@ -167,16 +166,33 @@ def test_metric_names_match_the_jax_clis(runs, tmp_path, monkeypatch):
     assert all(np.isfinite(v["mean"]) for v in want_l.values())
 
 
-def test_unported_options_and_missing_card_raise(runs):
+def test_unported_options_and_missing_card_raise(runs, monkeypatch, tmp_path):
+    """validate's default encoder, the InceptionV3 at its seeded random init,
+    gives a finite FID per direction (to keep the CPU run short, the net
+    is fed at 75 px, not 299, and the distance reads the first 64 of the
+    2048 features, whose 2048 x 2048 sqrtm takes 40 s a direction here:
+    tests/test_torch_fid.py holds the net at 75 px to JAX's, and
+    test_torch_eval.py the distance); --fid-weights refuses a missing file and a file whose name's
+    hash its bytes do not match; --mcmc-steps is taken (read by the
+    trimodal PoE models only); and without a card the CLIs refuse cuda."""
+    from mmvae_tpu_torch.eval import fid
+
     exp, run = runs[0], runs[1]["jnf"]
     base = ["--run-path", run, "--experiments-dir", exp, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="--fid-encoder classifier or --skip-fid"):
-        validate.main(base)  # the JAX CLI's default encoder, Inception
-    with pytest.raises(NotImplementedError, match="--fid-weights not yet ported"):
-        validate.main(base + ["--skip-fid", "--fid-weights", "w.pth"])
-    # --mcmc-steps is taken (read by the trimodal PoE models only)
-    assert validate._unported(argparse.Namespace(skip_fid=True, fid_encoder="inception",
-                                                 fid_weights="", mcmc_steps=10)) is None
+    monkeypatch.setattr(fid, "fid_preprocess", lambda x: torch.nn.functional.interpolate(
+        torch.cat([x] * (3 // x.shape[1]), 1), size=(75, 75), mode="bilinear"))
+    frechet = fid.calculate_frechet_distance
+    monkeypatch.setattr(fid, "calculate_frechet_distance", lambda m1, s1, m2, s2: frechet(
+        m1[:64], s1[:64, :64], m2[:64], s2[:64, :64]))
+    got = validate.main(base + ["--repeats", "1", "--batch-size", "16", "--mcmc-steps", "10"])
+    assert sorted(got) == VALIDATE_KEYS
+    assert all(math.isfinite(got[k]["mean"]) for k in ("fid_0", "fid_1"))
+    with pytest.raises(FileNotFoundError):
+        validate.main(base + ["--fid-weights", str(tmp_path / "absent.pth")])
+    bad = tmp_path / "pt_inception-2015-12-05-deadbeef.pth"
+    bad.write_bytes(b"not the weights")
+    with pytest.raises(ValueError, match="hash mismatch"):
+        validate.main(base + ["--fid-weights", str(bad)])
     if torch.cuda.is_available():
         return
     for cli in (validate, compute_likelihoods):

@@ -1,10 +1,10 @@
 """mmvae_tpu_torch stands alone: no file imports jax, flax, optax or the JAX
 package, and every module imports in a process where those are blocked. Nor
-does any file import scikit-learn, matplotlib or PIL, which the card's
-machine lacks: the port has its own k-means, mixture EM and PNG writer. The
-one exception is PIL inside `sources.load_celeba`, the reader of CelebA's
-real PNG crops, which only real data reach: the stand-in loads where PIL is
-blocked."""
+does any file import scikit-learn, matplotlib, PIL or PyYAML, which the
+card's machine may lack: the port has its own k-means, mixture EM, linear
+probes, PNG writer and PNG reader (CelebA's real crops load where PIL is
+blocked: tests/test_torch_real_layout.py). The one exception is PyYAML
+inside `sweep._load_spec`, for a YAML spec; a .json spec needs none."""
 
 import ast
 import os
@@ -16,10 +16,10 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mmvae_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmvae_tpu")
-HOST_ONLY = ("sklearn", "matplotlib", "PIL")
-# host-only packages a function may import inside its body: readers of real
-# data files that the card's machine never holds
-LAZY_HOST_ONLY = {("mmvae_tpu_torch/data/sources.py", "load_celeba"): ("PIL",)}
+HOST_ONLY = ("sklearn", "matplotlib", "PIL", "yaml")
+# host-only packages a function may import inside its body: the reader of a
+# file format that has a stand-in the card's machine reads
+LAZY_HOST_ONLY = {("mmvae_tpu_torch/cli/sweep.py", "_load_spec"): ("yaml",)}
 
 
 def _py_files():

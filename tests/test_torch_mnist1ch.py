@@ -217,8 +217,9 @@ def _models(model, **kw):
     method = "init_all" if model.startswith("jnf") else None
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_ar, "ar_solve", jax_ar.unrolled_solve)  # init needs shapes only
-        v = jax.jit(lambda k, x: jb.model.init({"params": k, "sample": k}, x, K=1,
-                                               method=method))(jax.random.PRNGKey(0), xs)
+        # op by op: compiling the init costs more than running it
+        v = jb.model.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(0)}, xs,
+                          K=1, method=method)
     v = jax.tree.map(np.asarray, dict(v))
     assert "batch_stats" in v
     bundle = registry.build(cfg)

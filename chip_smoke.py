@@ -228,13 +228,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    BatchNorm statistics), 8 images at 299 x 299, rtol 1e-3 and atol 1e-4;
    then those weights as a pytorch-fid checkpoint through
    `make_inception_fn(weights_path)`: the same activations.
-40. real_layout: `data/make_real_layout.py` writes a layout of 512 a split;
-   with MMVAE_TPU_REQUIRE_REAL=1 the MNIST-SVHN and CelebA loaders read it
-   (no PIL on the card's machine) and one mmvae_nf_synth.json epoch trains
-   from it, its launches 4 x (steps + val batches) and 4 x steps.
+40. real_layout: `data/make_real_layout.py` writes a layout of 512 a split,
+   its CelebA crops rewritten with rows under Average and Paeth (PIL's
+   files are mostly Paeth; the layout's writer uses filter 0) and 4,096
+   such crops decoded at once by `read_pngs`, timed and projected to
+   CelebA's 202,599; with MMVAE_TPU_REQUIRE_REAL=1 the MNIST-SVHN and
+   CelebA loaders read the layout through the port's own PNG reader, not
+   PIL, and one mmvae_nf_synth.json epoch trains from it, its launches
+   4 x (steps + val batches) and 4 x steps.
 41. probes: dcca_train's SVM probe accuracies of phase 12, and
    `classify_latent` (the hinge SGD probe) on the MMVAE-NF run's joint
-   latents, each timed.
+   latents on the host (its default) and on the card, each timed.
 42. sweep: `cli/sweep.py` from a JSON spec, two random trials of a tiny
    circles config through the train CLI on cuda.
 43. ksplit_parity: the flagship's step (MMVAE-DReG-looser, K=30, B=32)
@@ -3629,6 +3633,10 @@ SPAWN_DEADLINE_S = 300
 # the new phases of the port's last slice
 FID_RTOL, FID_ATOL = 1e-3, 1e-4  # tests/test_fid_parity.py's
 REAL_LAYOUT_N = 512
+# the crops `real_layout` decodes at once (load_celeba's chunk), and the
+# count of CelebA's aligned crops its projection reaches
+PNG_READ_N = 4096
+CELEBA_CROPS = 202_599
 PROBE_ROWS = 500
 KSPLIT_MESHES = ((1, 2), (2, 2))
 KSPLIT_GATHERS = 20
@@ -4159,6 +4167,86 @@ def phase_fid_parity(tmp):
                              f"{err.max().item()}, checkpoint reload diff {load_err}")
 
 
+def _filtered_png(img, kinds, path):
+    """An (H, W, 3) uint8 image as a PNG whose row y is under filter
+    kinds[y % len(kinds)] (PNG spec section 9.2)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, stride = img.shape[0], img.shape[1] * 3
+    rows, prior = [], np.zeros(stride, np.int64)
+    for y in range(h):
+        cur = img[y].reshape(-1).astype(np.int64)
+        left = np.concatenate([np.zeros(3, np.int64), cur[:-3]])
+        upleft = np.concatenate([np.zeros(3, np.int64), prior[:-3]])
+        kind = kinds[y % len(kinds)]
+        if kind == 3:
+            pred = (left + prior) // 2
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        rows.append(bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prior = cur
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+
+
+def _refilter_celeba(root, tmp):
+    """CelebA's crops as real ones are stored: the layout's writer puts every
+    row under filter 0, PIL's adaptive filtering mostly under Paeth, which
+    the reader undoes pixel by pixel. Each crop of the layout is rewritten
+    in place with its rows alternating Average and Paeth (the worst case),
+    so the loaders below read those. Then PNG_READ_N such crops are decoded
+    by `read_pngs`, as `load_celeba` decodes a chunk (and by PIL, where
+    this machine has it): the seconds per crop and the projection to
+    CelebA's 202,599. Returns what it measured."""
+    import importlib.util
+
+    import numpy as np
+
+    from mmvae_tpu_torch.data.png import read_pngs
+
+    crops = os.path.join(root, "celeba", "img_align_celeba", "celeba_64x64", "train")
+    names = sorted(os.listdir(crops))
+    paths = [os.path.join(crops, n) for n in names]
+    imgs = read_pngs(paths)
+    for j, (path, img) in enumerate(zip(paths, imgs)):
+        _filtered_png(img, (3, 4) if j % 2 else (4, 3), path)
+    bulk = os.path.join(tmp, "png_read")
+    os.makedirs(bulk, exist_ok=True)
+    many = []
+    for j in range(PNG_READ_N):
+        many.append(os.path.join(bulk, f"{j:06d}.png"))
+        shutil.copyfile(paths[j % len(paths)], many[-1])
+    t0 = time.perf_counter()
+    got = read_pngs(many)
+    read_s = time.perf_counter() - t0
+    same = all(np.array_equal(g, imgs[j % len(imgs)]) for j, g in enumerate(got))
+    out = {"crops": PNG_READ_N, "filters": "rows alternate Average and Paeth",
+           "read_pngs_s": read_s, "ms_per_crop": 1e3 * read_s / PNG_READ_N,
+           "projected_celeba_s": read_s / PNG_READ_N * CELEBA_CROPS, "same_pixels": same}
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        t0 = time.perf_counter()
+        for path in many:
+            with Image.open(path) as im:
+                np.asarray(im)
+        out["pil_s"] = time.perf_counter() - t0
+    shutil.rmtree(bulk)
+    return out
+
+
 def phase_real_layout(tmp):
     """`make_real_layout.build_layout` of REAL_LAYOUT_N a split; with
     MMVAE_TPU_REQUIRE_REAL=1 the MNIST-SVHN and CelebA loaders read it on
@@ -4178,6 +4266,7 @@ def phase_real_layout(tmp):
     t0 = time.perf_counter()
     build_layout(root, REAL_LAYOUT_N)
     write_s = time.perf_counter() - t0
+    png_read = _refilter_celeba(root, tmp)
     prev = os.environ.get("MMVAE_TPU_REQUIRE_REAL")
     os.environ["MMVAE_TPU_REQUIRE_REAL"] = "1"
     try:
@@ -4202,10 +4291,10 @@ def phase_real_layout(tmp):
     expected = (4 * (steps + val_b), 4 * steps)
     got = (info["ar_solve_launches"], info["ar_solve_backward_launches"])
     ok = (got == expected and steps > 0 and info["losses_finite"] and info["params_on_cuda"]
-          and all(v["finite_in_unit"] for v in sizes.values()))
+          and all(v["finite_in_unit"] for v in sizes.values()) and png_read["same_pixels"])
     emit({"phase": "real_layout", "n": REAL_LAYOUT_N,
           "pil_present": importlib.util.find_spec("PIL") is not None, "write_s": write_s,
-          "read_s": read_s, "datasets": sizes, "train_pairs": info["train_pairs"],
+          "read_s": read_s, "png_read": png_read, "datasets": sizes, "train_pairs": info["train_pairs"],
           "train_steps": steps, "val_batches": val_b, "launches": list(got),
           "expected_launches": list(expected), "train_loss": info["train_loss"],
           "epoch_wall_s_incl_setup": info["epoch_wall_s_incl_setup"], "ok": ok})
@@ -4215,11 +4304,12 @@ def phase_real_layout(tmp):
 
 
 def phase_probes(dcca_probe, run):
-    """The linear probes on the card: dcca_train's SVM probe of phase 12
+    """The linear probes: dcca_train's SVM probe of phase 12 on the card
     (its printed accuracies, the solves' seconds), and `classify_latent`,
     the hinge SGD probe, fitted on the MMVAE-NF run's flow-posterior
     latents of modality 0 (MNIST) for PROBE_ROWS train rows and scored on
-    as many test rows, against the class labels."""
+    as many test rows, against the class labels: on the host, where it
+    runs by default, and on the card, each timed."""
     import numpy as np
     import torch
 
@@ -4238,17 +4328,20 @@ def phase_probes(dcca_probe, run):
             z = analyse_uni_posterior(bundle.model, xs, noise, PROBE_ROWS)[0]
             latents += [z, np.asarray(labs[0])]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    latent_acc = classify_latent(*latents, generator=torch.Generator().manual_seed(0),
-                                 device="cuda")
-    sgd_s = time.perf_counter() - t0
+    acc, secs = {}, {}
+    for device in ("cpu", "cuda"):  # the host, its default, then the card for comparison
+        t0 = time.perf_counter()
+        acc[device] = classify_latent(*latents, generator=torch.Generator().manual_seed(0),
+                                      device=device)
+        secs[device] = time.perf_counter() - t0
+    latent_acc = acc["cpu"]
     ok = (len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs.values())
-          and 0.0 <= latent_acc <= 1.0 and len(dcca_probe["seconds"]) == 1)
+          and all(0.0 <= a <= 1.0 for a in acc.values()) and len(dcca_probe["seconds"]) == 1)
     emit({"phase": "probes", "dcca_svm_probe": accs, "dcca_svm_probe_s": dcca_probe["seconds"],
-          "latent_rows": PROBE_ROWS, "classify_latent_acc": latent_acc,
-          "classify_latent_s": sgd_s, "ok": ok})
+          "latent_rows": PROBE_ROWS, "classify_latent_acc": acc,
+          "classify_latent_s": secs, "ok": ok})
     if not ok:
-        raise AssertionError(f"probes: {accs}, latent accuracy {latent_acc}")
+        raise AssertionError(f"probes: {accs}, latent accuracy {acc}")
 
 
 def phase_sweep(tmp):
@@ -4297,28 +4390,27 @@ def _ksplit_rank(rank, store, n_data, n_k, job_path, out_dir):
     torch.backends.cudnn.allow_tf32 = False
     from mmvae_tpu_torch.parallel import make_mesh, shard_batch, split_k
 
-    mesh = make_mesh(n_data, n_k, device="cuda", backend="gloo", init_method=f"file://{store}",
-                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
-    split = split_k(mesh)
+    mesh = split_k(make_mesh(n_data, n_k, device="cuda", backend="gloo",
+                             init_method=f"file://{store}",
+                             timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S)))
     case = torch.load(job_path, weights_only=False)
     cfg, trainer, xs, us = _ddp_trainer(case, mesh.device, torch.float32, mesh)
-    trainer.model.k_split = split
     xs, block = shard_batch(mesh, xs)
     rows = slice(None) if block is None else slice(block.start, block.stop)
-    us = [u[split.samples(cfg.K), rows] for u in us]
+    us = [u[mesh.k_samples(cfg.K), rows] for u in us]
     loss, _, grads, finite = trainer.loss_and_grads(xs, noise=us, block=block)
     torch.cuda.synchronize()
     lws = torch.randn(2, cfg.K // n_k, len(xs[0]), device=mesh.device)
     for _ in range(3):
-        split.gather(lws, 1)
+        mesh.gather_k(lws, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(KSPLIT_GATHERS):
-        split.gather(lws, 1)
+        mesh.gather_k(lws, 1)
     torch.cuda.synchronize()
     gather_ms = (time.perf_counter() - t0) / KSPLIT_GATHERS * 1e3
     torch.save(dict(loss=loss.item(), finite=bool(finite), grads=[g.cpu() for g in grads],
-                    applies=split.applies(cfg.K), gather_ms=gather_ms,
+                    applies=mesh.splits(cfg.K), gather_ms=gather_ms,
                     gathered_shape=[2, cfg.K, len(xs[0])]),
                os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()

@@ -1,10 +1,15 @@
-"""A PNG reader of the port's own, on zlib and struct alone, so that the
-card's machine, which has no PIL, reads CelebA's 64x64 crops.
+"""A PNG reader of the port's own, on zlib, struct and numpy alone, so that
+the port reads CelebA's 64x64 crops without PIL.
 
 It reads what an image dataset holds: 8-bit gray, gray with alpha, RGB and
 RGBA, not interlaced, each scanline under any of the five filters (none,
 Sub, Up, Average, Paeth; PNG spec section 9). Anything else (other bit
 depths, a palette, Adam7 interlacing) raises with what it met.
+
+`read_pngs` decodes the files of one shape and mode together: the
+sequential Average and Paeth filters step once per pixel of one image,
+each step across all the images, so a dataset of equal crops decodes at
+about PIL's rate (PERF.md §5); `read_png` is one file of it.
 """
 
 from __future__ import annotations
@@ -35,48 +40,57 @@ def _chunks(data: bytes):
     raise ValueError("PNG ends before its IEND chunk")
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
+def _pixels(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """(m, stride) -> (stride / bpp, m, bpp), contiguous: pixel-major, so
+    that each step of a left-to-right pass reads one block of memory."""
+    m, stride = rows.shape
+    return np.ascontiguousarray(rows.reshape(m, stride // bpp, bpp).transpose(1, 0, 2))
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines' bytes with each filter undone, (h, stride) uint8."""
-    out = np.zeros((h, stride), dtype=np.uint8)
-    prior = np.zeros(stride, dtype=np.uint8)
+def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """The scanlines of n images of one shape with each filter undone:
+    raw (n, h, 1 + stride) uint8, each row's filter type first ->
+    (n, h, stride) uint8. Rows are undone top to bottom, each across all n
+    images at once; Average and Paeth, which read the bytes just made,
+    pixel by pixel across the images and channels."""
+    n, h, stride = raw.shape[0], raw.shape[1], raw.shape[2] - 1
+    out = np.empty((n, h, stride), dtype=np.uint8)
+    prior = np.zeros((n, stride), dtype=np.int16)
     for y in range(h):
-        line = raw[y * (stride + 1):(y + 1) * (stride + 1)]
-        kind, filt = line[0], np.frombuffer(line, dtype=np.uint8, offset=1)
-        if kind == 0:
-            row = filt
-        elif kind == 1:  # Sub: a running sum per channel, mod 256
-            row = np.cumsum(filt.reshape(-1, bpp).astype(np.int64), axis=0)
-            row = (row % 256).astype(np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            row = filt + prior
-        elif kind in (3, 4):  # Average and Paeth read the bytes just made
-            row, up, fb = bytearray(stride), prior.tobytes(), line[1:]
-            for i in range(stride):
-                a = row[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    pred = (a + up[i]) >> 1
-                else:
-                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
-                row[i] = (fb[i] + pred) & 0xFF
-            row = np.frombuffer(bytes(row), dtype=np.uint8)
-        else:
-            raise ValueError(f"PNG scanline {y} has filter type {kind}, not 0-4")
-        out[y] = row
-        prior = out[y]
+        kind = raw[:, y, 0]
+        if (kind > 4).any():
+            raise ValueError(f"PNG scanline {y} has filter type {kind.max()}, not 0-4")
+        row = raw[:, y, 1:].astype(np.int16)
+        # Sub: a running sum per channel, mod 256; Up: the row above added
+        sub, up = kind == 1, kind == 2
+        row[sub] = np.cumsum(row[sub].reshape(-1, stride // bpp, bpp), axis=1).reshape(
+            -1, stride) % 256
+        row[up] += prior[up]
+        # Average and Paeth: a the byte to the left (just made), b above,
+        # c above-left
+        av, pt = np.flatnonzero(kind == 3), np.flatnonzero(kind == 4)
+        if len(av) or len(pt):
+            fa, ba = _pixels(row[av], bpp), _pixels(prior[av], bpp)
+            fp, bp = _pixels(row[pt], bpp), _pixels(prior[pt], bpp)
+            a_av = np.zeros((len(av), bpp), dtype=np.int16)
+            a = c = np.zeros((len(pt), bpp), dtype=np.int16)
+            for i in range(stride // bpp):
+                a_av = fa[i] = (fa[i] + ((a_av + ba[i]) >> 1)) & 0xFF
+                b = bp[i]
+                pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+                pred = np.where(pb <= pc, b, c)
+                np.copyto(pred, a, where=(pa <= pb) & (pa <= pc))
+                a = fp[i] = (fp[i] + pred) & 0xFF
+                c = b
+            row[av] = fa.transpose(1, 0, 2).reshape(len(av), stride)
+            row[pt] = fp.transpose(1, 0, 2).reshape(len(pt), stride)
+        row &= 0xFF
+        out[:, y] = prior = row
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """The image of the PNG file `path` as uint8: (H, W) gray, (H, W, 2)
-    gray with alpha, (H, W, 3) RGB or (H, W, 4) RGBA."""
+def _scanlines(path: str):
+    """(h, w, channels, the scanlines' bytes) of the PNG file `path`."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(SIGNATURE):
@@ -105,5 +119,26 @@ def read_png(path: str) -> np.ndarray:
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != h * (w * c + 1):
         raise ValueError(f"{path}: {len(raw)} bytes of scanlines for {h} rows of {w * c + 1}")
-    img = _unfilter(raw, h, w * c, c)
-    return img.reshape(h, w) if c == 1 else img.reshape(h, w, c)
+    return h, w, c, raw
+
+
+def read_pngs(paths) -> list:
+    """The images of the PNG files `paths`, in order, each as `read_png`
+    gives it. Files of one shape and mode are decoded together, so a
+    dataset of equal crops costs a Python loop over one image's pixels."""
+    groups, out = {}, [None] * len(paths)
+    for j, path in enumerate(paths):
+        h, w, c, raw = _scanlines(path)
+        groups.setdefault((h, w, c), []).append((j, raw))
+    for (h, w, c), items in groups.items():
+        raw = np.frombuffer(b"".join(r for _, r in items), dtype=np.uint8)
+        imgs = _unfilter(raw.reshape(len(items), h, w * c + 1), c)
+        for (j, _), img in zip(items, imgs):
+            out[j] = img.reshape(h, w) if c == 1 else img.reshape(h, w, c)
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """The image of the PNG file `path` as uint8: (H, W) gray, (H, W, 2)
+    gray with alpha, (H, W, 3) RGB or (H, W, 4) RGBA."""
+    return read_pngs([path])[0]

@@ -1,6 +1,6 @@
 """Raw dataset readers (own copy of mmvae_tpu/data/sources.py, numpy and
 scipy only; CelebA's PNGs through the port's own reader, data/png.py, so
-that the card's machine, which has no PIL, reads them): MNIST and
+that the port needs no PIL to read them): MNIST and
 FashionMNIST IDX files, SVHN .mat files, the MedMNIST .npz archives and
 CelebA's torchvision layout, with the class-structured synthetic fallback
 when they are absent. `data/make_real_layout.py` writes every layout."""
@@ -63,6 +63,10 @@ def load_svhn(data_path: str, train: bool):
     return x, y
 
 
+# CelebA's crops decoded together, this many at a time (data/png.py)
+_PNG_CHUNK = 4096
+
+
 def load_celeba(data_path: str, split: str):
     """CelebA in the reference's torchvision layout under
     ``data_path/celeba/`` (datasets.py:269-428): ``list_eval_partition.txt``
@@ -81,7 +85,7 @@ def load_celeba(data_path: str, split: str):
     part_path = os.path.join(root, "list_eval_partition.txt")
     if not os.path.exists(part_path):
         raise FileNotFoundError(part_path)
-    from .png import read_png
+    from .png import read_pngs
 
     with open(part_path) as f:
         fnames = [p[0] for p in (line.split() for line in f)
@@ -94,15 +98,16 @@ def load_celeba(data_path: str, split: str):
         parts = line.split()
         if len(parts) == n_attrs + 1:
             attrs_by_name[parts[0]] = (np.array([int(v) for v in parts[1:]], np.int64) + 1) // 2
-    imgs, attrs = [], []
+    imgs = []
     img_dir = os.path.join(root, "img_align_celeba", "celeba_64x64", "train")
-    for name in fnames:
-        img = read_png(os.path.join(img_dir, os.path.splitext(name)[0] + ".png"))
-        if img.ndim == 2:
-            img = img[..., None]
-        rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
-        imgs.append(np.transpose(rgb, (2, 0, 1)))
-        attrs.append(attrs_by_name[name])
+    paths = [os.path.join(img_dir, os.path.splitext(name)[0] + ".png") for name in fnames]
+    for s in range(0, len(paths), _PNG_CHUNK):
+        for img in read_pngs(paths[s:s + _PNG_CHUNK]):
+            if img.ndim == 2:
+                img = img[..., None]
+            rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
+            imgs.append(np.transpose(rgb, (2, 0, 1)))
+    attrs = [attrs_by_name[name] for name in fnames]
     return np.stack(imgs).astype(np.float32) / 255.0, np.stack(attrs).astype(np.float32)
 
 

@@ -280,6 +280,10 @@ def init_inception(model: InceptionV3FID, generator: torch.Generator) -> Incepti
 # the std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
 
+# the seed of the random net `make_inception_fn` builds without weights
+# (JAX's inits from PRNGKey(0), mmvae_tpu/eval/fid.py:331)
+FID_INIT_SEED = 0
+
 # the published pytorch-fid weights (inception.py:13) embed the first 8
 # sha256 hex chars in the filename, per the torch.hub convention
 FID_WEIGHTS_NAME = "pt_inception-2015-12-05-6726825d.pth"
@@ -336,15 +340,15 @@ def load_fid_weights(model: InceptionV3FID, path: str) -> InceptionV3FID:
     return model
 
 
-def make_inception_fn(weights_path: Optional[str] = None, device="cuda", batch: int = 64,
-                      seed: int = 0, dtype: torch.dtype = torch.float32):
+def make_inception_fn(weights_path: Optional[str] = None, device="cuda", batch: int = 64):
     """wrapper_inception (inception.py:332-345): images -> (N, 2048)
     activations, as float32 numpy, `batch` images a call of the net on
-    `device`. Images: NCHW in [0, 1], numpy or torch, any size and 1 or 3
-    channels (`fid_preprocess`). Without `weights_path` the net is
-    flax's random init drawn from `seed` (`init_inception`); with it, the
-    file is hash-checked (`verify_fid_weights`) and loaded strictly. On
-    cuda TF32 is turned off for matrix products and cuDNN convolutions."""
+    `device` in float32. Images: NCHW in [0, 1], numpy or torch, any size
+    and 1 or 3 channels (`fid_preprocess`). Without `weights_path` the net
+    is flax's random init drawn from seed `FID_INIT_SEED`
+    (`init_inception`); with it, the file is hash-checked
+    (`verify_fid_weights`) and loaded strictly. On cuda TF32 is turned off
+    for matrix products and cuDNN convolutions."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -354,16 +358,16 @@ def make_inception_fn(weights_path: Optional[str] = None, device="cuda", batch: 
         verify_fid_weights(weights_path)
         load_fid_weights(model, weights_path)
     else:
-        init_inception(model, torch.Generator().manual_seed(seed))
-    model = model.to(device, dtype).eval()
+        init_inception(model, torch.Generator().manual_seed(FID_INIT_SEED))
+    model = model.to(device, torch.float32).eval()
 
     @torch.no_grad()
     def activations(images) -> np.ndarray:
         images = torch.as_tensor(images)
         out = []
         for s in range(0, len(images), batch):
-            x = images[s:s + batch].to(device, dtype)
-            out.append(model(fid_preprocess(x)).float().cpu().numpy())
+            x = images[s:s + batch].to(device, torch.float32)
+            out.append(model(fid_preprocess(x)).cpu().numpy())
         return np.concatenate(out)
 
     activations.model = model

@@ -30,10 +30,12 @@ from .generation import Noise, sample_from_conditional
 
 
 def classify_latent(z_train, t_train, z_test, t_test, generator: Optional[torch.Generator] = None,
-                    device="cuda") -> float:
+                    device="cpu") -> float:
     """The hinge-loss SGD probe's accuracy (multi_vaes.py:160-164): fit on
     (z_train, t_train), scored on (z_test, t_test), on `device`, its
-    shuffles from `generator` (default seed 0)."""
+    shuffles from `generator` (default seed 0). The probe steps once per
+    sample, a few small operations each, so it runs on the host: on the
+    card every step is a handful of launches (PERF.md §5)."""
     from .linear import SGDClassifier
 
     z = [np.asarray(torch.as_tensor(a).detach().cpu()) for a in (z_train, z_test)]
@@ -91,7 +93,7 @@ def analyse(model, data, classes, noise: Noise, run_path: str, epoch: int,
     metrics = {}
     if train_latents is not None:
         metrics["latent_acc"] = classify_latent(train_latents[0], train_latents[1], zxy,
-                                                classes[0], generator=generator, device=device)
+                                                classes[0], generator=generator)
     zxy, zx0 = (z.detach().cpu().numpy() for z in (zxy, zx[0]))
     plot_embeddings_colorbars(reduce_latents(zxy, device=device), reduce_latents(zx0, device=device),
                               classes[0], classes[1],

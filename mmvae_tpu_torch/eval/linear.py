@@ -36,6 +36,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+# scikit-learn's defaults, the only settings the probes use: LinearSVC's
+# C and intercept_scaling (its max_iter caps the Newton steps here), and
+# SGDClassifier's alpha, max_iter, tol and n_iter_no_change
+SVC_C = 1.0
+SVC_INTERCEPT_SCALING = 1.0
+SVC_MAX_ITER = 1000
+SGD_ALPHA = 1e-4
+SGD_MAX_ITER = 1000
+SGD_TOL = 1e-3
+SGD_N_ITER_NO_CHANGE = 5
+
 
 class _Linear:
     """`coef_` (k, d), `intercept_` (k,), `classes_`; k is 1 for two classes."""
@@ -83,20 +94,15 @@ class _Linear:
 
 class LinearSVC(_Linear):
     """scikit-learn's LinearSVC at its defaults (C 1, squared hinge, L2,
-    intercept_scaling 1, one-vs-rest), solved exactly; `max_iter` caps the
-    Newton steps. `n_iter_`: the steps the fit took."""
-
-    def __init__(self, C: float = 1.0, intercept_scaling: float = 1.0, max_iter: int = 1000,
-                 device="cuda"):
-        super().__init__(device)
-        self.C, self.intercept_scaling, self.max_iter = C, intercept_scaling, max_iter
+    intercept_scaling 1, one-vs-rest), solved exactly in at most
+    SVC_MAX_ITER Newton steps. `n_iter_`: the steps the fit took."""
 
     def fit(self, X, y) -> "LinearSVC":
         x = self._x(X)
-        x = torch.cat([x, x.new_full((len(x), 1), self.intercept_scaling)], 1)
+        x = torch.cat([x, x.new_full((len(x), 1), SVC_INTERCEPT_SCALING)], 1)
         t = self._targets(y)
-        w, self.n_iter_ = _sq_hinge_newton(x, t, self.C, self.max_iter)
-        self._w, self._b = w[:, :-1], w[:, -1] * self.intercept_scaling
+        w, self.n_iter_ = _sq_hinge_newton(x, t, SVC_C, SVC_MAX_ITER)
+        self._w, self._b = w[:, :-1], w[:, -1] * SVC_INTERCEPT_SCALING
         return self
 
 
@@ -143,19 +149,15 @@ class SGDClassifier(_Linear):
     epoch by `generator` (a CPU torch.Generator; default seed 0).
     `n_iter_`: the epochs of the class that ran longest."""
 
-    def __init__(self, alpha: float = 1e-4, max_iter: int = 1000, tol: Optional[float] = 1e-3,
-                 n_iter_no_change: int = 5, generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+    def __init__(self, generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__(device)
-        self.alpha, self.max_iter, self.tol = alpha, max_iter, tol
-        self.n_iter_no_change = n_iter_no_change
         self.generator = generator or torch.Generator().manual_seed(0)
 
     def fit(self, X, y) -> "SGDClassifier":
         x = self._x(X)
         t = self._targets(y)  # (k, n)
         k, (n, d) = t.shape[0], x.shape
-        alpha = self.alpha
+        alpha = SGD_ALPHA
         # Bottou's heuristic for the first step (sgd_fast.pyx): for the hinge
         # |dloss(-typw, 1)| = 1, so eta0 = typw
         typw = math.sqrt(1.0 / math.sqrt(alpha))
@@ -165,7 +167,7 @@ class SGDClassifier(_Linear):
         best = torch.full((k,), math.inf, dtype=torch.float64, device=self.device)
         stale = torch.zeros(k, dtype=torch.int64, device=self.device)
         step, epochs = 1, 0
-        for epoch in range(self.max_iter):
+        for epoch in range(SGD_MAX_ITER):
             order = torch.randperm(n, generator=self.generator).to(self.device)
             xs, ts = x[order], t[:, order]
             live = running.to(x.dtype)
@@ -182,10 +184,9 @@ class SGDClassifier(_Linear):
                 b.add_(update)
                 step += 1
             epochs = epoch + 1
-            if self.tol is not None:
-                stale = torch.where(loss > best - self.tol * n, stale + 1, 0)
+            stale = torch.where(loss > best - SGD_TOL * n, stale + 1, 0)
             best = torch.minimum(best, loss)
-            running &= stale < self.n_iter_no_change
+            running &= stale < SGD_N_ITER_NO_CHANGE
             if not bool(running.any()):
                 break
         self._w, self._b, self.n_iter_ = w, b, epochs

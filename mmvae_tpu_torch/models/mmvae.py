@@ -10,11 +10,12 @@ Samplers take one noise tensor per modality, `noise=[n_0, n_1, ...]`, of
 the posterior family's kind (uniform u for "laplace", standard-normal eps
 for "normal"; core/distributions.py), or draw it from `generator`.
 
-`k_split` (None, or a `parallel.KSplit`) cuts the IWAE sample axis over the
-mesh's 'k' ranks, as JAX's `zss_sharding` does (mmvae_tpu/models/mmvae.py:
-30,55-60), where n_k divides K: each rank draws and decodes only its
-K / n_k samples, and the objectives gather the log-weights over K. JAX's
-dry run sets it (__graft_entry__.py:96); the train CLI never does.
+`k_split` (None, or a mesh from `parallel.split_k`, which the Trainer
+hands it) cuts the IWAE sample axis over the mesh's 'k' ranks, as JAX's
+`zss_sharding` does (mmvae_tpu/models/mmvae.py:30,55-60), where n_k
+divides K: each rank draws and decodes only its K / n_k samples, and the
+objectives gather the log-weights over K. JAX's dry run sets it
+(__graft_entry__.py:96); the train CLI never does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 
 from ..core import distributions as D
 from ..core.distributions import LocScale
+from ..parallel.mesh import k_split_of
 from .vae import UnimodalVAE, encoder_posteriors
 
 
@@ -54,7 +56,7 @@ class MMVAE(nn.Module):
         cut of K draws from `generator`, which the k ranks of a data index
         share, so that together they hold the global K."""
         qz_params = self.encode_all(x)
-        split = self.k_split if self.k_split is not None and self.k_split.applies(K) else None
+        split = k_split_of(self, K)
         zss = []
         for m, (mu, std) in enumerate(qz_params):
             n = None if noise is None else noise[m]
@@ -63,7 +65,7 @@ class MMVAE(nn.Module):
                 k = K // split.n_k
                 if n is None:
                     n = D.draw_noise(self.posterior, (K,) + mu.shape, generator, mu.device,
-                                     mu.dtype)[split.samples(K)]
+                                     mu.dtype)[split.k_samples(K)]
             zss.append(D.sample(self.posterior, LocScale(mu, std), (k,), noise=n,
                                 generator=generator))
         return qz_params, torch.stack(zss)

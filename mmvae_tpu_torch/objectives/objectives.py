@@ -31,6 +31,7 @@ from ..core import distributions as D
 from ..core.distributions import LocScale
 from ..core.math import log_mean_exp
 from ..nets.conv import batchnorm_stats
+from ..parallel.mesh import k_split_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,24 +209,16 @@ def _m_lws(x, spec: ModelSpec, qz_params, zss, recons, detach_post: bool):
     return torch.stack(lws)
 
 
-def _k_split(model, K):
-    """The model's K split (MMVAE.k_split) where it applies to K, else None:
-    the model then drew only this rank's K / n_k samples, and every
-    reduction over K reads all the k ranks' log-weights."""
-    split = getattr(model, "k_split", None)
-    return split if split is not None and split.applies(K) else None
-
-
 def _iwae_lws(model, x, spec: ModelSpec, K, noise, generator):
     """The IWAE log-weights over all K, (M, K, B), and the share of the
     objective this rank holds (1 / n_k under a K split, whose gather
     passes each rank its part of the gradient)."""
     out = model(x, K=K, noise=noise, generator=generator)
     lws = _m_lws(x, spec, out["qz_params"], out["zss"], out["recons"], False)
-    split = _k_split(model, K)
+    split = k_split_of(model, K)
     if split is None:
         return lws, 1.0
-    return split.gather(lws, 1), 1.0 / split.n_k
+    return split.gather_k(lws, 1), 1.0 / split.n_k
 
 
 def m_iwae(model, x, spec: ModelSpec, K=1, noise=None, generator=None, **kw):
@@ -248,9 +241,9 @@ def _m_dreg(model, x, spec: ModelSpec, K, looser: bool, noise, generator):
     qz_params, zss = model.encode_and_sample(x, K=K, noise=noise, generator=generator)
     recons = model.decode_cross(zss)
     lws = _m_lws(x, spec, qz_params, zss, recons, detach_post=True)
-    split = _k_split(model, K)
+    split = k_split_of(model, K)
     with torch.no_grad():
-        full = lws if split is None else split.gather(lws, 1)
+        full = lws if split is None else split.gather_k(lws, 1)
         if looser:
             # softmax over K per (modality, batch) (objectives.py:435)
             w = torch.softmax(full, dim=1)
@@ -259,7 +252,7 @@ def _m_dreg(model, x, spec: ModelSpec, K, looser: bool, noise, generator):
             m, k, b = full.shape
             w = torch.softmax(full.reshape(m * k, b), dim=0).reshape(m, k, b)
         if split is not None:
-            w = w[:, split.samples(K)]
+            w = w[:, split.k_samples(K)]
     if zss.requires_grad:
         # the z-gradient additionally scaled by w (objectives.py:401, 437)
         zss.register_hook(lambda g: g * w[..., None])

@@ -1,2 +1,2 @@
-from .mesh import (Block, KSplit, Mesh, SINGLE, batch_stats_over, make_mesh,  # noqa: F401
+from .mesh import (Block, Mesh, SINGLE, batch_stats_over, k_split_of, make_mesh,  # noqa: F401
                    rank_seed, replicate, shard_batch, split_k)

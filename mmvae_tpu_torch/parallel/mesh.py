@@ -10,8 +10,9 @@ JAX reshapes its device list, so rank r holds data index r // n_k:
   and data index i takes block i (JAX's P("data") sharding); a ragged one
   is replicated, every rank taking all of it (`shard_batch`);
 - 'k' replicates under the train CLI, as in the JAX package; only JAX's dry
-  run shards the IWAE samples over 'k', and so does `split_k` here (a
-  `KSplit`, which MMVAE and its objectives read);
+  run shards the IWAE samples over 'k', and so does the mesh that `split_k`
+  returns here (the Trainer hands it to MMVAE, whose sampler and
+  objectives read `k_split_of`);
 - the objectives are batch sums, so the gradient of the global batch is
   the sum of the ranks' gradients over the ranks that hold distinct rows:
   the Trainer all-reduces (sums) over the world and divides by the number
@@ -28,7 +29,7 @@ from __future__ import annotations
 import datetime
 import os
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -40,7 +41,10 @@ from torch import nn
 class Mesh:
     """This process's place in the (n_data, n_k) layout. `collective`: a
     process group was set up (the program runs under a launcher), so the
-    Trainer reduces over it, at a world of 1 too."""
+    Trainer reduces over it, at a world of 1 too. `k_group`: the k ranks of
+    this rank's data index, set by `split_k`: the mesh then cuts the IWAE
+    sample axis K over them (JAX's MMVAE.zss_sharding, P(None, "k",
+    "data")) wherever n_k divides K (`splits`)."""
 
     n_data: int = 1
     n_k: int = 1
@@ -48,6 +52,7 @@ class Mesh:
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
     collective: bool = False
+    k_group: object = None
 
     @property
     def world(self) -> int:
@@ -67,10 +72,36 @@ class Mesh:
         start = self.data_index * size
         return Block(self, start, start + size, rows)
 
-    def holders(self, block: Optional["Block"]) -> int:
-        """How many ranks hold each row of a batch: the k replicas of its
-        data index when sharded, every rank when replicated."""
-        return self.n_k if block is not None else self.world
+    def holders(self, block: Optional["Block"], K: int) -> int:
+        """How many ranks' shares make up each row's objective once, for K
+        IWAE samples: the k replicas of its data index when sharded, every
+        rank when replicated; under the K split the k ranks hold different
+        samples, so 1 when sharded and n_data when replicated."""
+        k = 1 if self.splits(K) else self.n_k
+        return k if block is not None else k * self.n_data
+
+    # the K split over 'k'
+
+    def splits(self, K: int) -> bool:
+        """The K split holds: a k group, and n_k dividing K (JAX's guard)."""
+        return self.k_group is not None and self.n_k > 1 and K % self.n_k == 0
+
+    def k_samples(self, K: int) -> slice:
+        """Under the K split, this rank's samples of the K: k index i holds
+        [i K / n_k, (i + 1) K / n_k)."""
+        size = K // self.n_k
+        i = self.rank % self.n_k
+        return slice(i * size, (i + 1) * size)
+
+    def gather_k(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every k rank's `t` (this data index's), concatenated in k order
+        along `dim`, differentiably: the backward sums the upstream
+        gradients over the k ranks and hands each its own slice, so that a
+        share computed on the gathered tensor passes its part of the
+        gradient to every rank's samples. The shares and their gradients
+        sum over the k ranks to the one-device objective and gradient of
+        the data block."""
+        return _KGather.apply(t, dim, self.k_group, self.n_k, self.rank % self.n_k)
 
     # collectives over the whole world; each is a no-op without a group
 
@@ -134,49 +165,6 @@ class _WorldSum(torch.autograd.Function):
         return grad
 
 
-@dataclass(frozen=True)
-class KSplit:
-    """The IWAE sample axis K cut over the 'k' ranks of each data index
-    (JAX's MMVAE.zss_sharding, P(None, "k", "data")): where n_k divides K,
-    the rank of k index i holds samples [i K / n_k, (i + 1) K / n_k). The
-    objectives' reductions over K read every k rank's log-weights through
-    `gather`. Each rank's objective is then its share of the global one:
-    the shares and their gradients sum over the k ranks to the one-device
-    objective and gradient of the data block, so the Trainer divides by
-    `holders`, not by n_k."""
-
-    mesh: Mesh
-    group: object = None  # the k ranks of this rank's data index
-
-    @property
-    def n_k(self) -> int:
-        return self.mesh.n_k
-
-    def applies(self, K: int) -> bool:
-        """JAX's guard: the split holds only where n_k divides K."""
-        return self.n_k > 1 and K % self.n_k == 0
-
-    def samples(self, K: int) -> slice:
-        """This rank's samples of the K."""
-        size = K // self.n_k
-        i = self.mesh.rank % self.n_k
-        return slice(i * size, (i + 1) * size)
-
-    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every k rank's `t` (this data index's), concatenated in k order
-        along `dim`, differentiably: the backward sums the upstream
-        gradients over the k ranks and hands each its own slice, so that a
-        share computed on the gathered tensor passes its part of the
-        gradient to every rank's samples."""
-        return _KGather.apply(t, dim, self.group, self.n_k, self.mesh.rank % self.n_k)
-
-    def holders(self, block: Optional["Block"]) -> int:
-        """How many ranks' shares make up each row's objective once: 1 for
-        a sharded batch (the k ranks hold different samples), n_data for a
-        replicated one (every data index holds every row)."""
-        return 1 if block is not None else self.mesh.n_data
-
-
 class _KGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, dim, group, n, index):
@@ -192,18 +180,27 @@ class _KGather(torch.autograd.Function):
         return grad.tensor_split(ctx.n, ctx.dim)[ctx.index], None, None, None, None
 
 
-def split_k(mesh: Mesh) -> Optional[KSplit]:
-    """The K split of `mesh`, its k groups made with
+def split_k(mesh: Mesh) -> Mesh:
+    """`mesh` cutting K over its 'k' ranks: with its k group, made with
     torch.distributed.new_group (a collective: every rank calls it, in the
-    same order); None for one k index or no process group."""
+    same order). `mesh` itself for one k index or no process group."""
     if not mesh.collective or mesh.n_k == 1:
-        return None
+        return mesh
     mine = None
     for d in range(mesh.n_data):
         group = torch.distributed.new_group(list(range(d * mesh.n_k, (d + 1) * mesh.n_k)))
         if d == mesh.data_index:
             mine = group
-    return KSplit(mesh, mine)
+    return replace(mesh, k_group=mine)
+
+
+def k_split_of(model, K: int) -> Optional[Mesh]:
+    """The mesh that cuts `model`'s K samples over 'k' (MMVAE.k_split) where
+    it splits this K, else None: the model then draws only this rank's
+    K / n_k samples, and every reduction over K reads all the k ranks'
+    log-weights."""
+    mesh = getattr(model, "k_split", None)
+    return mesh if mesh is not None and mesh.splits(K) else None
 
 
 def make_mesh(n_data: Optional[int] = None, n_k: int = 1, device="cuda",

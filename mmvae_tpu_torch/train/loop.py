@@ -58,6 +58,11 @@ class Trainer:
         self.mesh = mesh if mesh is not None else mesh_lib.SINGLE
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        if self.mesh.k_group is not None:  # a mesh from split_k: MMVAE cuts K over 'k'
+            if not hasattr(model, "k_split"):
+                raise ValueError(f"the K split over 'k' is MMVAE's; {type(model).__name__} "
+                                 "replicates K")
+            model.k_split = self.mesh
         self.spec = spec
         self.cfg = cfg
         self.run_path = run_path
@@ -165,18 +170,9 @@ class Trainer:
         flat = self.mesh.all_sum_(torch.cat(flat))
         if finite is not None:
             finite, flat = flat[-1] == 0, flat[:-1]
-        flat = flat / self._holders(block)
+        flat = flat / self.mesh.holders(block, self.cfg.K)
         return [g.view_as(p) for g, p in zip(flat.split([g.numel() for g in grads]), grads)], \
             finite
-
-    def _holders(self, block):
-        """The ranks whose losses and gradients make up each row's once:
-        the mesh's holders, or the model's K split's where it applies
-        (MMVAE.k_split: the k ranks hold different samples)."""
-        split = getattr(self.model, "k_split", None)
-        if split is not None and split.applies(self.cfg.K):
-            return split.holders(block)
-        return self.mesh.holders(block)
 
     @torch.no_grad()
     def eval_step(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None, generator=None,
@@ -204,7 +200,7 @@ class Trainer:
         for xs, block in batches:
             loss, details = step(xs, block)
             if self.mesh.collective:
-                w = 1.0 / self._holders(block)
+                w = 1.0 / self.mesh.holders(block, self.cfg.K)
                 loss, details = loss * w, {k: v * w for k, v in details.items()}
             total = loss if total is None else total + loss
             for k, v in details.items():

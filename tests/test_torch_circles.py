@@ -41,6 +41,7 @@ from mmvae_tpu_torch.data.device_pipeline import from_array_loader
 from mmvae_tpu_torch.eval import classifiers as Cl
 from mmvae_tpu_torch.flows.made import build_masks
 from mmvae_tpu_torch.models import registry
+from mmvae_tpu_torch.nets.conv import init_parameters
 from mmvae_tpu_torch.objectives import objectives as pobj
 from mmvae_tpu_torch.ops import ar_flow
 
@@ -68,19 +69,14 @@ def _flat(tree, prefix=()):
 
 @pytest.fixture(scope="module")
 def models():
-    """{family: (JAX bundle, float32 numpy params)} of the two circles configs."""
+    """{family: (JAX bundle, float32 numpy params)} of the two circles configs:
+    the port's initial weights (seed 0) in JAX's layout (JAX's init runs op
+    by op for 15 s and compiles for longer; tests/test_torch_msf.py)."""
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_ar, "ar_solve", jax_ar.unrolled_solve)  # init needs shapes only
-        for fam, path in CONFIGS.items():
-            jb = jreg.build(JCfg.from_json(path))
-            xs = [jnp.zeros((2,) + SHAPE)] * 2
-            method = "init_all" if fam == "jnf" else None
-            # op by op: compiling the init costs more than running it
-            params = jb.model.init({"params": jax.random.PRNGKey(0),
-                                    "sample": jax.random.PRNGKey(0)}, xs, K=1,
-                                   method=method)["params"]
-            out[fam] = (jb, jax.tree.map(np.asarray, params))
+    for fam, path in CONFIGS.items():
+        bundle = registry.build(ExperimentConfig.from_json(path))
+        init_parameters(bundle.model, torch.Generator().manual_seed(0))
+        out[fam] = (jreg.build(JCfg.from_json(path)), export_jax_params(bundle.model))
     return out
 
 
@@ -223,8 +219,9 @@ def test_mmvae_dreg_matches_jax(models, monkeypatch, dtype):
     _inject(monkeypatch, eps)
     with _jax_dtype(dtype, monkeypatch):
         v = {"params": jax.tree.map(lambda a: jnp.asarray(a, dtype), models["mmvae"][1])}
-        out = jobj.m_dreg(jb.model, v, [jnp.asarray(x) for x in xs], jax.random.PRNGKey(3),
-                          jb.spec, K=k)
+        # jitted: op by op the float64 conv gradients take twice as long
+        out = jax.jit(lambda v, xs: jobj.m_dreg(jb.model, v, xs, jax.random.PRNGKey(3), jb.spec,
+                                                K=k))(v, [jnp.asarray(x) for x in xs])
         j_obj, j_grads = float(out[0]), dict(_flat(out[3]))
     bundle = _port(models, "mmvae", dtype)
     assert pobj.resolve("dreg", True, False)[0] == "m_dreg"

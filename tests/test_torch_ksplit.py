@@ -77,22 +77,21 @@ def _rank(rank, store, n_data, n_k, out_dir):
     from mmvae_tpu_torch.parallel import make_mesh, shard_batch, split_k
     from mmvae_tpu_torch.train import Trainer
 
-    mesh = make_mesh(n_data, n_k, device="cpu", init_method=store_method(store),
-                     timeout=RANK_TIMEOUT)
-    split = split_k(mesh)
+    mesh = split_k(make_mesh(n_data, n_k, device="cpu", init_method=store_method(store),
+                             timeout=RANK_TIMEOUT))
     out = {}
     for obj, looser, K in cases():
         cfg, bundle = port_model(obj, looser, K)
-        bundle.model.k_split = split
         trainer = Trainer(bundle.model, bundle.spec, cfg, device="cpu", mesh=mesh)
         xs, noise = inputs(K)
         xs, block = shard_batch(mesh, [torch.tensor(x) for x in xs])
-        ks = split.samples(K) if split.applies(K) else slice(None)
+        ks = mesh.k_samples(K) if mesh.splits(K) else slice(None)
         rows = slice(None) if block is None else slice(block.start, block.stop)
         noise = [torch.tensor(u)[ks, rows] for u in noise]
         loss, _, grads, _ = trainer.loss_and_grads(xs, noise=noise, block=block)
         out[obj, looser, K] = dict(loss=loss.item(), grads=grads,
-                                   applies=split.applies(K), holders=trainer._holders(block))
+                                   applies=mesh.splits(K), holders=mesh.holders(block, K),
+                                   handed=bundle.model.k_split is mesh)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -165,7 +164,7 @@ def test_k_split_step_matches_jax_f64(steps, mesh, case):
     n_data, n_k = mesh
     j_loss, j_grads = jax_steps[case]
     split = case[2] % n_k == 0
-    assert all(r["applies"] == split for r in per_rank)
+    assert all(r["applies"] == split and r["handed"] for r in per_rank)
     # the split: each rank a share of its rows' objective; no split: the k
     # replicas alike
     assert all(r["holders"] == (1 if split else n_k) for r in per_rank)

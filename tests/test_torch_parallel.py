@@ -43,7 +43,8 @@ def test_shard_batch_matches_jax(n_data, n_k, rows):
         (ours,), block = shard_batch(mesh, [torch.arange(rows)])
         np.testing.assert_array_equal(ours.numpy(), want)
         assert (block is None) == ragged
-        assert mesh.holders(block) == (n_data * n_k if ragged else n_k)
+        # no k group: 'k' replicates at any K, n_k dividing it too
+        assert mesh.holders(block, K=n_k) == (n_data * n_k if ragged else n_k)
         if block is not None:
             assert (block.start, block.stop, block.rows) == (int(want[0]), int(want[-1]) + 1, rows)
 

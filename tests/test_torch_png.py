@@ -1,8 +1,9 @@
 """The port's PNG reader (mmvae_tpu_torch/data/png.py), which reads CelebA
-on the card's machine without PIL, against PIL on this box: PIL-written
-files of each mode it takes (gray, gray+alpha, RGB, RGBA), files whose
-scanlines carry each of the five filters, the port's own writer's files,
-and the refusals (16-bit, palette, interlaced, a broken CRC)."""
+without PIL, against PIL: PIL-written files of each mode it takes (gray,
+gray+alpha, RGB, RGBA), files whose scanlines carry each of the five
+filters, files of several shapes and filter sequences decoded together
+(`read_pngs`), the port's own writer's files, and the refusals (16-bit,
+palette, interlaced, a broken CRC)."""
 
 import struct
 import zlib
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from mmvae_tpu_torch.data.png import read_png
+from mmvae_tpu_torch.data.png import read_png, read_pngs
 from mmvae_tpu_torch.vis import write_png
 
 MODES = {"L": (), "LA": (2,), "RGB": (3,), "RGBA": (4,)}
@@ -91,6 +92,38 @@ def test_each_filter(mode, kinds, tmp_path):
         np.testing.assert_array_equal(np.asarray(im), img)
 
 
+def test_files_decoded_together(tmp_path):
+    """Files of one shape and mode decode in one pass (`read_pngs`), each row
+    under its own filter: PIL-written RGB crops with adaptive filtering,
+    hand-made files whose rows rotate through the five filters from
+    different offsets, and files of other shapes and modes between them, in
+    the order given."""
+    paths, want = [], []
+    for j in range(12):
+        if j % 3 == 0:
+            img = _image("RGB", h=64, w=64, seed=10 + j)
+            path = tmp_path / f"pil{j}.png"
+            Image.fromarray(img, "RGB").save(path)
+        else:
+            mode = "RGB" if j % 3 == 1 else ("L", "LA", "RGBA")[j % 9 // 3]
+            img = _image(mode, h=64 if mode == "RGB" else 29, w=64 if mode == "RGB" else 33,
+                         seed=10 + j)
+            h, w = img.shape[:2]
+            bpp = 1 if img.ndim == 2 else img.shape[2]
+            kinds = tuple((k + j) % 5 for k in range(5))
+            path = tmp_path / f"hand{j}.png"
+            path.write_bytes(_png(w, h, 8, COLOR_TYPES[mode],
+                                  _filtered(img.reshape(h, -1), kinds, bpp)))
+        paths.append(str(path))
+        want.append(img)
+    got = read_pngs(paths)
+    assert len(got) == len(want)
+    for path, g, w in zip(paths, got, want):
+        np.testing.assert_array_equal(g, w)
+        with Image.open(path) as im:
+            np.testing.assert_array_equal(g, np.asarray(im))
+
+
 @pytest.mark.parametrize("shape", [(64, 64), (64, 64, 3)])
 def test_the_ports_own_writer(shape, tmp_path):
     img = np.random.default_rng(2).integers(0, 256, size=shape, dtype=np.uint8)
@@ -118,6 +151,10 @@ def test_refusals_name_what_they_met(tmp_path):
     (tmp_path / "crc.png").write_bytes(broken)
     with pytest.raises(ValueError, match="CRC"):
         read_png(str(tmp_path / "crc.png"))
+    bad_filter = _png(4, 4, 8, 0, b"".join(b"\x05" + bytes(4) for _ in range(4)))
+    (tmp_path / "filter.png").write_bytes(bad_filter)
+    with pytest.raises(ValueError, match="filter type 5"):
+        read_png(str(tmp_path / "filter.png"))
     (tmp_path / "not.png").write_bytes(b"GIF89a")
     with pytest.raises(ValueError, match="not a PNG"):
         read_png(str(tmp_path / "not.png"))

@@ -13,14 +13,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel against `unrolled_solve` at N=128 and 3840, and at evaluation's
    rows: 500 (a coherence batch) and 10,000 (one IS call, 100 datapoints x
    100 samples), there also through the Function under no_grad (one
-   launch, no tape); the backward kernel
-   (with the wrapper's reduction) against autograd through `unrolled_solve`
-   at N=128, 37 and 3840, for x, every weight and every bias, on the
-   forward kernel's hidden ReLU branches (`_check_backward`). Kernel times
+   launch, no tape); the backward (its two launches: the reverse chain,
+   which sums each block's weight and bias gradients, and the sum of the
+   blocks' partial sums) against autograd through `unrolled_solve` at
+   N=128, 37 and 3840, for x, every weight and every bias, on the forward
+   kernel's hidden ReLU branches, three states each (`_check_backward`),
+   and a second backward call bitwise equal to the first. Kernel times
    are device times (CUDA events around 20 back-to-back launches queued
    behind a device-side wait, median of 9 runs); the backward's time is the
-   backward as the Function runs it, the kernel and the wrapper's reduction,
-   with the kernel alone beside it. Plain times, and the kernels' call
+   backward as the Function runs it, both launches, with the chain
+   kernel's own device time beside it (torch.profiler). Plain times, and the kernels' call
    times with the wrapper's host work, are events around 10 back-to-back
    calls (median of 20 runs). At N=128 both kernels are timed at sign -1
    too (IAF's density direction). Then the bounds, and forward+backward
@@ -29,8 +31,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    37, 120, 1,000 and 10,000, the backward at N=128 and 37, both signs,
    s_bound 0 and 8, and their times and bounds. Then both at D=16
    (MedMNIST) and D=64 (CelebA; phase_ar_solve_latent64): the forward at
-   N=128, 256 and 7,680 (CelebA MMVAE-NF's K*B), the backward at N=128 and
-   256, both signs, s_bound 0 and 8, their times and bounds.
+   N=128, 256, 7,680 (K*B of CelebA MMVAE-NF, whose solves run at B=256)
+   and 10,000, the backward at N=128, 256 and 7,680, both signs, s_bound
+   0 and 8, their times and bounds. Then
+   ar_solve_ties: D=64, 7,680 rows at MADE's zero initial biases, at
+   inputs where hidden units sit exactly at the ReLU's tie past step 0,
+   so that the ties carry gradient (JAX's slope 1/2): the backward against
+   its plain version, against that version at slope 0 at the ties (which
+   it must miss), with the count of tied units past step 0.
 4. slice: one full-width MMVAE-NF epoch on MNIST-SVHN through the port's
    CLI (`mmvae_tpu_torch.cli.train.main`, device cuda, with the config's
    analytics, phase 16): 68 train steps and
@@ -256,6 +264,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -419,12 +428,21 @@ def vjp_flops(n, d, h, n_hidden):
     gradients, sums over rows and steps of outer products of each step's
     layer inputs and deltas. Step 0's delta reaches the head's biases
     alone; each other step adds the hidden layers in full and the head's
-    two nonzero delta columns; the first layer has i nonzero inputs at step
-    i (n*h*d*(d-1) in all). Then the bias sums: the hidden biases over the
-    D-1 steps, the head's 2D over all."""
-    weights = 2 * n * (d - 1) * ((n_hidden - 1) * h * h + 2 * h) + n * h * d * (d - 1)
+    two nonzero delta columns; the first layer's gradient row i is the
+    rank-1 form y_i * dsum (2*n*h a row i < D-1, where the outer products
+    of its i nonzero inputs at step i take n*h*d*(d-1)). Then the bias sums: the
+    hidden biases over the D-1 steps, the head's 2D over all."""
+    weights = 2 * n * (d - 1) * ((n_hidden - 1) * h * h + 2 * h) + 2 * n * (d - 1) * h
     biases = n * ((d - 1) * n_hidden * h + 2 * d)
     return solve_flops(n, d, h, n_hidden) + weights + biases
+
+
+def vjp_bytes(n, d, n_w, n_b):
+    """Bytes of the whole VJP, as its plain version computes it: read once
+    x, y, gy, gld, the weights and biases; written once gx and every weight
+    and bias gradient. The tape and the blocks' partial sums are scratch of
+    this design, not counted."""
+    return 4 * (4 * n * d + n + 2 * (n_w + n_b))
 
 
 def bound(flops, n_bytes):
@@ -479,9 +497,9 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
     return lambda: torch.autograd.grad(outs, inputs, (gy, gld), retain_graph=True)
 
 
-def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld):
-    """The backward kernel with the wrapper's reduction against autograd
-    through `unrolled_solve`, for x, every weight and every bias; the
+def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False):
+    """The backward (both launches) against autograd through
+    `unrolled_solve`, for x, every weight and every bias; the
     reference takes the forward kernel's hidden ReLU branches
     (`_ReluBranches` replaying `_kernel_branches`), each one off its own
     branch within RELU_KINK_ATOL of 0: over thousands of rows the solve
@@ -489,16 +507,23 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld):
     within float32 round-off of 0 may take the other branch in either
     version, a jump in its row's gradient. Where no branch differs, that
     reference is autograd through `unrolled_solve` as it is; the error
-    against it on its own branches stands beside. Returns the max abs error."""
+    against it on its own branches stands beside, and the count of hidden
+    units that the kernel's tape holds exactly at the tie past step 0 (at
+    step 0 every unit at zero biases is tied, and no head column reads
+    one). A second backward call must give bitwise equal gradients. With
+    `tie_control`, the reference is replayed once more with slope 0 at the
+    ties (torch.relu's), and the kernel must miss that one past
+    KERNEL_RTOL/KERNEL_ATOL: the ties carry gradient, and the kernel takes
+    them at 1/2. Returns the max abs error."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
     tape = ar_flow.new_tape(x, ws)
     y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
     got = [gx, *gws, *gbs]
+    again = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
     own = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
     with _ReluBranches(replay=_kernel_branches(tape)) as rb:
         want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
@@ -506,11 +531,48 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld):
     if rb.flip_max_abs > RELU_KINK_ATOL:
         raise AssertionError(f"ar_solve forward kernel at {what}: a hidden ReLU off its "
                              f"branch at |x| = {rb.flip_max_abs}")
+    repeat = all(torch.equal(a, b) for a, b in zip(got, [again[0], *again[1], *again[2]]))
+    if not repeat:
+        raise AssertionError(f"ar_solve backward at {what}: two calls differ")
+    control = {}
+    if tie_control:
+        with _ReluBranches(replay=[c.masked_fill(c == 1, 0) for c in _kernel_branches(tape)]):
+            slope0 = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
+        control = dict(max_abs_err_at_tie_slope_0=max(
+            (a - b).abs().max().item() for a, b in zip(got, slope0)))
+        if all(torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+               for a, b in zip(got, slope0)):
+            raise AssertionError(f"ar_solve backward at {what}: slope 0 at the ties gives the "
+                                 f"same gradients; no tie carries gradient")
     return _check_close(dict(kernel="backward", **what, relu_flips=rb.flips,
                              relu_flip_max_abs=rb.flip_max_abs,
+                             ties_past_step_0=sum(int((z[1:] == 0).sum()) for z in tape.z),
+                             bitwise_repeat=repeat, **control,
                              max_abs_err_own_branches=max(
                                  (a - b).abs().max().item() for a, b in zip(got, own))),
                         list(zip(got, want)))
+
+
+def backward_kernel_ms(fn, reps=20):
+    """The device time per call of each of the backward's two kernels, the
+    reverse chain and the sum of the blocks' partial sums, from a
+    torch.profiler trace of `reps` calls: {"chain": ms, "sum": ms}, None
+    where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, name in (("chain", "ar_solve_backward_kernel"), ("sum", "ar_solve_sum_kernel")):
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages() if name in e.key)
+        out[key] = us / reps / 1e3 if us > 0 else None
+    return out
 
 
 def phase_ar_solve():
@@ -604,9 +666,9 @@ def phase_ar_solve():
               "bound_by": bound_by, "achieved_tflops": flops / (k_ms * 1e-3) / 1e12,
               "roofline_share": bound_ms / k_ms})
 
-    # at N=128: the recording forward, the backward kernel alone, its plain
-    # version, the backward with the reduction, and forward+backward
-    # through the Function
+    # at N=128: the recording forward, the backward (both launches, with
+    # the chain kernel's own time beside it), its plain version, and
+    # forward+backward through the Function
     n = 128
     x = torch.randn(n, d, generator=gen).cuda()
     gy = torch.randn(n, d, generator=gen).cuda()
@@ -614,43 +676,36 @@ def phase_ar_solve():
     tape = ar_flow.new_tape(x, ws)
     rec_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape))
     y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
-    b_ms = device_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
-    b_call_ms = cuda_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
 
-    def bwd_reduce():
-        _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
-        ar_flow.reduce_grads(tape, deltas)
+    def bwd():
+        ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
 
-    br_ms = device_time_ms(bwd_reduce)
+    b_ms = device_time_ms(bwd)
+    b_call_ms = cuda_time_ms(bwd)
+    split = backward_kernel_ms(bwd)
     pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-    # the function is the whole VJP, as its plain version computes it: read
-    # once x, y, gy, gld, the weights and biases; written once gx and every
-    # weight and bias gradient. The tape and the per-step deltas are scratch
-    # of this design, not counted.
-    b_flops = vjp_flops(n, d, h, n_hidden)
-    b_bytes = 4 * (4 * n * d + n + 2 * (n_w + n_b))
+    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
     b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
-    results["backward"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms, bound_ms=b_bound_ms,
-                               bound_by=b_bound_by)
-    emit({"phase": "ar_solve_time", "kernel": "backward", "n": n, "ms": br_ms,
-          "kernel_ms": b_ms, "kernel_call_ms": b_call_ms, "plain_ms": pb_ms,
-          "recording_forward_ms": rec_ms, "flops": b_flops, "bytes": b_bytes,
-          "bound_ms": b_bound_ms, "bound_by": b_bound_by, "roofline_share": b_bound_ms / br_ms})
+    results["backward"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
+                               bound_ms=b_bound_ms, bound_by=b_bound_by)
+    emit({"phase": "ar_solve_time", "kernel": "backward", "n": n, "ms": b_ms,
+          "kernel_ms": split["chain"], "sum_kernel_ms": split["sum"], "call_ms": b_call_ms,
+          "plain_ms": pb_ms, "recording_forward_ms": rec_ms, "flops": b_flops,
+          "bytes": b_bytes, "bound_ms": b_bound_ms, "bound_by": b_bound_by,
+          "roofline_share": b_bound_ms / b_ms})
 
     # the same at sign -1, IAF's density direction
     y_m, _ = ar_flow.kernel_forward(x, ws, bs, -1, 0.0, tape=tape)
 
-    def bwd_reduce_minus():
-        _, deltas = ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)
-        ar_flow.reduce_grads(tape, deltas)
+    def bwd_minus():
+        ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)
 
     with torch.no_grad():
         minus = dict(ms=device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, -1, 0.0)),
                      plain_ms=cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, -1, 0.0),
                                            rounds=5))
-    minus_bwd = dict(ms=device_time_ms(bwd_reduce_minus), kernel_ms=device_time_ms(
-        lambda: ar_flow.kernel_backward(x, y_m, gy, gld, tape, ws, -1, 0.0)),
-        plain_ms=cuda_time_ms(_plain_vjp(x, ws, bs, -1, 0.0, gy, gld), rounds=5))
+    minus_bwd = dict(ms=device_time_ms(bwd_minus), kernel_ms=backward_kernel_ms(bwd_minus)["chain"],
+                     plain_ms=cuda_time_ms(_plain_vjp(x, ws, bs, -1, 0.0, gy, gld), rounds=5))
     results["sign_minus_n128"] = dict(forward=minus, backward=minus_bwd)
     emit({"phase": "ar_solve_time", "sign": -1, "n": n, "forward": minus, "backward": minus_bwd,
           "forward_bound_ms": results[128]["bound_ms"], "backward_bound_ms": b_bound_ms})
@@ -687,7 +742,7 @@ def phase_ar_solve_latent2():
     2, 3 hidden layers of 128): the forward against `unrolled_solve` at
     N = 128, 37 (a ragged tile), 120 (HMC's start and the PoE figure's
     samples, 4 rows x 30 chains), 1,000 (neg_entropy's 100 rows x 10
-    samples) and 10,000 (an IS call); the backward with the reduction
+    samples) and 10,000 (an IS call); the backward (both launches)
     against autograd through `unrolled_solve` at N = 128 and 37; both
     signs, s_bound 0 and 8. Then their device times and bounds, as in
     phase ar_solve."""
@@ -739,20 +794,20 @@ def phase_ar_solve_latent2():
     tape = ar_flow.new_tape(x, ws)
     y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
 
-    def bwd_reduce():
-        _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
-        ar_flow.reduce_grads(tape, deltas)
+    def bwd():
+        ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
 
-    br_ms = device_time_ms(bwd_reduce)
-    b_ms = device_time_ms(lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+    b_ms = device_time_ms(bwd)
+    split = backward_kernel_ms(bwd)
     pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), 4 * (4 * n * d + n + 2 * (n_w + n_b))
+    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
     b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
-    results["backward_n128"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms,
+    results["backward_n128"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
                                     bound_ms=b_bound_ms, bound_by=b_bound_by)
-    emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": br_ms,
-          "kernel_ms": b_ms, "plain_ms": pb_ms, "flops": b_flops, "bytes": b_bytes,
-          "bound_ms": b_bound_ms, "bound_by": b_bound_by, "roofline_share": b_bound_ms / br_ms})
+    emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": b_ms,
+          "kernel_ms": split["chain"], "sum_kernel_ms": split["sum"], "plain_ms": pb_ms,
+          "flops": b_flops, "bytes": b_bytes, "bound_ms": b_bound_ms, "bound_by": b_bound_by,
+          "roofline_share": b_bound_ms / b_ms})
     return dict(results=results, errs=errs)
 
 
@@ -1307,12 +1362,24 @@ def phase_jnf_time(tmp, train_loader):
     return out
 
 
+def relu_branches(x, tie):
+    """The branch of each element of a ReLU's input as a code, uint8: 2
+    above 0, 0 below, and at an exact tie 1 where the ReLU's slope there is
+    1/2 (`tie`: the solve's `hidden_relu`, JAX's jnp.maximum) and 0 where
+    it is 0 (torch.relu). The slope is half the code."""
+    import torch
+
+    code = (x > 0).to(torch.uint8) * 2
+    return code + (x == 0).to(torch.uint8) if tie else code
+
+
 class _ReluBranches:
-    """`torch.relu` that records the branch (x > 0) of each call, or, given
-    a recording, takes each call's branch from it in call order: x times
-    the recorded mask, whose derivative is the mask. A float64 run under a
+    """`torch.relu` and the solve's `ar_flow.hidden_relu` that record the
+    branch of each call (`relu_branches`), or, given a recording, take each
+    call's branch from it in call order: x times the recorded slope (1,
+    1/2 or 0), whose derivative is that slope. A float64 run under a
     float32 run's recording differentiates the same piecewise-linear
-    function as that run. `flips` counts the elements taken on the other
+    function as that run. `flips` counts the elements taken on another
     branch than their own, and `flip_max_abs` is the largest |x| among them."""
 
     def __init__(self, replay=None):
@@ -1321,35 +1388,42 @@ class _ReluBranches:
     def __enter__(self):
         import torch
 
-        self._relu, torch.relu = torch.relu, self._call
+        from mmvae_tpu_torch.ops import ar_flow
+
+        self._relu, torch.relu = torch.relu, functools.partial(self._call, tie=False)
+        self._hidden = ar_flow.hidden_relu
+        ar_flow.hidden_relu = functools.partial(self._call, tie=True)
         return self
 
     def __exit__(self, *exc):
         import torch
 
-        torch.relu = self._relu
+        from mmvae_tpu_torch.ops import ar_flow
 
-    def _call(self, x):
-        own = x > 0
+        torch.relu, ar_flow.hidden_relu = self._relu, self._hidden
+
+    def _call(self, x, tie):
+        own = relu_branches(x, tie)
         if self.replay is None:
             self.masks.append(own.cpu())
-            return self._relu(x)
-        mask = self.replay[len(self.masks)].to(x.device)
-        self.masks.append(mask)
-        other = own != mask
+            return (self._hidden if tie else self._relu)(x)
+        code = self.replay[len(self.masks)].to(x.device)
+        self.masks.append(code)
+        other = own != code
         if other.any():
             self.flips += int(other.sum())
             self.flip_max_abs = max(self.flip_max_abs, x.detach()[other].abs().max().item())
-        return x * mask.to(x.dtype)
+        return x * (code.to(x.dtype) * 0.5)
 
 
 class _SolveBranches:
     """Inside a `_ReluBranches` recording on the card: the ar_solve kernels'
     hidden ReLUs recorded as the plain solve (`unrolled_solve`) would call
-    torch.relu on the CPU: at each forward launch with a tape, the branch of
-    every hidden unit at every step, step by step and layer by layer, read
-    from the tape (each layer's output after its ReLU); at each backward
-    launch the same again, since the CPU's backward re-runs the plain solve.
+    `hidden_relu` on the CPU: at each forward launch with a tape, the branch
+    of every hidden unit at every step, step by step and layer by layer,
+    read from the tape (each layer's pre-activation, three states); at each
+    backward call the same again, since the CPU's backward re-runs the
+    plain solve.
     A float64 CPU run replaying the recording then takes the kernels'
     branches as well."""
 
@@ -1381,8 +1455,7 @@ class _SolveBranches:
         ar_flow.kernel_forward, ar_flow._backward = self._fwd, self._bwd
 
     def _record(self, tape):
-        for i in range(tape.s.shape[0]):
-            self.relu.masks.extend((a[i] > 0).cpu() for a in tape.acts[1:])
+        self.relu.masks.extend(code.cpu() for code in _kernel_branches(tape))
 
 
 def _step_parity(tmp, config, n_noise, phase, overrides=None, align_relu=False,
@@ -2928,8 +3001,9 @@ CELEBA_LL_ROWS = 100
 # backward) and an importance-sampling call of the likelihoods (forward only)
 LATENT64_BWD_ROWS = (128, 256, 7_680)
 LATENT64_ROWS = LATENT64_BWD_ROWS + (EVAL_IS_ROWS,)
-# the backward is timed at a train step's rows and at MMVAE-NF's
-LATENT64_BWD_TIME_ROWS = (128, 7_680)
+# the backward is timed at a train step's rows, at CelebA MMVAE-NF's (its
+# solves run at B = 256 rows) and at K*B
+LATENT64_BWD_TIME_ROWS = (128, 256, 7_680)
 # the kernels at the trimodal latent 30: TELBO-NF's train step at B=256
 # (forward and backward) and HMC's start (32 x 8 rows), a validate batch
 # and an IS call (forward only)
@@ -2938,10 +3012,11 @@ LATENT30_ROWS = (256, 500, EVAL_IS_ROWS)
 
 
 def _kernel_branches(tape):
-    """The forward kernel's hidden ReLU branches, read from its tape (each
-    layer's input is the layer before's output after its ReLU), in the
-    order the plain solve calls torch.relu: step by step, layer by layer."""
-    return [a[i] > 0 for i in range(tape.s.shape[0]) for a in tape.acts[1:]]
+    """The forward kernel's hidden ReLU branches (`relu_branches` of the
+    solve's ReLU: above, at the tie, below), read from its tape of
+    pre-activations, in the order the plain solve calls `hidden_relu`: step
+    by step, layer by layer."""
+    return [relu_branches(z[i], tie=True) for i in range(tape.s.shape[0]) for z in tape.z]
 
 
 def phase_ar_solve_latent64():
@@ -2949,12 +3024,66 @@ def phase_ar_solve_latent64():
     widths [D, 128, 128, 128, 2D], where the first layer and the head are
     read per step from device memory (shared memory holds the two hidden
     128x128 layers only): the forward against `unrolled_solve` at N = 128,
-    256, 7,680 and 10,000, the backward with the reduction against autograd
+    256, 7,680 and 10,000, the backward (both launches) against autograd
     through it at N = 128, 256 and 7,680, both signs, s_bound 0 and 8; then
-    the forward's device time at each N and the backward's at N = 128 and
-    7,680, beside their plain versions and their bounds (`_ar_solve_at`)."""
+    the forward's device time at each N and the backward's at N = 128, 256
+    and 7,680, beside their plain versions and their bounds (`_ar_solve_at`)."""
     rows = (LATENT64_ROWS, LATENT64_BWD_ROWS, LATENT64_BWD_TIME_ROWS)
     return _ar_solve_at({16: rows, 64: rows})
+
+
+# MADE's zero initial biases at CelebA's latent 64, at K*B = 30*256 rows,
+# MMVAE-NF's K and B (its solves themselves run at B rows)
+TIES_D, TIES_ROWS = 64, 7_680
+
+
+def _tie_inputs(x, ws):
+    """(x, ws) at which MADE's zero-bias ties carry gradient past step 0. At
+    step 0 every hidden unit is tied, but no head column reads one. At zero
+    biases y_0 = x_0 (the head's columns 0 and D read no unit); here
+    y_0 = |x_0| > 0, and the first layer's degree-0 units, whose one input
+    is y_0, take negative weights. From step 1 on they are off, and every
+    degree-0 unit of the later hidden layers sits exactly at the tie, where
+    the head's columns past 0 read it."""
+    deg0 = (ws[0] != 0).sum(0) == 1
+    w0 = ws[0].clone()
+    w0[0, deg0] = -w0[0, deg0].abs()
+    x = x.clone()
+    x[:, 0] = x[:, 0].abs()
+    return x, [w0, *ws[1:]]
+
+
+def phase_ar_solve_ties():
+    """The backward at MADE's zero initial biases, D = 64, 7,680 rows, both
+    signs, at inputs where the ties carry gradient (`_tie_inputs`): the
+    kernels take JAX's slope 1/2 there. The backward against its plain
+    version on the kernel's branches, and against that version at slope 0
+    at the ties, which it must miss (`_check_backward`); the count of units
+    tied past step 0 in the tape, which must not be 0."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    gen = torch.Generator().manual_seed(TIES_D + 1)
+    ws, bs = _made_params(TIES_D, 128, 3, gen)
+    bs = [torch.zeros_like(b) for b in bs]
+    x, gy = (torch.randn(TIES_ROWS, TIES_D, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(TIES_ROWS, generator=gen).cuda()
+    x, ws = _tie_inputs(x, ws)
+    err = 0.0
+    for sign in (1, -1):
+        err = max(err, _check_backward(dict(d=TIES_D, n=TIES_ROWS, sign=sign, s_bound=0.0,
+                                            zero_biases=True), x, ws, bs, sign, 0.0, gy, gld,
+                                       tie_control=True))
+    tape = ar_flow.new_tape(x, ws)
+    ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
+    ties = [int((z[1:] == 0).sum()) for z in tape.z]
+    emit({"phase": "ar_solve_ties", "d": TIES_D, "n": TIES_ROWS,
+          "tied_units_past_step_0_by_layer": ties, "units_by_layer": tape.z[0].numel(),
+          "max_abs_err": err, "ok": sum(ties) > 0})
+    if sum(ties) == 0:
+        raise AssertionError("ar_solve_ties: no hidden unit tied past step 0")
+    return err
 
 
 def phase_ar_solve_latent30():
@@ -2970,7 +3099,7 @@ def phase_ar_solve_latent30():
 def _ar_solve_at(widths):
     """Both kernels at each D of `widths`, {D: (forward rows, backward rows,
     backward timed rows)}: the forward against `unrolled_solve` and the
-    backward with the reduction against autograd through it, both signs,
+    backward (both launches) against autograd through it, both signs,
     s_bound 0 and 8; then the forward's device time at each of its rows and
     the backward's at its timed rows, beside their plain versions and their
     bounds (D - 1 per-row passes, `solve_flops`, `vjp_flops`). The
@@ -3025,22 +3154,21 @@ def _ar_solve_at(widths):
             tape = ar_flow.new_tape(x, ws)
             y, _ = ar_flow.kernel_forward(x, ws, bs, 1, 0.0, tape=tape)
 
-            def bwd_reduce():
-                _, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
-                ar_flow.reduce_grads(tape, deltas)
+            def bwd():
+                ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0)
 
-            br_ms = device_time_ms(bwd_reduce)
-            b_ms = device_time_ms(
-                lambda: ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 0.0))
+            b_ms = device_time_ms(bwd)
+            split = backward_kernel_ms(bwd)
             pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-            b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), 4 * (4 * n * d + n + 2 * (n_w + n_b))
+            b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
             b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
-            res[f"backward_n{n}"] = dict(ms=br_ms, kernel_ms=b_ms, plain_ms=pb_ms,
+            res[f"backward_n{n}"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
                                          bound_ms=b_bound_ms, bound_by=b_bound_by)
-            emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": br_ms,
-                  "kernel_ms": b_ms, "plain_ms": pb_ms, "flops": b_flops, "bytes": b_bytes,
+            emit({"phase": "ar_solve_time", "kernel": "backward", "d": d, "n": n, "ms": b_ms,
+                  "kernel_ms": split["chain"], "sum_kernel_ms": split["sum"],
+                  "plain_ms": pb_ms, "flops": b_flops, "bytes": b_bytes,
                   "bound_ms": b_bound_ms, "bound_by": b_bound_by,
-                  "roofline_share": b_bound_ms / br_ms, "smem_bytes": smem["backward"]})
+                  "roofline_share": b_bound_ms / b_ms, "smem_bytes": smem["backward"]})
         out[d] = res
     return dict(results=out, errs=errs)
 
@@ -4565,6 +4693,7 @@ def main():
     solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
     solve64 = timed("ar_solve_latent64", phase_ar_solve_latent64)
     solve30 = timed("ar_solve_latent30", phase_ar_solve_latent30)
+    ties_err = timed("ar_solve_ties", phase_ar_solve_ties)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         sl = timed("slice", phase_slice, tmp)
@@ -4676,7 +4805,8 @@ def main():
               at_latent_30=bwd_at(at30),
               max_abs_err_at_latent_30=solve30["errs"][30]["backward"],
               at_latent_64=bwd_at(at64[64]),
-              max_abs_err_at_latent_64=solve64["errs"][64]["backward"])]})
+              max_abs_err_at_latent_64=solve64["errs"][64]["backward"],
+              max_abs_err_at_zero_biases_latent_64=ties_err)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

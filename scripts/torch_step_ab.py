@@ -8,12 +8,13 @@ within one run.
 
 Each (tree, config) runs in its own process, which imports
 `mmvae_tpu_torch` from that tree (an unpacked `git archive` of another
-commit, or the repo itself). The config runs at full width on the
-synthetic stand-in at synthetic_n=2048, as `chip_smoke.py` runs it, TF32
-off. A process builds the model from `--seed`, runs `--warmup` train steps,
-then times `--steps` steps on the host clock, ending in a synchronize,
-`--repeats` times, and prints one JSON line: the median and every repeat,
-with the card's name and power limit. A config the tree's registry does
+commit, or the repo itself). The config runs at full width on its model's
+dataset's synthetic stand-in at synthetic_n=2048, as `chip_smoke.py` runs
+it, TF32 off. A process builds the model from `--seed`, runs `--warmup`
+train steps, then times `--steps` steps on the host clock, ending in a
+synchronize, `--repeats` times, and prints one JSON line: the median and
+every repeat, and the peak device memory of the timed steps
+(`torch.cuda.max_memory_allocated`), with the card's name and power limit. A config the tree's registry does
 not know is reported as such. Needs a CUDA card; exits 1 without one.
 """
 
@@ -34,6 +35,7 @@ def measure(tree, config, seed, warmup, steps, repeats):
     import torch
 
     import mmvae_tpu_torch
+    from mmvae_tpu_torch.cli.common import loader_kwargs
     from mmvae_tpu_torch.core.config import ExperimentConfig
     from mmvae_tpu_torch.data import get_dataloaders
     from mmvae_tpu_torch.models import registry
@@ -49,8 +51,9 @@ def measure(tree, config, seed, warmup, steps, repeats):
     except NotImplementedError as e:
         return {**row, "skipped": str(e)}
     with tempfile.TemporaryDirectory() as data_dir:  # synthetic stand-in
-        train_loader, _, _ = get_dataloaders("mnist_svhn", batch_size=cfg.batch_size,
-                                             data_path=data_dir, synthetic_n=2048)
+        cfg.data_path = data_dir
+        kw = {**loader_kwargs(cfg, bundle.dataset), "synthetic_n": 2048}
+        train_loader, _, _ = get_dataloaders(bundle.dataset, batch_size=cfg.batch_size, **kw)
     trainer = Trainer(bundle.model, bundle.spec, cfg, device="cuda")
     trainer.init_parameters()
     trainer.init_opt_state()
@@ -60,6 +63,8 @@ def measure(tree, config, seed, warmup, steps, repeats):
                for i in range(warmup + steps)]
     for xs in batches[:warmup]:
         trainer.train_step(xs, cfg.learning_rate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -69,7 +74,8 @@ def measure(tree, config, seed, warmup, steps, repeats):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / steps * 1e3)
     return {**row, "train_step_ms": statistics.median(times), "repeats_ms": times,
-            "batch": cfg.batch_size, "K": cfg.K}
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "batch": cfg.batch_size,
+            "K": cfg.K}
 
 
 def main():

@@ -6,10 +6,14 @@ tensors runs the plain version) are held against JAX `unrolled_solve` and
 signs, s_bound 0 and 8, leading dims (K, B, D), and gradients with respect
 to x, every weight and every bias. Both sides are float32 on the CPU; they
 differ only in summation order, hence rtol/atol 1e-5 on values and 1e-4 on
-gradients. The Hopper kernel itself runs only on a CUDA card: its tests
+gradients; at MADE's zero initial biases, where hidden units sit exactly at
+the ReLU's tie and JAX's jnp.maximum passes half the gradient, both are
+float64 and agree to 1e-12. The Hopper kernel itself runs only on a CUDA card: its tests
 are marked `cuda` and live in tests/test_torch_cuda.py, which imports no
 JAX so that it runs on a machine with a card and no JAX stack.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -103,10 +107,10 @@ def test_gradients_match_jax(sign, s_bound):
 @pytest.mark.parametrize("sign", [-1, 1])
 @pytest.mark.parametrize("s_bound", [0.0, 8.0])
 def test_plain_reverse_chain_matches_jax(sign, s_bound):
-    """The backward kernel's algorithm on the CPU: the recording forward,
-    the reverse chain and the reduction give JAX's values and its gradients
-    for x, every weight and every bias; leading dims (K, B, D) flattened to
-    rows as `ar_solve` does."""
+    """The backward kernel's algorithm on the CPU: the recording forward and
+    the reverse chain, which sums the weight and bias gradients as it goes,
+    give JAX's values and its gradients for x, every weight and every bias;
+    leading dims (K, B, D) flattened to rows as `ar_solve` does."""
     ws, bs = _weights(8)
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 3, D)).astype(np.float32)
@@ -124,12 +128,73 @@ def test_plain_reverse_chain_matches_jax(sign, s_bound):
     y, ld, tape = ar_flow.plain_tape(x2, _t(ws), _t(bs), sign, s_bound)
     np.testing.assert_allclose(y.reshape(2, 3, D).numpy(), np.asarray(y_ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ld.reshape(2, 3).numpy(), np.asarray(ld_ref), rtol=1e-5, atol=1e-5)
-    gx, deltas = ar_flow.plain_backward(x2, y, torch.tensor(ry).reshape(-1, D),
-                                        torch.tensor(rld).reshape(-1), tape, _t(ws), sign,
-                                        s_bound)
-    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    gx, gws, gbs = ar_flow.plain_backward(x2, y, torch.tensor(ry).reshape(-1, D),
+                                          torch.tensor(rld).reshape(-1), tape, _t(ws), sign,
+                                          s_bound)
     for ours, theirs in zip([gx.reshape(2, 3, D), *gws, *gbs], [gx_ref, *gw_ref, *gb_ref]):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-4, atol=1e-4)
+
+
+@contextlib.contextmanager
+def _x64():
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+@pytest.mark.parametrize("d", [2, 20])
+@pytest.mark.parametrize("sign,s_bound", [(-1, 0.0), (1, 8.0)])
+def test_plain_reverse_chain_matches_jax_at_ties(d, sign, s_bound):
+    """The reverse chain at MADE's zero initial biases, where every hidden
+    unit whose masked inputs are all still 0 sits exactly at the ReLU's tie:
+    float64, against JAX's own VJP of ar_solve (`_ar_solve_bwd`: jax.vjp of
+    unrolled_solve, op by op), whose jnp.maximum passes half the gradient at
+    a tie. The port's plain algorithm and its autograd Function give JAX's
+    gradients for x, every weight and every bias to 1e-12.
+
+    At step 0 every unit is tied, but no head column reads it. So here
+    y_0 = x_0 > 0 (at zero biases y_0 = x_0) and the first layer's degree-0
+    units, whose one input is y_0, carry negative weights: from step 1 on
+    they are off, and the degree-0 units of the later layers, which the
+    head's columns past 0 read, sit at the tie (counted as exact zeros of
+    the port's plain tape past step 0). The same chain at slope 0 there
+    (the tied pre-activations moved just below 0) misses JAX's gradients."""
+    ws, bs = _weights(10 + d, d=d, h=32)
+    ws, bs = [w.astype(np.float64) for w in ws], [np.zeros(b.shape) for b in bs]
+    deg0 = np.flatnonzero((ws[0] != 0).sum(axis=0) == 1)
+    assert len(deg0) and (ws[0][1:, deg0] == 0).all()
+    ws[0][0, deg0] = -np.abs(ws[0][0, deg0])
+    rng = np.random.default_rng(11 + d)
+    x, ry = (rng.standard_normal((2, 3, d)) for _ in range(2))
+    x[..., 0] = np.abs(x[..., 0])
+    rld = rng.standard_normal((2, 3))
+    with _x64():
+        gx_ref, gw_ref, gb_ref = jax_ar._ar_solve_bwd(
+            sign, s_bound, (jnp.asarray(x), tuple(map(jnp.asarray, ws)),
+                            tuple(map(jnp.asarray, bs))), (jnp.asarray(ry), jnp.asarray(rld)))
+        want = [np.asarray(a) for a in (gx_ref, *gw_ref, *gb_ref)]
+
+    x2 = torch.tensor(x).reshape(-1, d)
+    y, _, tape = ar_flow.plain_tape(x2, _t(ws), _t(bs), sign, s_bound)
+    assert sum(int((z[1:] == 0).sum()) for z in tape.z) > 0
+    gx, gws, gbs = ar_flow.plain_backward(x2, y, torch.tensor(ry).reshape(-1, d),
+                                          torch.tensor(rld).reshape(-1), tape, _t(ws), sign,
+                                          s_bound)
+    below = ar_flow.Tape([torch.where(z == 0, -1e-300, z) for z in tape.z], tape.s)
+    slope0 = ar_flow.plain_backward(x2, y, torch.tensor(ry).reshape(-1, d),
+                                    torch.tensor(rld).reshape(-1), below, _t(ws), sign, s_bound)
+    assert any(not np.allclose(ours.numpy(), theirs, rtol=1e-4, atol=1e-4)
+               for ours, theirs in zip([*slope0[1], *slope0[2]], want[1:]))
+    xt, wt, bt = torch.tensor(x, requires_grad=True), _t(ws, True), _t(bs, True)
+    yt, ldt = ar_flow.ar_solve(xt, wt, bt, sign, s_bound)
+    fn = torch.autograd.grad((yt * torch.tensor(ry)).sum() + (ldt * torch.tensor(rld)).sum(),
+                             [xt, *wt, *bt])
+    for got in ([gx.reshape(2, 3, d), *gws, *gbs], fn):
+        for ours, theirs in zip(got, want):
+            np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("bad", ["1d", "d1", "head", "chain", "dtype", "hidden"])

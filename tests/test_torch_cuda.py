@@ -7,9 +7,11 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
 The Hopper ar_solve kernels are held against the plain PyTorch versions on
 the card at the main path's widths (D=20, three hidden layers of 128, real
 MADE masks), float32 with TF32 off: the forward against `unrolled_solve`,
-the backward (with the wrapper's reduction) against autograd through
-`unrolled_solve`. The same arithmetic in another summation order, so
-rtol/atol 1e-4.
+the backward (the gradients of x, every weight and every bias) against
+autograd through `unrolled_solve`. The same arithmetic in another summation
+order, so rtol/atol 1e-4. At MADE's zero initial biases the tape holds the
+ReLU ties' exact zeros, where the backward takes JAX's slope 1/2, and two
+backward calls give bitwise equal gradients.
 
 The flagship MMVAE-DReG path, which launches no kernel of the port: a
 DReG-looser step on the card against the float64 CPU step, the bf16
@@ -125,8 +127,9 @@ def test_kernel_matches_plain(card, n, sign, s_bound):
 @pytest.mark.parametrize("sign", [-1, 1])
 @pytest.mark.parametrize("s_bound", [0.0, 8.0])
 def test_backward_kernel_matches_autograd(card, n, sign, s_bound):
-    """One backward launch and the wrapper's reduction give autograd's
-    gradients through the plain solve, for x, every weight and every bias."""
+    """One backward call (the chain and the sum of its blocks' partial
+    sums) gives autograd's gradients through the plain solve, for x, every
+    weight and every bias."""
     ws, bs = _weights(card, seed=10)
     gen = torch.Generator().manual_seed(11)
     x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
@@ -134,9 +137,8 @@ def test_backward_kernel_matches_autograd(card, n, sign, s_bound):
     tape = ar_flow.new_tape(x, ws)
     y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
     before = ar_flow.ar_solve.backward_launches
-    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
     assert ar_flow.ar_solve.backward_launches == before + 1
-    gws, gbs = ar_flow.reduce_grads(tape, deltas)
     inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
     outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
                                   sign, s_bound)
@@ -155,13 +157,94 @@ def test_kernels_at_other_depths(card, n_hidden):
                   for shape in ((37, D), (37, D), (37,)))
     tape = ar_flow.new_tape(x, ws)
     y, ld = ar_flow.kernel_forward(x, ws, bs, 1, 8.0, tape=tape)
-    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 8.0)
-    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, 1, 8.0)
     inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
     outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):], 1, 8.0)
     want = torch.autograd.grad(outs, inputs, (gy, gld))
     for got, ref in zip([y, ld, gx, *gws, *gbs], [*outs, *want]):
         torch.testing.assert_close(got, ref.detach(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_backward_at_zero_made_biases(card, sign):
+    """CelebA's latent 64 at MADE's initial zero biases, where hidden units
+    whose masked inputs are all still 0 sit exactly at the ReLU's tie: the
+    forward's tape holds those exact zeros, and the backward takes the slope
+    1/2 there, as autograd through `unrolled_solve` (jnp.maximum's
+    subgradient) does. The inputs are chip_smoke's `_tie_inputs`, at which
+    units sit at the tie past step 0, where the head reads them. The
+    reference replays the kernel's branches (chip_smoke's `_ReluBranches`),
+    each element on another branch than its own within 1e-5 of 0; replayed
+    at slope 0 at the ties, it misses the kernel."""
+    smoke = _chip_smoke()
+    d = 64
+    ws, bs = _weights(card, seed=40, d=d)
+    bs = [torch.zeros_like(b) for b in bs]
+    gen = torch.Generator().manual_seed(41)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((256, d), (256, d), (256,)))
+    x, ws = smoke._tie_inputs(x, ws)
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, 0.0, tape=tape)
+    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, 0.0)
+    assert sum(int((z[1:] == 0).sum()) for z in tape.z) > 0
+    branches = smoke._kernel_branches(tape)
+
+    def reference(codes):
+        inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+        with smoke._ReluBranches(replay=codes) as rb:
+            outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)],
+                                          inputs[1 + len(ws):], sign, 0.0)
+            return torch.autograd.grad(outs, inputs, (gy, gld)), rb
+
+    want, rb = reference(branches)
+    assert rb.flip_max_abs <= 1e-5
+    for got, ref in zip([gx, *gws, *gbs], want):
+        torch.testing.assert_close(got, ref, **TOL)
+    slope0, _ = reference([c.masked_fill(c == 1, 0) for c in branches])
+    assert not all(torch.allclose(got, ref, rtol=TOL["rtol"], atol=TOL["atol"])
+                   for got, ref in zip([gx, *gws, *gbs], slope0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 7_680])
+def test_backward_is_bitwise_repeatable(card, n):
+    """The backward sums in a fixed order (each block its own tiles, then
+    the blocks in order; no floating-point atomics): two calls on the same
+    inputs give bitwise equal gradients."""
+    d = 64
+    ws, bs = _weights(card, seed=42, d=d)
+    gen = torch.Generator().manual_seed(43)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((n, d), (n, d), (n,)))
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.kernel_forward(x, ws, bs, -1, 0.0, tape=tape)
+    first = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, -1, 0.0)
+    second = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, -1, 0.0)
+    for a, b in zip([first[0], *first[1], *first[2]], [second[0], *second[1], *second[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_biases", [False, True])
+def test_forward_tape_holds_pre_activations(card, zero_biases):
+    """The recording forward's tape holds each hidden layer's pre-activation
+    z (not its ReLU) at every step, as `plain_tape` records it, and the
+    head's raw log-scale; at zero biases the exact zeros of the ties."""
+    ws, bs = _weights(card, seed=44)
+    if zero_biases:
+        bs = [torch.zeros_like(b) for b in bs]
+    x = torch.randn(37, D, generator=torch.Generator().manual_seed(45)).to(card)
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.kernel_forward(x, ws, bs, 1, 8.0, tape=tape)
+    y_p, ld_p, tape_p = ar_flow.plain_tape(x, ws, bs, 1, 8.0)
+    assert len(tape.z) == len(ws) - 1
+    for got, ref in zip([y, ld, tape.s, *tape.z], [y_p, ld_p, tape_p.s, *tape_p.z]):
+        torch.testing.assert_close(got, ref, **TOL)
+    assert any(bool((z < 0).any()) for z in tape.z)
+    if zero_biases:
+        assert sum(int((z == 0).sum()) for z in tape.z) > 0
 
 
 @pytest.mark.cuda
@@ -221,6 +304,13 @@ def test_kernel_refuses_what_it_cannot_take(card):
     tape = ar_flow.new_tape(x, deep_ws)
     with pytest.raises(ValueError, match="shared memory"):
         ar_flow.kernel_backward(x, x, x, x[:, 0].contiguous(), tape, deep_ws, 1)
+    # four hidden layers: the forward takes them, the backward's three staged
+    # layers and its step buffers do not fit
+    ws4, bs4 = _weights(card, n_hidden=4)
+    tape = ar_flow.new_tape(x, ws4)
+    y, _ = ar_flow.kernel_forward(x, ws4, bs4, 1, tape=tape)
+    with pytest.raises(ValueError, match="shared memory"):
+        ar_flow.kernel_backward(x, y, x, x[:, 0].contiguous(), tape, ws4, 1)
     with pytest.raises(ValueError, match="CUDA"):
         ar_flow.kernel_forward(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs], 1)
 
@@ -745,8 +835,7 @@ def test_kernels_at_latent_2(card, n, sign, s_bound):
                   for shape in ((n, 2), (n, 2), (n,)))
     tape = ar_flow.new_tape(x, ws)
     y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-    gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-    gws, gbs = ar_flow.reduce_grads(tape, deltas)
+    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
     inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
     outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
                                   sign, s_bound)
@@ -935,8 +1024,7 @@ def test_kernels_at_latent_30(card, sign, s_bound):
             continue
         tape = ar_flow.new_tape(x, ws)
         y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-        gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-        gws, gbs = ar_flow.reduce_grads(tape, deltas)
+        gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
         inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
         outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
                                       sign, s_bound)
@@ -963,8 +1051,7 @@ def test_kernels_at_latent_16_43_64(card, d, sign, s_bound):
                       for shape in ((n, d), (n, d), (n,)))
         tape = ar_flow.new_tape(x, ws)
         y, ld = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-        gx, deltas = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
-        gws, gbs = ar_flow.reduce_grads(tape, deltas)
+        gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
         inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
         outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):],
                                       sign, s_bound)

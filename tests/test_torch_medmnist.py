@@ -259,7 +259,8 @@ def test_solve_at_latent_16_matches_jax(sign):
     """At MedMNIST's latent 16 with its s_bound 8: the port's solve (on the
     CPU, autograd through its plain version) against JAX's unrolled_solve
     and jax.grad, and the backward kernel's plain algorithm (`plain_tape`,
-    `plain_backward`, `reduce_grads`) against the same gradients: y, the
+    `plain_backward`, which sums the weight and bias gradients inside its
+    reverse chain) against the same gradients: y, the
     log-det and the gradients of a random projection of both for x, every
     weight and every bias (float32: values 1e-5, gradients 1e-4)."""
     ws, bs = _made_weights(11, d=16)
@@ -286,10 +287,9 @@ def test_solve_at_latent_16_matches_jax(sign):
     with torch.no_grad():
         y_p, _, tape = ar_flow.plain_tape(torch.tensor(x), [w.detach() for w in wt],
                                           [b_.detach() for b_ in bt], sign, 8.0)
-        gx, deltas = ar_flow.plain_backward(torch.tensor(x), y_p, torch.tensor(ry),
-                                            torch.tensor(rld), tape, [w.detach() for w in wt],
-                                            sign, 8.0)
-        gws, gbs = ar_flow.reduce_grads(tape, deltas)
+        gx, gws, gbs = ar_flow.plain_backward(torch.tensor(x), y_p, torch.tensor(ry),
+                                              torch.tensor(rld), tape, [w.detach() for w in wt],
+                                              sign, 8.0)
     for got in (g, [gx, *gws, *gbs]):
         for a, w in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)

@@ -1,12 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (mmvae_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every group, each in its own process, in turn
+    python3 chip_smoke.py --group NAME    # one group: kernels, mnist_svhn, datasets, tail
+
+The phases below run in four groups (GROUPS), each in a process of its own
+that builds (or loads) the kernels first and re-trains whatever runs it
+needs, so that each group fits one chip call: `kernels` (phases 2, 3, 29
+and 45), `mnist_svhn` (4-22, 38, 41), `datasets` (23-28, 30, 31) and
+`tail` (32-37, 39, 40, 42, 43). Run alone, a group ends with the card line and the
+contract line; the whole run ends with the kernels line over every
+group's paths, the card line and the contract line. Each phase off
+`ar_solve_shapes` must launch neither general ar_solve kernel.
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA, no run.
-2. build: nvcc builds every kernel of the port from csrc/.
+2. build: nvcc builds every kernel source of the port in csrc/, one process
+   a source, all at once.
 3. ar_solve: the Hopper kernels against their plain PyTorch versions at
    the main path's shape (N=128) and others, D=20, H=128, 3 hidden layers,
    real MADE masks, sign +-1, s_bound 0 and 8, TF32 off. The forward
@@ -260,6 +271,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    LinearNF paths, and each rank's of the data-parallel paths), and last
    the contract line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+45. ar_solve_shapes (in the `kernels` group): the general pair
+   (csrc/ar_flow_general.cu), which `ar_solve` routes every MADE to that
+   the 128-wide pair refuses, at hidden widths 64 x 4 and 64 x 3 (D = 20,
+   N = 128), 128 x 4 and 128 x 6 (the backward, then the forward, the
+   128-wide pair refuses), 256 x 2 (D = 64, N = 256), 100 x 3 (D = 16,
+   N = 37: ragged width and rows), 96-160-64 (D = 30, N = 256), 32 x 1 (D =
+   2) and 64 x 4 at D = 64, N = 7,680: the C libraries' shared-memory sizes
+   against their Python copies, the routes, the forward against
+   `unrolled_solve` and the backward against autograd through it on the
+   kernel's ReLU branches, a second backward bitwise equal, both signs,
+   s_bound 0 and 8 (rtol/atol 1e-4); one call through `ar_solve` launching
+   the routed kernels as predicted with their direct entries' bits; the
+   times beside the plain versions and bounds, and at 128 x 3 (D = 20, N =
+   128) the general pair forced and timed beside the 128-wide pair. Then
+   the backward at zero MADE biases with ties past step 0 (64 x 4, D = 64,
+   7,680 rows) and its slope-0 control, which must miss; and the flow path:
+   MAF's sampling and IAF's density direction built with hidden_size 64,
+   n_hidden_in_made 4 (D = 20, B = 128), forward and backward on the card,
+   2 general launches each way, against the float64 modules on the CPU on
+   the card's ReLU branches.
 """
 
 from __future__ import annotations
@@ -399,42 +430,54 @@ def device_time_ms(fn, reps=20, rounds=9, warmup=3):
 
 
 def phase_build():
+    """nvcc builds every csrc/*.cu at once, one process a source."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mmvae_tpu_torch.ops import build
 
     sources = sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
-    for source in sources:
-        build.load(source)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load, sources))
     wall = time.perf_counter() - t0
     ptxas = {s: [l.strip() for l in log.splitlines() if "Used" in l or "spill" in l]
              for s, (_, log) in build.build_log.items()}
     emit({"phase": "build", "sources": sources, "seconds": round(wall, 3), "ptxas": ptxas})
 
 
-def solve_flops(n, d, h, n_hidden):
-    """Flops of the forward solve. At step 0 no feature of y is known:
-    MADE's masks leave head columns 0 and D (mu_0, s_0) their biases alone,
-    so the step needs no product. Each of the other D-1 steps takes per row
-    one rank-1 term of the first layer (y gained one feature), the other
-    hidden layers and the two head columns (mu_i, s_i) that it uses:
-    2*n*(d-1)*(h + (L-1)*h*h + 2*h). The reverse chain does the same
-    products transposed: y's gradient at feature i is W0[i, :] . dsum, an
-    O(h) term."""
-    return 2 * n * (d - 1) * (h + (n_hidden - 1) * h * h + 2 * h)
+def solve_flops(n, widths):
+    """Flops of the forward solve at the MADE's layer widths [D, hidden...,
+    2D]. At step 0 no feature of y is known: MADE's masks leave head
+    columns 0 and D (mu_0, s_0) their biases alone, so the step needs no
+    product. Each of the other D-1 steps takes per row one rank-1 term of
+    the first layer (y gained one feature), the other hidden layers and the
+    two head columns (mu_i, s_i) that it uses: 2*n*(D-1)*(h_1 + sum of
+    h_l*h_(l+1) + 2*h_L); at L hidden layers of h, 2*n*(D-1)*(h + (L-1)*h*h
+    + 2*h). The reverse chain does the same products transposed: y's
+    gradient at feature i is W0[i, :] . dsum, an O(h_1) term."""
+    d, hs = widths[0], widths[1:-1]
+    return 2 * n * (d - 1) * (hs[0] + sum(a * b for a, b in zip(hs, hs[1:])) + 2 * hs[-1])
 
 
-def vjp_flops(n, d, h, n_hidden):
+def vjp_flops(n, widths):
     """Flops of the whole backward: the reverse chain, then the weight
     gradients, sums over rows and steps of outer products of each step's
     layer inputs and deltas. Step 0's delta reaches the head's biases
     alone; each other step adds the hidden layers in full and the head's
     two nonzero delta columns; the first layer's gradient row i is the
-    rank-1 form y_i * dsum (2*n*h a row i < D-1, where the outer products
-    of its i nonzero inputs at step i take n*h*d*(d-1)). Then the bias sums: the
-    hidden biases over the D-1 steps, the head's 2D over all."""
-    weights = 2 * n * (d - 1) * ((n_hidden - 1) * h * h + 2 * h) + 2 * n * (d - 1) * h
-    biases = n * ((d - 1) * n_hidden * h + 2 * d)
-    return solve_flops(n, d, h, n_hidden) + weights + biases
+    rank-1 form y_i * dsum (2*n*h_1 a row i < D-1, where the outer products
+    of its i nonzero inputs at step i take n*h_1*D*(D-1)). Then the bias
+    sums: the hidden biases over the D-1 steps, the head's 2D over all."""
+    d, hs = widths[0], widths[1:-1]
+    weights = (2 * n * (d - 1) * (sum(a * b for a, b in zip(hs, hs[1:])) + 2 * hs[-1])
+               + 2 * n * (d - 1) * hs[0])
+    biases = n * ((d - 1) * sum(hs) + 2 * d)
+    return solve_flops(n, widths) + weights + biases
+
+
+def made_widths(d, hidden):
+    """The layer widths [D, hidden..., 2D] of a MADE."""
+    return [d, *hidden, 2 * d]
 
 
 def vjp_bytes(n, d, n_w, n_b):
@@ -452,13 +495,15 @@ def bound(flops, n_bytes):
     return max(flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES) * 1e3, by
 
 
-def _made_params(d, h, n_hidden, gen):
+def _made_params(d, hidden, gen):
+    """A MADE's masked weights and biases on the card, at hidden widths
+    `hidden`, from its initialisers and biases moved off 0."""
     import torch
 
     from mmvae_tpu_torch.flows import MADE
     from mmvae_tpu_torch.nets import init_parameters
 
-    made = MADE(d, (h,) * n_hidden)
+    made = MADE(d, tuple(hidden))
     init_parameters(made, gen)
     with torch.no_grad():
         for layer in [*made.hidden, made.out]:
@@ -497,7 +542,8 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
     return lambda: torch.autograd.grad(outs, inputs, (gy, gld), retain_graph=True)
 
 
-def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False):
+def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
+                    general=False):
     """The backward (both launches) against autograd through
     `unrolled_solve`, for x, every weight and every bias; the
     reference takes the forward kernel's hidden ReLU branches
@@ -514,16 +560,20 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False):
     `tie_control`, the reference is replayed once more with slope 0 at the
     ties (torch.relu's), and the kernel must miss that one past
     KERNEL_RTOL/KERNEL_ATOL: the ties carry gradient, and the kernel takes
-    them at 1/2. Returns the max abs error."""
+    them at 1/2. With `general`, the general pair's direct entries
+    (`general_forward`, `general_backward`) in place of the 128-wide pair's.
+    Returns the max abs error."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
+    forward, backward = ((ar_flow.general_forward, ar_flow.general_backward) if general
+                         else (ar_flow.kernel_forward, ar_flow.kernel_backward))
     tape = ar_flow.new_tape(x, ws)
-    y, _ = ar_flow.kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
-    gx, gws, gbs = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    y, _ = forward(x, ws, bs, sign, s_bound, tape=tape)
+    gx, gws, gbs = backward(x, y, gy, gld, tape, ws, sign, s_bound)
     got = [gx, *gws, *gbs]
-    again = ar_flow.kernel_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    again = backward(x, y, gy, gld, tape, ws, sign, s_bound)
     own = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
     with _ReluBranches(replay=_kernel_branches(tape)) as rb:
         want = _plain_vjp(x, ws, bs, sign, s_bound, gy, gld)()
@@ -544,7 +594,8 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False):
                for a, b in zip(got, slope0)):
             raise AssertionError(f"ar_solve backward at {what}: slope 0 at the ties gives the "
                                  f"same gradients; no tie carries gradient")
-    return _check_close(dict(kernel="backward", **what, relu_flips=rb.flips,
+    return _check_close(dict(kernel="general_backward" if general else "backward", **what,
+                             relu_flips=rb.flips,
                              relu_flip_max_abs=rb.flip_max_abs,
                              ties_past_step_0=sum(int((z[1:] == 0).sum()) for z in tape.z),
                              bitwise_repeat=repeat, **control,
@@ -553,11 +604,15 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False):
                         list(zip(got, want)))
 
 
-def backward_kernel_ms(fn, reps=20):
-    """The device time per call of each of the backward's two kernels, the
-    reverse chain and the sum of the blocks' partial sums, from a
-    torch.profiler trace of `reps` calls: {"chain": ms, "sum": ms}, None
-    where the trace holds no device time."""
+BACKWARD_KERNELS = (("chain", "ar_solve_backward_kernel"), ("sum", "ar_solve_sum_kernel"))
+GENERAL_BACKWARD_KERNELS = (("chain", "general_backward_kernel"),)
+
+
+def backward_kernel_ms(fn, reps=20, kernels=BACKWARD_KERNELS):
+    """The device time per call of each of a backward's kernels, by name
+    (the 128-wide backward's two: the reverse chain and the sum of the
+    blocks' partial sums), from a torch.profiler trace of `reps` calls:
+    {"chain": ms, "sum": ms}, None where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -568,7 +623,7 @@ def backward_kernel_ms(fn, reps=20):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for key, name in (("chain", "ar_solve_backward_kernel"), ("sum", "ar_solve_sum_kernel")):
+    for key, name in kernels:
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                  for e in prof.key_averages() if name in e.key)
         out[key] = us / reps / 1e3 if us > 0 else None
@@ -585,7 +640,7 @@ def phase_ar_solve():
 
     d, h, n_hidden = 20, 128, 3
     gen = torch.Generator().manual_seed(0)
-    ws, bs = _made_params(d, h, n_hidden, gen)
+    ws, bs = _made_params(d, (h,) * n_hidden, gen)
     fwd_err = bwd_err = eval_fwd_err = 0.0
 
     # forward kernel against the plain version: the training path's rows,
@@ -654,7 +709,7 @@ def phase_ar_solve():
             k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
             call_ms = cuda_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
             p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
-        flops = solve_flops(n, d, h, n_hidden)
+        flops = solve_flops(n, made_widths(d, (h,) * n_hidden))
         # each input read once (x, masked weights, biases), each output
         # written once (y, logdet)
         n_bytes = 4 * (2 * n * d + n + n_w + n_b)
@@ -684,7 +739,8 @@ def phase_ar_solve():
     b_call_ms = cuda_time_ms(bwd)
     split = backward_kernel_ms(bwd)
     pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
+    b_flops = vjp_flops(n, made_widths(d, (h,) * n_hidden))
+    b_bytes = vjp_bytes(n, d, n_w, n_b)
     b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
     results["backward"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
                                bound_ms=b_bound_ms, bound_by=b_bound_by)
@@ -752,7 +808,7 @@ def phase_ar_solve_latent2():
 
     d, h, n_hidden = 2, 128, 3
     gen = torch.Generator().manual_seed(2)
-    ws, bs = _made_params(d, h, n_hidden, gen)
+    ws, bs = _made_params(d, (h,) * n_hidden, gen)
     errs = {"forward": 0.0, "backward": 0.0}
     for n in LATENT2_FWD_ROWS:
         x = torch.randn(n, d, generator=gen).cuda()
@@ -782,7 +838,8 @@ def phase_ar_solve_latent2():
         with torch.no_grad():
             k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
             p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
-        flops, n_bytes = solve_flops(n, d, h, n_hidden), 4 * (2 * n * d + n + n_w + n_b)
+        flops = solve_flops(n, made_widths(d, (h,) * n_hidden))
+        n_bytes = 4 * (2 * n * d + n + n_w + n_b)
         bound_ms, bound_by = bound(flops, n_bytes)
         results[f"n{n}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "ar_solve_time", "kernel": "forward", "d": d, "n": n, "kernel_ms": k_ms,
@@ -800,7 +857,8 @@ def phase_ar_solve_latent2():
     b_ms = device_time_ms(bwd)
     split = backward_kernel_ms(bwd)
     pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-    b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
+    b_flops = vjp_flops(n, made_widths(d, (h,) * n_hidden))
+    b_bytes = vjp_bytes(n, d, n_w, n_b)
     b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
     results["backward_n128"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
                                     bound_ms=b_bound_ms, bound_by=b_bound_by)
@@ -1418,14 +1476,17 @@ class _ReluBranches:
 
 class _SolveBranches:
     """Inside a `_ReluBranches` recording on the card: the ar_solve kernels'
-    hidden ReLUs recorded as the plain solve (`unrolled_solve`) would call
-    `hidden_relu` on the CPU: at each forward launch with a tape, the branch
-    of every hidden unit at every step, step by step and layer by layer,
-    read from the tape (each layer's pre-activation, three states); at each
-    backward call the same again, since the CPU's backward re-runs the
-    plain solve.
+    hidden ReLUs (either pair's) recorded as the plain solve
+    (`unrolled_solve`) would call `hidden_relu` on the CPU: at each forward
+    launch with a tape, the branch of every hidden unit at every step, step
+    by step and layer by layer, read from the tape (each layer's
+    pre-activation, three states); at each backward call the same again,
+    since the CPU's backward re-runs the plain solve.
     A float64 CPU run replaying the recording then takes the kernels'
     branches as well."""
+
+    _FORWARDS = ("kernel_forward", "general_forward")
+    _BACKWARDS = ("_backward", "_general_backward")
 
     def __init__(self, relu):
         self.relu = relu
@@ -1433,26 +1494,34 @@ class _SolveBranches:
     def __enter__(self):
         from mmvae_tpu_torch.ops import ar_flow
 
-        self._fwd, self._bwd = ar_flow.kernel_forward, ar_flow._backward
+        self._saved = {name: getattr(ar_flow, name) for name in self._FORWARDS + self._BACKWARDS}
 
-        def forward(x, ws, bs, sign, s_bound=0.0, tape=None):
-            if tape is None:
-                raise AssertionError("a solve without a tape: its ReLUs cannot be recorded")
-            out = self._fwd(x, ws, bs, sign, s_bound, tape=tape)
-            self._record(tape)
-            return out
+        def forward(launch):
+            def run(x, ws, bs, sign, s_bound=0.0, tape=None):
+                if tape is None:
+                    raise AssertionError("a solve without a tape: its ReLUs cannot be recorded")
+                out = launch(x, ws, bs, sign, s_bound, tape=tape)
+                self._record(tape)
+                return out
+            return run
 
-        def backward(x, y, gy, gld, tape, *args):
-            self._record(tape)
-            return self._bwd(x, y, gy, gld, tape, *args)
+        def backward(launch):
+            def run(x, y, gy, gld, tape, *args):
+                self._record(tape)
+                return launch(x, y, gy, gld, tape, *args)
+            return run
 
-        ar_flow.kernel_forward, ar_flow._backward = forward, backward
+        for name in self._FORWARDS:
+            setattr(ar_flow, name, forward(self._saved[name]))
+        for name in self._BACKWARDS:
+            setattr(ar_flow, name, backward(self._saved[name]))
         return self
 
     def __exit__(self, *exc):
         from mmvae_tpu_torch.ops import ar_flow
 
-        ar_flow.kernel_forward, ar_flow._backward = self._fwd, self._bwd
+        for name, fn in self._saved.items():
+            setattr(ar_flow, name, fn)
 
     def _record(self, tape):
         self.relu.masks.extend(code.cpu() for code in _kernel_branches(tape))
@@ -3065,7 +3134,7 @@ def phase_ar_solve_ties():
     from mmvae_tpu_torch.ops import ar_flow
 
     gen = torch.Generator().manual_seed(TIES_D + 1)
-    ws, bs = _made_params(TIES_D, 128, 3, gen)
+    ws, bs = _made_params(TIES_D, (128,) * 3, gen)
     bs = [torch.zeros_like(b) for b in bs]
     x, gy = (torch.randn(TIES_ROWS, TIES_D, generator=gen).cuda() for _ in range(2))
     gld = torch.randn(TIES_ROWS, generator=gen).cuda()
@@ -3113,7 +3182,7 @@ def _ar_solve_at(widths):
     out, errs = {}, {}
     for d, (fwd_rows, bwd_rows, bwd_time_rows) in widths.items():
         gen = torch.Generator().manual_seed(d)
-        ws, bs = _made_params(d, h, n_hidden, gen)
+        ws, bs = _made_params(d, (h,) * n_hidden, gen)
         errs[d] = {"forward": 0.0, "backward": 0.0}
         smem = {k: ar_flow._check_smem(tuple([d] + [w.shape[1] for w in ws]), 0, k == "backward")
                 for k in ("forward", "backward")}
@@ -3141,7 +3210,8 @@ def _ar_solve_at(widths):
             with torch.no_grad():
                 k_ms = device_time_ms(lambda: ar_flow.kernel_forward(x, ws, bs, 1, 0.0))
                 p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
-            flops, n_bytes = solve_flops(n, d, h, n_hidden), 4 * (2 * n * d + n + n_w + n_b)
+            flops = solve_flops(n, made_widths(d, (h,) * n_hidden))
+            n_bytes = 4 * (2 * n * d + n + n_w + n_b)
             bound_ms, bound_by = bound(flops, n_bytes)
             res[f"n{n}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
             emit({"phase": "ar_solve_time", "kernel": "forward", "d": d, "n": n,
@@ -3160,7 +3230,8 @@ def _ar_solve_at(widths):
             b_ms = device_time_ms(bwd)
             split = backward_kernel_ms(bwd)
             pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
-            b_flops, b_bytes = vjp_flops(n, d, h, n_hidden), vjp_bytes(n, d, n_w, n_b)
+            b_flops = vjp_flops(n, made_widths(d, (h,) * n_hidden))
+            b_bytes = vjp_bytes(n, d, n_w, n_b)
             b_bound_ms, b_bound_by = bound(b_flops, b_bytes)
             res[f"backward_n{n}"] = dict(ms=b_ms, kernel_ms=split["chain"], plain_ms=pb_ms,
                                          bound_ms=b_bound_ms, bound_by=b_bound_by)
@@ -3171,6 +3242,282 @@ def _ar_solve_at(widths):
                   "roofline_share": b_bound_ms / b_ms, "smem_bytes": smem["backward"]})
         out[d] = res
     return dict(results=out, errs=errs)
+
+
+# ar_solve_shapes: MADE shapes that JAX's Pallas solve takes and the 128-wide
+# kernels refuse, or that no config has, (hidden widths, D, rows), each
+# through the general pair at sign +-1 and s_bound 0 and 8. The first is the
+# flow path's (SHAPES_FLOW); the 4 x 128 backward and the 6 x 128 forward are
+# the ones the 128-wide pair refuses; 100 x 3 at 37 rows is a ragged width
+# and a ragged row tile.
+SHAPES = (((64,) * 4, 20, 128), ((64,) * 3, 20, 128), ((128,) * 4, 20, 128),
+          ((128,) * 6, 20, 128), ((256,) * 2, 64, 256), ((100,) * 3, 16, 37),
+          ((96, 160, 64), 30, 256), ((32,), 2, 128), ((64,) * 4, 64, 7_680))
+# the general pair forced at the main path's shape, timed beside the
+# 128-wide pair on the same inputs
+SHAPES_FORCED = ((128,) * 3, 20, 128)
+# MADE's zero initial biases at inputs whose ties carry gradient past step 0
+SHAPES_TIES = ((64,) * 4, 64, 7_680)
+# the flow path: MAF's sampling and IAF's density direction through the
+# flows' own constructor arguments, D = 20, B = 128
+SHAPES_FLOW = dict(features=20, hidden_size=64, n_hidden_in_made=4, rows=128)
+
+
+def shape_name(hidden, d, n):
+    h = f"{hidden[0]}x{len(hidden)}" if len(set(hidden)) == 1 else "-".join(map(str, hidden))
+    return f"h{h}_d{d}_n{n}"
+
+
+def _counts():
+    from mmvae_tpu_torch.ops import ar_flow
+
+    a = ar_flow.ar_solve
+    return dict(launches=a.launches, general_launches=a.general_launches,
+                backward_launches=a.backward_launches,
+                general_backward_launches=a.general_backward_launches,
+                sign_minus_launches=a.sign_minus_launches,
+                sign_minus_backward_launches=a.sign_minus_backward_launches)
+
+
+def _zero_counts():
+    """Every ar_solve count, the general kernels' too, set to 0."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    _reset_counts()
+    ar_flow.ar_solve.general_launches = ar_flow.ar_solve.general_backward_launches = 0
+
+
+def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
+    """One forward and backward through `ar_solve`: the kernels `route`
+    picked launched as predicted (one forward and one backward, general
+    where the route says so), with the bits of those kernels' direct
+    entries on the same inputs."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    general = {k: routes[k] == "general" for k in routes}
+    inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    before = _counts()
+    y, ld = ar_flow.ar_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):], sign,
+                             s_bound)
+    grads = torch.autograd.grad((y, ld), inputs, (gy, gld))
+    after = _counts()
+    got = {k: after[k] - before[k] for k in ("launches", "general_launches",
+                                             "backward_launches", "general_backward_launches")}
+    expected = dict(launches=1, general_launches=int(general["forward"]), backward_launches=1,
+                    general_backward_launches=int(general["backward"]))
+    forward = ar_flow.general_forward if general["forward"] else ar_flow.kernel_forward
+    backward = ar_flow.general_backward if general["backward"] else ar_flow.kernel_backward
+    tape = ar_flow.new_tape(x, ws)
+    y2, ld2 = forward(x, ws, bs, sign, s_bound, tape=tape)
+    gx, gws, gbs = backward(x, y2, gy, gld, tape, ws, sign, s_bound)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip([y, ld, *grads], [y2, ld2, gx, *gws, *gbs]))
+    ok = got == expected and same
+    emit({"phase": "ar_solve_route", **what, "routes": routes, "launches": got,
+          "expected_launches": expected, "bitwise_as_direct_entries": same, "ok": ok})
+    if not ok:
+        raise AssertionError(f"ar_solve at {what}: routes {routes}, launches {got} (expected "
+                             f"{expected}), bitwise as the direct entries: {same}")
+
+
+def _time_general(what, x, ws, bs, gy, gld, fast=False):
+    """Device times of the general pair at sign +1, s_bound 0 (the backward
+    whole, its chain kernel alone beside it), their plain versions' and
+    bounds; with `fast`, the 128-wide pair's on the same inputs too."""
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    n, d = x.shape
+    widths = made_widths(d, [w.shape[1] for w in ws[:-1]])
+    n_w, n_b = sum(w.numel() for w in ws), sum(b.numel() for b in bs)
+    pairs = [("general", ar_flow.general_forward, ar_flow.general_backward,
+              GENERAL_BACKWARD_KERNELS)]
+    if fast:
+        pairs.append(("fast", ar_flow.kernel_forward, ar_flow.kernel_backward, BACKWARD_KERNELS))
+    res = {}
+    for name, forward, backward, kernels in pairs:
+        with torch.no_grad():
+            f_ms = device_time_ms(lambda: forward(x, ws, bs, 1, 0.0))
+        tape = ar_flow.new_tape(x, ws)
+        y, _ = forward(x, ws, bs, 1, 0.0, tape=tape)
+
+        def bwd():
+            backward(x, y, gy, gld, tape, ws, 1, 0.0)
+
+        res[name] = dict(forward_ms=f_ms, backward_ms=device_time_ms(bwd),
+                         backward_kernel_ms=backward_kernel_ms(bwd, kernels=kernels)["chain"])
+    with torch.no_grad():
+        p_ms = cuda_time_ms(lambda: ar_flow.unrolled_solve(x, ws, bs, 1, 0.0), rounds=5)
+    pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
+    f_bound = bound(solve_flops(n, widths), 4 * (2 * n * d + n + n_w + n_b))
+    b_bound = bound(vjp_flops(n, widths), vjp_bytes(n, d, n_w, n_b))
+    g = res["general"]
+    out = dict(forward=dict(ms=g["forward_ms"], plain_ms=p_ms, bound_ms=f_bound[0],
+                            bound_by=f_bound[1]),
+               backward=dict(ms=g["backward_ms"], kernel_ms=g["backward_kernel_ms"],
+                             plain_ms=pb_ms, bound_ms=b_bound[0], bound_by=b_bound[1]))
+    if fast:
+        out["fast"] = res["fast"]
+    emit({"phase": "ar_solve_shapes_time", **what, **out,
+          "forward_roofline_share": f_bound[0] / g["forward_ms"],
+          "backward_roofline_share": b_bound[0] / g["backward_ms"]})
+    return out
+
+
+def _shapes_flow():
+    """MAF's sampling direction (sign +1) and IAF's density direction (sign
+    -1) at SHAPES_FLOW's widths, which the 128-wide pair refuses, forward
+    and backward on the card in float32 with every count set to 0 just
+    before and read just after (2 MADE blocks: 2 forward and 2 backward
+    launches, all general), against the same module in float64 on the CPU
+    on the card's hidden ReLU branches (`_ReluBranches`, `_SolveBranches`):
+    y and the log-det within KERNEL_RTOL/KERNEL_ATOL, the gradient of
+    sum(y * r) + sum(logdet * r') for z and every parameter within
+    STEP_GRAD_TOL of each leaf's largest entry. Returns each path's counts."""
+    import copy
+
+    import torch
+
+    from mmvae_tpu_torch.flows import IAF, MAF
+    from mmvae_tpu_torch.nets import init_parameters
+
+    f = SHAPES_FLOW
+    d, n = f["features"], f["rows"]
+    paths = {}
+    for name, cls, method, sign in (("maf_64x4", MAF, "inverse", 1),
+                                    ("iaf_64x4", IAF, "forward", -1)):
+        gen = torch.Generator().manual_seed(sign + 3)
+        flow = cls(d, hidden_size=f["hidden_size"], n_hidden_in_made=f["n_hidden_in_made"])
+        init_parameters(flow, gen)
+        with torch.no_grad():  # MADE's biases off their zero start
+            for p in flow.parameters():
+                p.add_(torch.empty(p.shape).uniform_(-0.1, 0.1, generator=gen))
+        z, r = (torch.randn(n, d, generator=gen) for _ in range(2))
+        r_ld = torch.randn(n, generator=gen)
+        card = copy.deepcopy(flow).cuda()
+        zc = z.cuda().requires_grad_(True)
+        _zero_counts()
+        relu = _ReluBranches()
+        with relu, _SolveBranches(relu):
+            y, ld = getattr(card, method)(zc)
+            grads = torch.autograd.grad((y * r.cuda()).sum() + (ld * r_ld.cuda()).sum(),
+                                        [zc, *card.parameters()])
+        torch.cuda.synchronize()
+        counts = _counts()
+        ref = copy.deepcopy(flow).double()
+        z64 = z.double().requires_grad_(True)
+        with _ReluBranches(replay=relu.masks) as rb:
+            y64, ld64 = getattr(ref, method)(z64)
+            want = torch.autograd.grad((y64 * r.double()).sum() + (ld64 * r_ld.double()).sum(),
+                                       [z64, *ref.parameters()])
+        value_ok = all(torch.allclose(a.detach().cpu().double(), b.detach(), rtol=KERNEL_RTOL,
+                                      atol=KERNEL_ATOL) for a, b in ((y, y64), (ld, ld64)))
+        grad_err = max(((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(grads, want))
+        expected = dict(launches=2, general_launches=2, backward_launches=2,
+                        general_backward_launches=2, sign_minus_launches=2 * (sign < 0),
+                        sign_minus_backward_launches=2 * (sign < 0))
+        ok = (value_ok and grad_err <= STEP_GRAD_TOL and counts == expected
+              and len(rb.masks) == len(relu.masks) and rb.flip_max_abs <= RELU_KINK_ATOL)
+        emit({"phase": "ar_solve_shapes_flow", "path": name, "method": method, "sign": sign,
+              **{k: v for k, v in f.items()}, "launches": counts, "expected_launches": expected,
+              "reference": "cpu float64 on the card's ReLU branches",
+              "y_max_abs_err": (y.detach().cpu().double() - y64.detach()).abs().max().item(),
+              "logdet_max_abs_err": (ld.detach().cpu().double() - ld64.detach()).abs().max().item(),
+              "grad_max_rel_err": grad_err, "relu_flips": rb.flips,
+              "relu_flip_max_abs": rb.flip_max_abs, "grad_tol": STEP_GRAD_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"ar_solve_shapes {name}: launches {counts} (expected "
+                                 f"{expected}), values ok {value_ok}, grad err {grad_err}")
+        paths[name] = counts
+    return paths
+
+
+def phase_ar_solve_shapes():
+    """The general pair (csrc/ar_flow_general.cu) at every shape of SHAPES
+    and SHAPES_FORCED: the C libraries' shared-memory sizes against
+    `fast_smem_bytes`/`general_smem_bytes`, the routes `route` picks; the
+    forward against `unrolled_solve` and the backward against autograd
+    through it on the forward kernel's ReLU branches, a second backward
+    bitwise equal (`_check_backward`), both signs, s_bound 0 and 8; one call
+    through `ar_solve` launching the routed kernels as predicted, with their
+    direct entries' bits (`_check_route`); the times beside the plain
+    versions and the bounds (`_time_general`), the 128-wide pair's too at
+    SHAPES_FORCED. Then the backward at MADE's zero biases with ties past
+    step 0 (SHAPES_TIES, `_tie_inputs`) and its slope-0 control, and the
+    flow path (`_shapes_flow`). Returns the times, the errors and the flow
+    paths' counts."""
+    import ctypes
+
+    import torch
+
+    from mmvae_tpu_torch.ops import ar_flow
+
+    limit = ar_flow._smem_limit(0)
+    results, routes_by_shape = {}, {}
+    errs = {"forward": 0.0, "backward": 0.0}
+    for hidden, d, n in SHAPES + (SHAPES_FORCED,):
+        name = shape_name(hidden, d, n)
+        gen = torch.Generator().manual_seed(d + len(hidden))
+        ws, bs = _made_params(d, hidden, gen)
+        widths = made_widths(d, hidden)
+        arr = (ctypes.c_int * len(widths))(*widths)
+        smem = {}
+        for k in ("forward", "backward"):
+            c_fast = int(ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, k == "backward"))
+            c_general = int(ar_flow._general_lib().ar_solve_general_smem_bytes(
+                arr, len(widths) - 1, k == "backward"))
+            py_fast = ar_flow.fast_smem_bytes(widths, k == "backward")
+            smem[k] = dict(fast=c_fast, general=c_general)
+            if (c_fast, c_general) != (-1 if py_fast is None else py_fast,
+                                       ar_flow.general_smem_bytes(widths, k == "backward")):
+                raise AssertionError(f"shared memory at {widths} ({k}): the C libraries say "
+                                     f"{smem[k]}, their Python copies differ")
+        routes = {k: ar_flow.route(widths, k == "backward", limit) for k in ("forward", "backward")}
+        routes_by_shape[name] = routes
+        emit({"phase": "ar_solve_shapes", "shape": name, "widths": widths, "smem_bytes": smem,
+              "smem_limit": limit, "routes": routes})
+        x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+        gld = torch.randn(n, generator=gen).cuda()
+        for sign in (1, -1):
+            for s_bound in (0.0, 8.0):
+                what = dict(shape=name, sign=sign, s_bound=s_bound)
+                with torch.no_grad():
+                    y_k, ld_k = ar_flow.general_forward(x, ws, bs, sign, s_bound)
+                    y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
+                torch.cuda.synchronize()
+                errs["forward"] = max(errs["forward"], _check_close(
+                    dict(kernel="general_forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
+                errs["backward"] = max(errs["backward"], _check_backward(
+                    what, x, ws, bs, sign, s_bound, gy, gld, general=True))
+        _check_route(dict(shape=name, sign=1, s_bound=8.0), x, ws, bs, 1, 8.0, gy, gld, routes)
+        results[name] = _time_general(dict(shape=name), x, ws, bs, gy, gld,
+                                      fast=(hidden, d, n) == SHAPES_FORCED)
+
+    hidden, d, n = SHAPES_TIES
+    gen = torch.Generator().manual_seed(d + 1)
+    ws, bs = _made_params(d, hidden, gen)
+    bs = [torch.zeros_like(b) for b in bs]
+    x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
+    gld = torch.randn(n, generator=gen).cuda()
+    x, ws = _tie_inputs(x, ws)
+    tie_err = 0.0
+    for sign in (1, -1):
+        tie_err = max(tie_err, _check_backward(
+            dict(shape=shape_name(hidden, d, n), sign=sign, s_bound=0.0, zero_biases=True),
+            x, ws, bs, sign, 0.0, gy, gld, tie_control=True, general=True))
+    tape = ar_flow.new_tape(x, ws)
+    ar_flow.general_forward(x, ws, bs, 1, 0.0, tape=tape)
+    ties = [int((z[1:] == 0).sum()) for z in tape.z]
+    emit({"phase": "ar_solve_shapes_ties", "shape": shape_name(hidden, d, n),
+          "tied_units_past_step_0_by_layer": ties, "max_abs_err": tie_err, "ok": sum(ties) > 0})
+    if sum(ties) == 0:
+        raise AssertionError("ar_solve_shapes ties: no hidden unit tied past step 0")
+    return dict(results=results, routes=routes_by_shape, errs=errs, tie_err=tie_err,
+                flow=_shapes_flow())
 
 
 def _check_run(name, info, expected_by_epoch):
@@ -3857,6 +4204,8 @@ def _ddp_parity_rank(rank, store, world, job_path, out_dir, backend):
             loss=loss.item(), finite=bool(finite), grads=[g.cpu() for g in grads],
             masks=relu.masks, step_launches=step, device=str(mesh.device),
             launches=(ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches),
+            general_launches=(ar_flow.ar_solve.general_launches,
+                              ar_flow.ar_solve.general_backward_launches),
             params=[p.detach().cpu() for p in trainer.model.parameters()],
             skipped=trainer.opt.count.item() != DDP_TRAIN_STEPS)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -3971,6 +4320,7 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
               and all(r["finite"] and not r["skipped"] for r in per_rank)
               and [tuple(r["step_launches"]) for r in per_rank] == [expected_step] * n_ranks
               and got == [expected] * n_ranks and one_launches == expected_step
+              and all(tuple(r["general_launches"]) == (0, 0) for r in per_rank)
               and [r["device"] for r in per_rank] == [
                   f"cuda:{0 if backend == 'gloo' else i}" for i in range(n_ranks)])
         emit({"phase": "ddp_parity", "case": name, "ranks": n_ranks, "backend": backend,
@@ -3985,6 +4335,7 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
               "relu_other_branch_max_abs_preact": [rb.flip_max_abs for rb in rbs],
               "step_launches_by_rank": [r["step_launches"] for r in per_rank],
               "launches_by_rank": got, "expected_launches_by_rank": [expected] * n_ranks,
+              "general_launches_by_rank": [r["general_launches"] for r in per_rank],
               "one_process_step_launches": one_launches, "ranks_wall_s": ranks_s,
               "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
         if not ok:
@@ -4068,6 +4419,7 @@ def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
         Trainer.fit, Trainer.run_epoch_device = fit, run_epoch
         Trainer.run_epoch_device_eval = run_val
     total = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
+    general = (ar_flow.ar_solve.general_launches, ar_flow.ar_solve.general_backward_launches)
     # the steady train step on this rank's blocks, after the epoch
     trainer, pipeline = trainers[0], pipelines[0]
     block = trainer.mesh.block(pipeline.batch_size)
@@ -4096,6 +4448,7 @@ def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
     with open(f"{out_json}.rank{rank}", "w") as f:
         json.dump({"rank": rank, "run_path": run_path, "epoch_launches": counts["epoch"],
                    "launches": total, "analytics_launches": total[0] - counts["epoch"][0],
+                   "general_launches": general,
                    "train_steps": steps, "val_batches": val_batches[0],
                    "epoch_ms_per_step": train_s / steps * 1e3, "steady_step_ms": steady_ms,
                    "wall_s_incl_setup": wall, "allreduce_ms": allreduce_ms,
@@ -4146,6 +4499,7 @@ def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
         expected = [(4 * (steps + val_b) + (4 if r == 0 else 0), 4 * steps) for r in range(ranks)]
         got = [tuple(p["launches"]) for p in per_rank]
         ok = (got == expected and (steps, val_b) == (68, 7) and runs_made == [run]
+              and all(tuple(p["general_launches"]) == (0, 0) for p in per_rank)
               and all(p["run_path"] == run for p in per_rank)
               and {"args.json", "losses.json", "metrics.jsonl", "model.pt",
                    "generate_001.png"} <= set(files)
@@ -4157,7 +4511,8 @@ def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
               "expected_launches_by_rank": expected, "launches_by_rank": got,
               "run_files": files, "losses": losses,
               **{k: [p[k] for p in per_rank] for k in
-                 ("analytics_launches", "epoch_ms_per_step", "steady_step_ms",
+                 ("analytics_launches", "general_launches", "epoch_ms_per_step",
+                  "steady_step_ms",
                   "wall_s_incl_setup", "allreduce_ms",
                   "allreduce_floats", "device")},
               "files_written_by_rank": [len(p["files_written"]) for p in per_rank], "ok": ok})
@@ -4653,6 +5008,231 @@ def ddp_cards(n):
     return 0
 
 
+# The smoke's groups of phases, in the order of the whole run. Each runs in
+# a process of its own (`chip_smoke.py --group NAME`), re-trains whatever it
+# needs, and stays within one chip call.
+GROUPS = ("kernels", "mnist_svhn", "datasets", "tail")
+# the phases that drive the general ar_solve kernels: every other phase
+# must launch neither
+GENERAL_PHASES = ("ar_solve_shapes",)
+
+
+class _Walls:
+    """Runs a group's phases: each one's wall seconds, and each one's
+    launches of the general ar_solve kernels, which must be none off
+    GENERAL_PHASES (those counts are set to 0 just before the phase and read
+    just after)."""
+
+    def __init__(self):
+        self.walls = {}
+
+    def __call__(self, name, fn, *args):
+        from mmvae_tpu_torch.ops import ar_flow
+
+        a = ar_flow.ar_solve
+        a.general_launches = a.general_backward_launches = 0
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.walls[name] = self.walls.get(name, 0.0) + time.perf_counter() - t0
+        general = (a.general_launches, a.general_backward_launches)
+        if name not in GENERAL_PHASES and general != (0, 0):
+            raise AssertionError(f"phase {name} launched the general ar_solve kernels "
+                                 f"{general} times (expected none)")
+        return out
+
+
+def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
+    """The kernels line's entries, without their launch counts: each
+    kernel's errors and times at the main path's shape and the others."""
+    def entry(name, source, replaces, r, err, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                **extra}
+
+    fast_src, general_src = ("mmvae_tpu_torch/csrc/ar_flow.cu",
+                             "mmvae_tpu_torch/csrc/ar_flow_general.cu")
+    # the TPU kernel's pallas_call, and its custom_vjp backward (jax.vjp of
+    # the unrolled solve), which the backward kernels replace: the 128-wide
+    # backward's `ms` is both its launches, the chain alone beside it; the
+    # general backward's the chain and `sum_grads`. The forward's times at
+    # eval's rows stand beside its main-path time.
+    at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
+    # and at circles-squares' latent 2, MedMNIST's 16, the trimodal 30 and
+    # CelebA's 64, with their rows
+    at2, at64, at30 = solve2["results"], solve64["results"], solve30["results"][30]
+
+    def fwd_at(res):
+        return {k: v for k, v in res.items() if not k.startswith("backward")}
+
+    def bwd_at(res):
+        return {k[len("backward_"):]: v for k, v in res.items() if k.startswith("backward")}
+
+    # the general pair at the flow path's shape, and at every other
+    flow_shape = shape_name(*SHAPES[0])
+    general = {k: {name: r[k] for name, r in shapes["results"].items()}
+               for k in ("forward", "backward")}
+    return {
+        "ar_solve_forward": entry(
+            "ar_solve_forward", fast_src, "mmvae_tpu/ops/ar_flow.py:96", solve["results"][128],
+            solve["fwd_err"], at_sign_minus_n128=solve["results"]["sign_minus_n128"]["forward"],
+            at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"],
+            at_latent_2=fwd_at(at2), max_abs_err_at_latent_2=solve2["errs"]["forward"],
+            at_latent_16=fwd_at(at64[16]),
+            max_abs_err_at_latent_16=solve64["errs"][16]["forward"],
+            at_latent_30=fwd_at(at30), max_abs_err_at_latent_30=solve30["errs"][30]["forward"],
+            at_latent_64=fwd_at(at64[64]),
+            max_abs_err_at_latent_64=solve64["errs"][64]["forward"]),
+        "ar_solve_backward": entry(
+            "ar_solve_backward", fast_src, "mmvae_tpu/ops/ar_flow.py:156",
+            solve["results"]["backward"], solve["bwd_err"],
+            kernel_ms=solve["results"]["backward"]["kernel_ms"],
+            at_sign_minus_n128=solve["results"]["sign_minus_n128"]["backward"],
+            at_latent_2=at2["backward_n128"],
+            max_abs_err_at_latent_2=solve2["errs"]["backward"],
+            at_latent_16=bwd_at(at64[16]),
+            max_abs_err_at_latent_16=solve64["errs"][16]["backward"],
+            at_latent_30=bwd_at(at30),
+            max_abs_err_at_latent_30=solve30["errs"][30]["backward"],
+            at_latent_64=bwd_at(at64[64]),
+            max_abs_err_at_latent_64=solve64["errs"][64]["backward"],
+            max_abs_err_at_zero_biases_latent_64=ties_err),
+        "ar_solve_general_forward": entry(
+            "ar_solve_general_forward", general_src, "mmvae_tpu/ops/ar_flow.py:96",
+            general["forward"][flow_shape], shapes["errs"]["forward"], shape=flow_shape,
+            at_shapes=general["forward"], routes=shapes["routes"]),
+        "ar_solve_general_backward": entry(
+            "ar_solve_general_backward", general_src, "mmvae_tpu/ops/ar_flow.py:156",
+            general["backward"][flow_shape], shapes["errs"]["backward"], shape=flow_shape,
+            kernel_ms=general["backward"][flow_shape]["kernel_ms"],
+            at_shapes=general["backward"], max_abs_err_at_zero_biases=shapes["tie_err"]),
+    }
+
+
+def group_kernels(timed, tmp):
+    """Both pairs of ar_solve kernels against their plain versions, timed."""
+    solve = timed("ar_solve", phase_ar_solve)
+    solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
+    solve64 = timed("ar_solve_latent64", phase_ar_solve_latent64)
+    solve30 = timed("ar_solve_latent30", phase_ar_solve_latent30)
+    ties_err = timed("ar_solve_ties", phase_ar_solve_ties)
+    shapes = timed("ar_solve_shapes", phase_ar_solve_shapes)
+    flow = shapes["flow"]
+    return dict(kernels=_kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes),
+                by_path={p: (c["launches"], c["backward_launches"]) for p, c in flow.items()},
+                general_by_path={p: (c["general_launches"], c["general_backward_launches"])
+                                 for p, c in flow.items()},
+                general_by_sign={p: (c["sign_minus_launches"], c["sign_minus_backward_launches"])
+                                 for p, c in flow.items()})
+
+
+def group_mnist_svhn(timed, tmp):
+    """Slices 1-7 on MNIST-SVHN: the training paths, their evaluation, the
+    ms_small pipeline; then the FID net's validate and the probes, on those
+    runs."""
+    sl = timed("slice", phase_slice, tmp)
+    timed("parity", phase_parity, tmp)
+    train_loader, flagship_run = timed("mmvae_slice", phase_mmvae_slice, tmp)
+    for config in (FLAGSHIP, FLAGSHIP_BF16):
+        timed("mmvae_slice_time", phase_mmvae_time, tmp, config, train_loader)
+    timed("mmvae_parity", phase_mmvae_parity, tmp)
+    jnf_loader, jnf = timed("jnf_slice", phase_jnf_slice, tmp)
+    timed("jnf_slice_time", phase_jnf_time, tmp, jnf_loader)
+    timed("jnf_parity", phase_jnf_parity, tmp)
+    dcca_path, dcca_probe = timed("dcca", phase_dcca, tmp)
+    jnf_dcca = timed("jnf_dcca_slice", phase_jnf_dcca_slice, tmp, dcca_path)
+    telbo = timed("telbo_nf_slice", phase_telbo_slice, tmp)
+    mvae, mvae_run = timed("mvae_slice", phase_poe_slice, tmp, MVAE, "mvae")
+    moepoe, moepoe_run = timed("moepoe_slice", phase_poe_slice, tmp, MOEPOE, "moepoe")
+    analytics = timed("analytics", phase_analytics, sl)
+    runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"],
+            "mvae": mvae_run, "moepoe": moepoe_run}
+    validate = timed("eval_validate", phase_eval_validate, tmp, runs)
+    likelihoods = timed("eval_likelihoods", phase_eval_likelihoods, tmp, runs)
+    timed("eval_parity", phase_eval_parity, tmp, runs)
+    timed("eval_memory", phase_eval_memory, runs)
+    gen, gen_run1 = timed("gen_slice", phase_gen_slice, tmp, runs["jnf"])
+    timed("gen_parity", phase_gen_parity, gen_run1)
+    fid = timed("fid_validate", phase_fid_validate, tmp, runs["mmvae_nf"])
+    timed("probes", phase_probes, dcca_probe, runs["mmvae_nf"])
+    # each path's own launches, its counts set to 0 just before it; the
+    # flagship's are checked to be none in its phase
+    return dict(by_path={
+        "mmvae_nf": (sl["launches"], sl["bwd_launches"]), "flagship": (0, 0),
+        "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca,
+        "telbo_nf": (telbo["launches"], telbo["bwd_launches"]), "mvae": mvae,
+        "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
+        **{f"validate_{k}": v for k, v in validate.items()},
+        **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
+        **{f"gen_{k}": v for k, v in gen.items()}, **fid})
+
+
+def group_datasets(timed, tmp):
+    """Slices 8-10: circles-squares, MNIST-Fashion/Contour, the ResNet
+    datasets and trimodal MNIST-SVHN-Fashion."""
+    circles, circles_runs = timed("circles_slice", phase_circles_slice, tmp)
+    timed("circles_parity", phase_circles_parity, tmp, circles_runs["jnf"])
+    mnist1ch = timed("mnist1ch_slice", phase_mnist1ch_slice, tmp)
+    medmnist = timed("medmnist_slice", phase_medmnist_slice, tmp)
+    celeba = timed("celeba_slice", phase_celeba_slice, tmp)
+    timed("resnet_parity", phase_resnet_parity, tmp)
+    msf = timed("msf_slice", phase_msf_slice, tmp)
+    timed("msf_parity", phase_msf_parity, tmp)
+    return dict(by_path={**circles, **mnist1ch, **medmnist, **celeba, **msf})
+
+
+def group_tail(timed, tmp):
+    """Slices 11-13: the objectives and flows no config selects, data
+    parallel training, the FID net's parity, the real layout, the sweep and
+    the K split."""
+    iaf, iaf_minus = timed("iaf_slice", phase_iaf_slice, tmp)
+    tail, tail_minus, loader = timed("tail_slice", phase_tail_slice, tmp)
+    linnf = timed("linnf_slice", phase_linnf_slice, tmp, loader)
+    timed("tail_parity", phase_tail_parity, tmp)
+    ddp = timed("ddp_parity", phase_ddp_parity, tmp)
+    ddp.update(timed("ddp_slice", phase_ddp_slice, tmp))
+    timed("fid_parity", phase_fid_parity, tmp)
+    real = timed("real_layout", phase_real_layout, tmp)
+    timed("sweep", phase_sweep, tmp)
+    timed("ksplit_parity", phase_ksplit_parity, tmp)
+    # the slice-11 paths' launches at sign -1 (IAF's density direction);
+    # every other path's solve is MAF's sampling direction, at sign +1
+    return dict(by_path={**iaf, **tail, **linnf, **ddp, **real},
+                by_sign={**iaf_minus, **tail_minus, **{path: (0, 0) for path in linnf}})
+
+
+def _card_line():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def run_group(name):
+    """One group of phases in this process, after the build: its results
+    (JSON), with each phase's wall seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    emit({"phase": "device", "group": name, "kind": torch.cuda.get_device_name(0),
+          "nvidia_smi": _card_line(), "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    # float32 parity: no TF32 in matmuls or cuDNN convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timed = _Walls()
+    timed("build", phase_build)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        out = globals()[f"group_{name}"](timed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"group": name, "by_path": {}, "by_sign": {}, "general_by_path": {},
+           "general_by_sign": {}, **out,
+           "seconds": time.perf_counter() - t0, "phase_seconds": timed.walls}
+    emit({"phase": "group", **{k: v for k, v in out.items() if k != "kernels"}})
+    return out
+
+
 def main():
     import torch
 
@@ -4665,148 +5245,73 @@ def main():
         return 0
     if sys.argv[1:2] == ["ddp-cards"]:
         return ddp_cards(int(sys.argv[2]))
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    ap.add_argument("--group", choices=GROUPS,
+                    help="run one group of phases in this process (default: every group, "
+                         "each in a process of its own, in turn)")
+    ap.add_argument("--out", help=argparse.SUPPRESS)  # where a group's results go, for main
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import mmvae_tpu_torch  # noqa: F401  (fails where the checkout is missing)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "kind": kind, "nvidia_smi": card,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    card = _card_line()
+    if args.group:
+        out = run_group(args.group)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f)
+            return 0
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
-    walls = {}  # each phase's wall seconds
+    print(card, flush=True)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_groups_") as tmp:
+        for name in GROUPS:
+            path = os.path.join(tmp, f"{name}.json")
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--group", name,
+                                   "--out", path], cwd=ROOT)
+            if proc.returncode != 0:
+                print(f"chip_smoke: group {name} exited {proc.returncode}", file=sys.stderr)
+                return 1
+            with open(path) as f:
+                results[name] = json.load(f)
+    by_path = {p: c for r in results.values() for p, c in r["by_path"].items()}
+    by_sign = {p: c for r in results.values() for p, c in r["by_sign"].items()}
+    # every path off ar_solve_shapes launched neither general kernel (each
+    # group's phases are checked for it)
+    general_by_path = {p: (0, 0) for p in by_path}
+    general_by_sign = {p: (0, 0) for p in by_sign}
+    for r in results.values():
+        general_by_path.update(r["general_by_path"])
+        general_by_sign.update(r["general_by_sign"])
+    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start,
+          "group_seconds": {k: r["seconds"] for k, r in results.items()},
+          "phase_seconds": {p: s for r in results.values() for p, s in r["phase_seconds"].items()
+                            if p != "build"},
+          "build_seconds": {k: r["phase_seconds"]["build"] for k, r in results.items()}})
 
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
-        return out
+    def launches(body, which, counts_by_path, minus=None):
+        got = {path: counts[which] for path, counts in counts_by_path.items()}
+        extra = {} if minus is None else {"launches_at_sign_minus_by_path": {
+            path: counts[which] for path, counts in minus.items()}}
+        return {**body, "launches": sum(got.values()), "launches_by_path": got, **extra}
 
-    timed("build", phase_build)
-    solve = timed("ar_solve", phase_ar_solve)
-    solve2 = timed("ar_solve_latent2", phase_ar_solve_latent2)
-    solve64 = timed("ar_solve_latent64", phase_ar_solve_latent64)
-    solve30 = timed("ar_solve_latent30", phase_ar_solve_latent30)
-    ties_err = timed("ar_solve_ties", phase_ar_solve_ties)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        sl = timed("slice", phase_slice, tmp)
-        timed("parity", phase_parity, tmp)
-        train_loader, flagship_run = timed("mmvae_slice", phase_mmvae_slice, tmp)
-        for config in (FLAGSHIP, FLAGSHIP_BF16):
-            timed("mmvae_slice_time", phase_mmvae_time, tmp, config, train_loader)
-        timed("mmvae_parity", phase_mmvae_parity, tmp)
-        jnf_loader, jnf = timed("jnf_slice", phase_jnf_slice, tmp)
-        timed("jnf_slice_time", phase_jnf_time, tmp, jnf_loader)
-        timed("jnf_parity", phase_jnf_parity, tmp)
-        dcca_path, dcca_probe = timed("dcca", phase_dcca, tmp)
-        jnf_dcca = timed("jnf_dcca_slice", phase_jnf_dcca_slice, tmp, dcca_path)
-        telbo = timed("telbo_nf_slice", phase_telbo_slice, tmp)
-        mvae, mvae_run = timed("mvae_slice", phase_poe_slice, tmp, MVAE, "mvae")
-        moepoe, moepoe_run = timed("moepoe_slice", phase_poe_slice, tmp, MOEPOE, "moepoe")
-        analytics = timed("analytics", phase_analytics, sl)
-        runs = {"mmvae_nf": sl["run_path"], "flagship": flagship_run, "jnf": jnf["run_path"],
-                "mvae": mvae_run, "moepoe": moepoe_run}
-        validate = timed("eval_validate", phase_eval_validate, tmp, runs)
-        likelihoods = timed("eval_likelihoods", phase_eval_likelihoods, tmp, runs)
-        timed("eval_parity", phase_eval_parity, tmp, runs)
-        timed("eval_memory", phase_eval_memory, runs)
-        gen, gen_run1 = timed("gen_slice", phase_gen_slice, tmp, runs["jnf"])
-        timed("gen_parity", phase_gen_parity, gen_run1)
-        circles, circles_runs = timed("circles_slice", phase_circles_slice, tmp)
-        timed("circles_parity", phase_circles_parity, tmp, circles_runs["jnf"])
-        mnist1ch = timed("mnist1ch_slice", phase_mnist1ch_slice, tmp)
-        medmnist = timed("medmnist_slice", phase_medmnist_slice, tmp)
-        celeba = timed("celeba_slice", phase_celeba_slice, tmp)
-        timed("resnet_parity", phase_resnet_parity, tmp)
-        msf = timed("msf_slice", phase_msf_slice, tmp)
-        timed("msf_parity", phase_msf_parity, tmp)
-        iaf, iaf_minus = timed("iaf_slice", phase_iaf_slice, tmp)
-        tail, tail_minus, loader = timed("tail_slice", phase_tail_slice, tmp)
-        linnf = timed("linnf_slice", phase_linnf_slice, tmp, loader)
-        timed("tail_parity", phase_tail_parity, tmp)
-        ddp = timed("ddp_parity", phase_ddp_parity, tmp)
-        ddp.update(timed("ddp_slice", phase_ddp_slice, tmp))
-        fid = timed("fid_validate", phase_fid_validate, tmp, runs["mmvae_nf"])
-        timed("fid_parity", phase_fid_parity, tmp)
-        real = timed("real_layout", phase_real_layout, tmp)
-        timed("probes", phase_probes, dcca_probe, runs["mmvae_nf"])
-        timed("sweep", phase_sweep, tmp)
-        timed("ksplit_parity", phase_ksplit_parity, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-    # each path's own launches, its counts set to 0 just before it; the
-    # flagship's are checked to be none in its phase
-    by_path = {"mmvae_nf": (sl["launches"], sl["bwd_launches"]), "flagship": (0, 0),
-               "jnf": (jnf["launches"], jnf["bwd_launches"]), "jnf_dcca": jnf_dcca,
-               "telbo_nf": (telbo["launches"], telbo["bwd_launches"]), "mvae": mvae,
-               "moepoe": moepoe, "analytics_mmvae_nf": (analytics, 0),
-               **{f"validate_{k}": v for k, v in validate.items()},
-               **{f"likelihoods_{k}": v for k, v in likelihoods.items()},
-               **{f"gen_{k}": v for k, v in gen.items()}, **circles, **mnist1ch, **medmnist,
-               **celeba, **msf, **iaf, **tail, **linnf, **ddp, **fid, **real}
-    # the slice-11 paths' launches at sign -1 (IAF's density direction);
-    # every other path's solve is MAF's sampling direction, at sign +1
-    by_sign = {**iaf_minus, **tail_minus, **{path: (0, 0) for path in linnf}}
-
-    def entry(name, key, replaces, which, err, **extra):
-        r = solve["results"][key]
-        launches = {path: counts[which] for path, counts in by_path.items()}
-        return {"name": name, "route": "cuda", "source": "mmvae_tpu_torch/csrc/ar_flow.cu",
-                "replaces": replaces, "launches": sum(launches.values()),
-                "launches_by_path": launches,
-                "launches_at_sign_minus_by_path": {path: counts[which]
-                                                   for path, counts in by_sign.items()},
-                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-                **extra}
-
-    # the TPU kernel's pallas_call, and its custom_vjp backward (jax.vjp of
-    # the unrolled solve), which the backward kernel and the wrapper's
-    # reduction replace: its `ms` is both, the kernel alone beside it. The
-    # forward's times at eval's rows stand beside its main-path time.
-    at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
-    emit({"phase": "smoke", "seconds": time.perf_counter() - t_start, "phase_seconds": walls})
-    # and at circles-squares' latent 2, MedMNIST's 16, the trimodal 30 and
-    # CelebA's 64, with their rows
-    at2, at64, at30 = solve2["results"], solve64["results"], solve30["results"][30]
-
-    def fwd_at(res):
-        return {k: v for k, v in res.items() if not k.startswith("backward")}
-
-    def bwd_at(res):
-        return {k[len("backward_"):]: v for k, v in res.items() if k.startswith("backward")}
-
+    # the 128-wide kernels' launches on each path: all of the path's but the
+    # general kernels'
+    fast_by_path = {p: tuple(c[i] - general_by_path[p][i] for i in (0, 1))
+                    for p, c in by_path.items()}
+    bodies = results["kernels"]["kernels"]
     emit({"kernels": [
-        entry("ar_solve_forward", 128, "mmvae_tpu/ops/ar_flow.py:96", 0, solve["fwd_err"],
-              at_sign_minus_n128=solve["results"]["sign_minus_n128"]["forward"],
-              at_eval_rows=at_eval, max_abs_err_at_eval_rows=solve["eval_fwd_err"],
-              at_latent_2=fwd_at(at2), max_abs_err_at_latent_2=solve2["errs"]["forward"],
-              at_latent_16=fwd_at(at64[16]),
-              max_abs_err_at_latent_16=solve64["errs"][16]["forward"],
-              at_latent_30=fwd_at(at30), max_abs_err_at_latent_30=solve30["errs"][30]["forward"],
-              at_latent_64=fwd_at(at64[64]),
-              max_abs_err_at_latent_64=solve64["errs"][64]["forward"]),
-        entry("ar_solve_backward", "backward", "mmvae_tpu/ops/ar_flow.py:156", 1,
-              solve["bwd_err"],
-              kernel_ms=solve["results"]["backward"]["kernel_ms"],
-              at_sign_minus_n128=solve["results"]["sign_minus_n128"]["backward"],
-              at_latent_2=at2["backward_n128"],
-              max_abs_err_at_latent_2=solve2["errs"]["backward"],
-              at_latent_16=bwd_at(at64[16]),
-              max_abs_err_at_latent_16=solve64["errs"][16]["backward"],
-              at_latent_30=bwd_at(at30),
-              max_abs_err_at_latent_30=solve30["errs"][30]["backward"],
-              at_latent_64=bwd_at(at64[64]),
-              max_abs_err_at_latent_64=solve64["errs"][64]["backward"],
-              max_abs_err_at_zero_biases_latent_64=ties_err)]})
+        launches(bodies["ar_solve_forward"], 0, fast_by_path, by_sign),
+        launches(bodies["ar_solve_backward"], 1, fast_by_path, by_sign),
+        launches(bodies["ar_solve_general_forward"], 0, general_by_path, general_by_sign),
+        launches(bodies["ar_solve_general_backward"], 1, general_by_path, general_by_sign)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

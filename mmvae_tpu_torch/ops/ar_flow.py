@@ -1,24 +1,36 @@
 """Fused autoregressive-flow solve (mmvae_tpu/ops/ar_flow.py).
 
 `ar_solve` runs the whole D-step sequential solve of one MADE block. On a
-CUDA tensor its forward is the hand-written Hopper kernel in
-csrc/ar_flow.cu (one launch per call), and its backward is the backward
-kernel there, which returns the gradients of x, every weight and every
-bias in two launches per call: the reverse chain, which sums each block's
-weight and bias gradients as it goes, then the sum of those partial sums
-in block order. On a CPU tensor the forward is the plain PyTorch version
-`unrolled_solve` and the backward is the JAX package's own design
-(`_ar_solve_bwd`): autograd through `unrolled_solve`, re-run from the
-saved inputs.
+CUDA tensor it runs hand-written Hopper kernels, picked by `route` from the
+MADE's widths, the call's direction and the device's shared-memory limit
+before any launch:
+
+- the 128-wide pair in csrc/ar_flow.cu, for hidden layers of 128 (every
+  config's MADE): the forward (one launch), and the backward, which returns
+  the gradients of x, every weight and every bias in two launches: the
+  reverse chain, which sums each block's weight and bias gradients as it
+  goes, then the sum of those partial sums in block order;
+- the general pair in csrc/ar_flow_general.cu, for every other shape JAX's
+  Pallas solve takes (any hidden widths, any number of hidden layers): the
+  forward (one launch) and the backward's reverse chain (one launch), which
+  writes each hidden layer's per-step deltas; the weight and bias sums over
+  rows and steps are then plain matrix products (`sum_grads`).
+
+Both pairs read and write the same tape, so a call's forward and backward
+may take different pairs. On a CPU tensor the forward is the plain PyTorch
+version `unrolled_solve` and the backward is the JAX package's own design
+(`_ar_solve_bwd`): autograd through `unrolled_solve`, re-run from the saved
+inputs.
 
 The hidden ReLUs are `hidden_relu`, JAX's `jnp.maximum(z, 0.0)`, whose
 gradient at an exact tie is one half. The kernels take the same three
 slopes (1, 1/2, 0) from the pre-activations that the forward records.
 
-The backward kernel's algorithm has a plain version too, `plain_tape` and
-`plain_backward`: the same reverse chain, with the weight and bias sums
-taken inside, in explicit PyTorch, so that the CPU tests can hold the
-algorithm against JAX.
+The backward kernels' algorithms have plain versions too: `plain_tape` and
+`plain_backward` (the 128-wide chain, with the weight and bias sums taken
+inside) and `plain_chain` with `sum_grads` (the general chain and the sums
+taken after it), in explicit PyTorch, so that the CPU tests can hold the
+algorithms against JAX.
 
 The masked weights arrive with the mask already applied, as in JAX: the
 mask multiply stays outside the autograd Function, so gradients reach the
@@ -34,8 +46,15 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 _SOURCE = "ar_flow.cu"
-KERNEL_HIDDEN = 128  # the one hidden width the kernels take
+_GENERAL_SOURCE = "ar_flow_general.cu"
+KERNEL_HIDDEN = 128  # the one hidden width the 128-wide kernels take
 KERNEL_TILE_ROWS = 4  # the rows a block of the kernels owns at a time (kTile)
+# csrc/ar_flow.cu: the layers its kernels take (kMaxLayers, hidden + head)
+# and the hidden layers its backward takes (kMaxBackwardHidden)
+FAST_MAX_LAYERS, FAST_MAX_BACKWARD_HIDDEN = 8, 3
+# csrc/ar_flow_general.cu: the layers its kernels take (kMaxLayers), and
+# the bytes it counts for its kernels' static shared memory (kStaticSmem)
+GENERAL_MAX_LAYERS, GENERAL_STATIC_SMEM = 64, 2560
 
 
 def hidden_relu(z):
@@ -115,10 +134,32 @@ def plain_tape(x, masked_weights, biases, sign: int, s_bound: float = 0.0):
     return y, ld, tape
 
 
+def _relu_slope(z):
+    """hidden_relu's slope: 1 above 0, 1/2 at the tie, 0 below."""
+    return (z > 0).to(z.dtype) + 0.5 * (z == 0).to(z.dtype)
+
+
+def _head_grads(g, s_raw, x_i, y_i, gld, sign: int, s_bound: float):
+    """Step i of the reverse chain at the head, from y's gradient g at
+    feature i: (gx_i, the gradient at mu_i, the gradient at the raw s_i)."""
+    s, ds = s_raw, 1.0
+    if s_bound > 0.0:
+        t = torch.tanh(s_raw / s_bound)
+        s, ds = s_bound * t, 1.0 - t * t
+    if sign < 0:
+        gx_i = g * torch.exp(-s)
+        g_mu, g_s = -gx_i, -g * y_i - gld
+    else:
+        e = torch.exp(s)
+        gx_i = g * e
+        g_mu, g_s = g, g * x_i * e + gld
+    return gx_i, g_mu, g_s * ds
+
+
 def plain_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
-    """Plain version of the backward kernel on (N, D) tensors: the reverse
-    chain over i = D-1..0, with the weight and bias gradients summed over
-    rows and steps as it goes. Returns (gx, gws, gbs).
+    """Plain version of the 128-wide backward kernel on (N, D) tensors: the
+    reverse chain over i = D-1..0, with the weight and bias gradients summed
+    over rows and steps as it goes. Returns (gx, gws, gbs).
 
     y's gradient at feature i is gy_i plus what the first layer of every
     later step sends back, W0[i, :] . dsum, where dsum sums the first
@@ -134,33 +175,65 @@ def plain_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound
     dsum = x.new_zeros(n, ws[0].shape[1])
     for i in reversed(range(d)):
         gws[0][i] = y[:, i] @ dsum
-        g, s_raw = gy[:, i] + dsum @ ws[0][i], tape.s[i]
-        s, ds = s_raw, 1.0
-        if s_bound > 0.0:
-            t = torch.tanh(s_raw / s_bound)
-            s, ds = s_bound * t, 1.0 - t * t
-        if sign < 0:
-            gx[:, i] = g * torch.exp(-s)
-            g_mu, g_s = -gx[:, i], -g * y[:, i] - gld
-        else:
-            e = torch.exp(s)
-            gx[:, i] = g * e
-            g_mu, g_s = g, g * x[:, i] * e + gld
-        g_s = g_s * ds
+        gx[:, i], g_mu, g_s = _head_grads(gy[:, i] + dsum @ ws[0][i], tape.s[i], x[:, i],
+                                          y[:, i], gld, sign, s_bound)
         h = hidden_relu(tape.z[-1][i])
         gws[-1][:, i], gws[-1][:, i + d] = g_mu @ h, g_s @ h
         gbs[-1][i], gbs[-1][i + d] = g_mu.sum(), g_s.sum()
         g_in = g_mu[:, None] * ws[-1][:, i] + g_s[:, None] * ws[-1][:, i + d]
         for li in range(len(ws) - 2, -1, -1):
-            z = tape.z[li][i]
-            # hidden_relu's slope: 1 above 0, 1/2 at the tie, 0 below
-            delta = g_in * ((z > 0).to(z.dtype) + 0.5 * (z == 0).to(z.dtype))
+            delta = g_in * _relu_slope(tape.z[li][i])
             gbs[li] += delta.sum(0)
             if li > 0:
                 gws[li] += hidden_relu(tape.z[li - 1][i]).T @ delta
                 g_in = delta @ ws[li].T
         dsum += delta
     return gx, gws, gbs
+
+
+def plain_chain(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
+    """Plain version of the general backward kernel on (N, D) tensors: the
+    same reverse chain as `plain_backward`, which keeps each step's deltas
+    instead of summing them. Returns (gx, deltas, head): deltas[l] (D, N,
+    width of hidden layer l), the gradient at layer l's pre-activation at
+    each step; head (D, N, 2), the gradients at mu_i and the raw s_i at step
+    i (head columns i and i+D, the only ones step i reaches)."""
+    ws = list(masked_weights)
+    n, d = x.shape
+    gx = torch.empty_like(x)
+    deltas = [x.new_empty(d, n, w.shape[1]) for w in ws[:-1]]
+    head = x.new_empty(d, n, 2)
+    dsum = x.new_zeros(n, ws[0].shape[1])
+    for i in reversed(range(d)):
+        gx[:, i], g_mu, g_s = _head_grads(gy[:, i] + dsum @ ws[0][i], tape.s[i], x[:, i],
+                                          y[:, i], gld, sign, s_bound)
+        head[i, :, 0], head[i, :, 1] = g_mu, g_s
+        g_in = g_mu[:, None] * ws[-1][:, i] + g_s[:, None] * ws[-1][:, i + d]
+        for li in range(len(ws) - 2, -1, -1):
+            deltas[li][i] = g_in * _relu_slope(tape.z[li][i])
+            if li > 0:
+                g_in = deltas[li][i] @ ws[li].T
+        dsum += deltas[0][i]
+    return gx, deltas, head
+
+
+def sum_grads(y, tape: Tape, deltas: Sequence[torch.Tensor], head: torch.Tensor):
+    """The weight and bias gradients from the general chain's per-step
+    deltas: sums over rows and steps, one matrix product and one sum per
+    layer, as JAX's autodiff of `unrolled_solve` leaves them to XLA. The
+    first layer's input at step i is y with the features from i on zeroed;
+    hidden layer l's is relu(z[l - 1]); the head's is the last hidden
+    layer's output, of which step i reaches columns i and i+D. Returns (gws,
+    gbs). (The ReLU is taken by clamp, not `hidden_relu`: these are values,
+    not a graph.)"""
+    n, d = y.shape
+    earlier = torch.ones(d, d, dtype=y.dtype, device=y.device).tril(-1)  # [i, k]: k < i
+    inputs = [y * earlier[:, None, :]] + [z.clamp(min=0) for z in tape.z]
+    gws = [a.reshape(-1, a.shape[-1]).T @ dl.reshape(-1, dl.shape[-1])
+           for a, dl in zip(inputs, deltas)]
+    gws.append(torch.einsum("inh,inc->hci", inputs[-1], head).reshape(-1, 2 * d))
+    gbs = [dl.sum((0, 1)) for dl in deltas] + [head.sum(1).T.reshape(-1)]
+    return gws, gbs
 
 
 def _widths(x: torch.Tensor, ws: List[torch.Tensor]) -> List[int]:
@@ -182,8 +255,9 @@ def _widths(x: torch.Tensor, ws: List[torch.Tensor]) -> List[int]:
     return widths
 
 
-def _check(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> List[int]:
-    """Validate what the forward kernel can take; returns the layer widths."""
+def _check_params(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> List[int]:
+    """Validate what the forward kernels take at any widths; returns the
+    layer widths."""
     widths = _widths(x, ws)
     if len(bs) != len(ws):
         raise ValueError("need one bias per weight")
@@ -191,13 +265,20 @@ def _check(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> L
         if tuple(b.shape) != (widths[li + 1],):
             raise ValueError(f"layer {li}: bias {tuple(b.shape)} != ({widths[li + 1]},)")
     _check_like(x, [x, *ws, *bs])
+    return widths
+
+
+def _check(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> List[int]:
+    """Validate what the 128-wide forward kernel can take; returns the layer
+    widths."""
+    widths = _check_params(x, ws, bs)
     _check_hidden(widths)
     return widths
 
 
 def _check_hidden(widths: List[int]) -> None:
-    """The kernels are built for hidden layers of KERNEL_HIDDEN only, the
-    width of the port's MADE blocks (csrc/ar_flow.cu, kHidden)."""
+    """The 128-wide kernels are built for hidden layers of KERNEL_HIDDEN
+    only, the width of the port's MADE blocks (csrc/ar_flow.cu, kHidden)."""
     if any(w != KERNEL_HIDDEN for w in widths[1:-1]):
         raise ValueError(f"ar_solve kernels take hidden layers of width {KERNEL_HIDDEN}, "
                          f"got {widths[1:-1]}")
@@ -233,6 +314,91 @@ def _lib():
     return lib
 
 
+def _general_lib():
+    from .build import load
+
+    lib = load(_GENERAL_SOURCE)
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        pp = ctypes.POINTER(vp)
+        lib.ar_solve_general_smem_bytes.argtypes = [ctypes.POINTER(ci), ci, ci]
+        lib.ar_solve_general_smem_bytes.restype = ctypes.c_longlong
+        lib.ar_solve_general_forward.argtypes = [
+            vp, pp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, vp, vp, pp, vp, vp]
+        lib.ar_solve_general_forward.restype = ci
+        lib.ar_solve_general_backward.argtypes = [
+            vp, vp, vp, vp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, pp, vp, pp, vp, vp, vp]
+        lib.ar_solve_general_backward.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def fast_smem_bytes(widths: Sequence[int], backward: bool):
+    """The dynamic shared memory, in bytes, one block of the 128-wide
+    forward or backward kernel needs at these layer widths ([D, hidden...,
+    2D]); None where its kernels do not take them. A copy of
+    csrc/ar_flow.cu's smem_floats (ar_solve_smem_bytes), so that `route` is
+    a function of numbers."""
+    n, d, h = len(widths) - 1, widths[0], KERNEL_HIDDEN
+    if (n < 2 or n > FAST_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
+            or any(w != h for w in widths[1:-1])):
+        return None
+    tile, warps, slices = KERNEL_TILE_ROWS, 16, 8
+    staged, part = (n - 2) * _round4(h * (h + 1)), slices * h * tile
+    if backward:
+        floats = (staged + 5 * d * tile + 4 * tile + 3 * (n - 1) * h * tile + h * tile
+                  + warps * tile + part)
+    else:
+        floats = (staged + 2 * h * tile + part + sum(_round4(w) for w in widths[1:])
+                  + 2 * d * tile + h * tile + 2 * warps * tile)
+    return 4 * floats
+
+
+def general_smem_bytes(widths: Sequence[int], backward: bool):
+    """The shared memory, dynamic and static, in bytes, one block of the
+    general forward or backward kernel needs at these layer widths; None
+    where its kernels do not take them. A copy of csrc/ar_flow_general.cu's
+    ar_solve_general_smem_bytes."""
+    n, d = len(widths) - 1, widths[0]
+    if (n < 2 or n > GENERAL_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
+            or min(widths[1:-1]) < 1):
+        return None
+    w1, wmax, warps = widths[1], max(widths[1:-1]), 8
+    floats = 5 * d + w1 + 2 * wmax + warps + 3 if backward else 2 * d + w1 + 2 * wmax + 2 * warps
+    return 4 * floats * KERNEL_TILE_ROWS + GENERAL_STATIC_SMEM
+
+
+def route(widths: Sequence[int], backward: bool, limit: int) -> str:
+    """The kernel that takes one direction of a call at these layer widths
+    ([D, hidden..., 2D]) on a device that allows `limit` bytes of shared
+    memory a block: "fast", the 128-wide kernel of csrc/ar_flow.cu, wherever
+    it takes them (hidden layers of 128; a backward of at most three); else
+    "general", the kernel of csrc/ar_flow_general.cu. Raises ValueError
+    where neither does. Decided from numbers alone, before any launch. Both
+    pairs read and write the same tape, so the two directions of one call
+    may take different kernels (a 4-hidden-layer MADE of 128: the fast
+    forward, the general backward)."""
+    fast = fast_smem_bytes(widths, backward)
+    if (fast is not None and fast <= limit
+            and not (backward and len(widths) - 2 > FAST_MAX_BACKWARD_HIDDEN)):
+        return "fast"
+    general = general_smem_bytes(widths, backward)
+    if general is not None and general <= limit:
+        return "general"
+    raise ValueError(f"ar_solve has no kernel for the {'backward' if backward else 'forward'} "
+                     f"at widths {list(widths)}: the general kernel needs {general} bytes of "
+                     f"shared memory per block; the device allows {limit}")
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
+
+
 @functools.lru_cache(maxsize=None)
 def _check_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> int:
     """Shared memory one block needs at these layer widths, checked against
@@ -243,6 +409,18 @@ def _check_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> i
     if need < 0 or need > limit:
         raise ValueError(f"ar_solve needs {need} bytes of shared memory per block at widths "
                          f"{list(widths)}; the device allows {limit}")
+    return need
+
+
+@functools.lru_cache(maxsize=None)
+def _check_general_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> int:
+    """As `_check_smem`, for the general kernels."""
+    arr = (ctypes.c_int * len(widths))(*widths)
+    need = int(_general_lib().ar_solve_general_smem_bytes(arr, len(widths) - 1, int(backward)))
+    limit = _smem_limit(device_index)
+    if need < 0 or need > limit:
+        raise ValueError(f"ar_solve's general kernel needs {need} bytes of shared memory per "
+                         f"block at widths {list(widths)}; the device allows {limit}")
     return need
 
 
@@ -270,17 +448,9 @@ def _check_tape(x, tape: Tape, widths: List[int]) -> None:
     _check_like(x, [*tape.z, tape.s])
 
 
-def kernel_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
-                   tape: Tape | None = None):
-    """Launch the Hopper forward kernel on (N, D) CUDA tensors. Returns
-    (y, logdet). With `tape` (from `new_tape`) the launch also records the
-    per-step hidden pre-activations and raw log-scales the backward needs."""
-    ws, bs = list(masked_weights), list(biases)
-    if not x.is_cuda:
-        raise ValueError("kernel_forward takes CUDA tensors")
-    widths = _check(x, ws, bs)
-    lib = _lib()
-    _check_smem(tuple(widths), x.device.index, False)
+def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, general: bool):
+    """One forward launch (`launch`: the C entry of either kernel, whose
+    arguments are the same) on tensors already checked; counts it."""
     n, d = x.shape
     if tape is not None:
         _check_tape(x, tape, widths)
@@ -290,32 +460,77 @@ def kernel_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
         return y, ld
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.ar_solve_forward(
+        err = launch(
             x.data_ptr(), _ptrs(ws), _ptrs(bs), (ctypes.c_int * len(widths))(*widths), len(ws),
             n, int(sign), float(s_bound), y.data_ptr(), ld.data_ptr(),
             None if tape is None else _ptrs(tape.z),
             None if tape is None else tape.s.data_ptr(), stream)
-    _raise_on(err, "forward")
+    _raise_on(err, "general forward" if general else "forward")
     ar_solve.launches += 1
+    ar_solve.general_launches += int(general)
     ar_solve.sign_minus_launches += int(sign < 0)
     return y, ld
 
 
-def kernel_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
-    """Launch the Hopper backward kernel on (N, D) CUDA tensors: the same
-    result as `plain_backward`, (gx, gws, gbs)."""
-    ws = list(masked_weights)
+def kernel_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
+                   tape: Tape | None = None):
+    """Launch the 128-wide Hopper forward kernel on (N, D) CUDA tensors.
+    Returns (y, logdet). With `tape` (from `new_tape`) the launch also
+    records the per-step hidden pre-activations and raw log-scales the
+    backward needs."""
+    ws, bs = list(masked_weights), list(biases)
     if not x.is_cuda:
-        raise ValueError("kernel_backward takes CUDA tensors")
+        raise ValueError("kernel_forward takes CUDA tensors")
+    widths = _check(x, ws, bs)
+    lib = _lib()
+    _check_smem(tuple(widths), x.device.index, False)
+    return _forward(lib.ar_solve_forward, x, ws, bs, widths, sign, s_bound, tape, False)
+
+
+def general_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
+                    tape: Tape | None = None):
+    """Launch the general Hopper forward kernel on (N, D) CUDA tensors, at
+    any MADE widths (128-wide included): as `kernel_forward`."""
+    ws, bs = list(masked_weights), list(biases)
+    if not x.is_cuda:
+        raise ValueError("general_forward takes CUDA tensors")
+    widths = _check_params(x, ws, bs)
+    lib = _general_lib()
+    _check_general_smem(tuple(widths), x.device.index, False)
+    return _forward(lib.ar_solve_general_forward, x, ws, bs, widths, sign, s_bound, tape, True)
+
+
+def _check_backward_args(x, y, gy, gld, tape: Tape, ws) -> List[int]:
     widths = _widths(x, ws)
     n, d = x.shape
     for name, t in (("y", y), ("gy", gy)):
         _check_shape(name, t, (n, d))
     _check_shape("gld", gld, (n,))
     _check_like(x, [x, *ws, y, gy, gld])
-    _check_hidden(widths)
     _check_tape(x, tape, widths)
+    return widths
+
+
+def kernel_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
+    """Launch the 128-wide Hopper backward kernel on (N, D) CUDA tensors:
+    the same result as `plain_backward`, (gx, gws, gbs)."""
+    ws = list(masked_weights)
+    if not x.is_cuda:
+        raise ValueError("kernel_backward takes CUDA tensors")
+    widths = _check_backward_args(x, y, gy, gld, tape, ws)
+    _check_hidden(widths)
     return _backward(x, y, gy, gld, tape, ws, widths, sign, s_bound)
+
+
+def general_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
+    """Launch the general Hopper backward kernel on (N, D) CUDA tensors, at
+    any MADE widths, and sum its deltas: the same result as
+    `plain_backward`, (gx, gws, gbs)."""
+    ws = list(masked_weights)
+    if not x.is_cuda:
+        raise ValueError("general_backward takes CUDA tensors")
+    widths = _check_backward_args(x, y, gy, gld, tape, ws)
+    return _general_backward(x, y, gy, gld, tape, ws, widths, sign, s_bound)
 
 
 def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
@@ -348,10 +563,36 @@ def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
     return gx, grads[:len(ws)], grads[len(ws):]
 
 
+def _general_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
+    """The general backward on tensors already checked: one launch of the
+    reverse chain, which writes gx and every step's deltas, then
+    `sum_grads` over them."""
+    lib = _general_lib()
+    _check_general_smem(tuple(widths), x.device.index, True)
+    n, d = x.shape
+    gx = torch.empty_like(x)
+    deltas = [x.new_empty(d, n, w) for w in widths[1:-1]]
+    head = x.new_empty(d, n, 2)
+    if n > 0:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with torch.cuda.device(x.device):
+            err = lib.ar_solve_general_backward(
+                x.data_ptr(), y.data_ptr(), gy.data_ptr(), gld.data_ptr(), _ptrs(ws),
+                (ctypes.c_int * len(widths))(*widths), len(ws), n, int(sign), float(s_bound),
+                _ptrs(tape.z), tape.s.data_ptr(), _ptrs(deltas), head.data_ptr(),
+                gx.data_ptr(), stream)
+        _raise_on(err, "general backward")
+        ar_solve.backward_launches += 1
+        ar_solve.general_backward_launches += 1
+        ar_solve.sign_minus_backward_launches += int(sign < 0)
+    gws, gbs = sum_grads(y, tape, deltas, head)
+    return gx, gws, gbs
+
+
 class _ARSolve(torch.autograd.Function):
-    """CUDA: forward kernel (recording the tape when gradients are wanted)
-    and backward kernel. CPU: the plain version, and autograd through
-    `unrolled_solve` (JAX `_ar_solve_bwd`)."""
+    """CUDA: the forward kernel that `route` picks (recording the tape when
+    gradients are wanted) and the backward kernel it picks. CPU: the plain
+    version, and autograd through `unrolled_solve` (JAX `_ar_solve_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, sign, s_bound, n_layers, record, *params):
@@ -361,10 +602,15 @@ class _ARSolve(torch.autograd.Function):
         if not x.is_cuda:
             ctx.save_for_backward(x, *params)
             return unrolled_solve(x, ws, bs, sign, s_bound)
+        widths = _check_params(x, ws, bs)
+        limit = _smem_limit(x.device.index)
+        # both directions are routed before any launch
+        forward = kernel_forward if route(widths, False, limit) == "fast" else general_forward
+        ctx.route = route(widths, True, limit) if record else None
         tape = new_tape(x, ws) if record else None
-        y, ld = kernel_forward(x, ws, bs, sign, s_bound, tape=tape)
+        y, ld = forward(x, ws, bs, sign, s_bound, tape=tape)
         if record:
-            ctx.widths = [x.shape[1]] + [w.shape[1] for w in ws]
+            ctx.widths = widths
             ctx.save_for_backward(x, y, tape.s, *tape.z, *ws)
         return y, ld
 
@@ -374,10 +620,11 @@ class _ARSolve(torch.autograd.Function):
         if ctx.on_card:
             x, y, s, *rest = ctx.saved_tensors
             tape, ws = Tape(rest[:n - 1], s), rest[n - 1:]
+            backward = _backward if ctx.route == "fast" else _general_backward
             # the saved tensors were checked by the forward; gy and gld come
             # from autograd with the outputs' shapes
-            gx, gws, gbs = _backward(x, y, gy.contiguous(), gld.contiguous(), tape, ws,
-                                     ctx.widths, ctx.sign, ctx.s_bound)
+            gx, gws, gbs = backward(x, y, gy.contiguous(), gld.contiguous(), tape, ws,
+                                    ctx.widths, ctx.sign, ctx.s_bound)
             return (gx, None, None, None, None, *gws, *gbs)
         x, *params = ctx.saved_tensors
         with torch.enable_grad():
@@ -408,9 +655,11 @@ def ar_solve(x, masked_weights: Sequence[torch.Tensor], biases: Sequence[torch.T
 
 
 # kernel launches since the last reset (plain integers; reset by assigning
-# 0), a backward call (its two launches) counted once, and among them those
-# at sign -1, IAF's density direction
+# 0), a backward call (its launches) counted once, and among them those at
+# sign -1, IAF's density direction, and those of the general kernels
 ar_solve.launches = 0
 ar_solve.backward_launches = 0
 ar_solve.sign_minus_launches = 0
 ar_solve.sign_minus_backward_launches = 0
+ar_solve.general_launches = 0
+ar_solve.general_backward_launches = 0

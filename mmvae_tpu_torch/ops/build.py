@@ -64,13 +64,15 @@ def _build(source: str, out: str) -> None:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library for csrc/<source>, built first if needed. A lock
-    on the build directory lets one process build while the others (the
-    ranks of a data-parallel run) wait for its library."""
+    per source in the build directory lets one process build it while the
+    others (the ranks of a data-parallel run) wait for its library, and
+    lets two sources build at once."""
     if source not in _loaded:
         out = _lib_path(source)
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+            stem = os.path.splitext(source)[0]
+            with open(os.path.join(BUILD_DIR, f"{stem}.lock"), "w") as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 if not os.path.exists(out):
                     _build(source, out)

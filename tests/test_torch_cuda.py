@@ -6,7 +6,8 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
 
 The Hopper ar_solve kernels are held against the plain PyTorch versions on
 the card at the main path's widths (D=20, three hidden layers of 128, real
-MADE masks), float32 with TF32 off: the forward against `unrolled_solve`,
+MADE masks), and the general pair at widths the 128-wide pair refuses,
+float32 with TF32 off: the forward against `unrolled_solve`,
 the backward (the gradients of x, every weight and every bias) against
 autograd through `unrolled_solve`. The same arithmetic in another summation
 order, so rtol/atol 1e-4. At MADE's zero initial biases the tape holds the
@@ -313,6 +314,94 @@ def test_kernel_refuses_what_it_cannot_take(card):
         ar_flow.kernel_backward(x, y, x, x[:, 0].contiguous(), tape, ws4, 1)
     with pytest.raises(ValueError, match="CUDA"):
         ar_flow.kernel_forward(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs], 1)
+
+
+def _made_weights(dev, seed, d, hidden):
+    """Masked MADE weights and biases at hidden widths `hidden`."""
+    rng = np.random.default_rng(seed)
+    masks, out_mask = build_masks(d, hidden)
+    masks = masks + [np.concatenate([out_mask, out_mask], axis=1)]
+    ws = [torch.tensor(rng.standard_normal(m.shape) / np.sqrt(m.shape[0]) * m,
+                       dtype=torch.float32, device=dev) for m in masks]
+    bs = [torch.tensor(rng.standard_normal(m.shape[1]) * 0.1, dtype=torch.float32, device=dev)
+          for m in masks]
+    return ws, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,d", [((64,) * 3, 20), ((128,) * 4, 20), ((256,) * 2, 64)])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_general_kernels_match_plain(card, hidden, d, sign):
+    """The general pair (csrc/ar_flow_general.cu) at widths the 128-wide
+    pair refuses or no config has: the forward against `unrolled_solve`, its
+    tape against `plain_tape`, the backward (one launch, then `sum_grads`)
+    against autograd through `unrolled_solve` for x, every weight and every
+    bias, and a second backward call bitwise equal."""
+    ws, bs = _made_weights(card, 60 + d, d, hidden)
+    gen = torch.Generator().manual_seed(61)
+    x, gy, gld = (torch.randn(*shape, generator=gen).to(card)
+                  for shape in ((37, d), (37, d), (37,)))
+    before = (ar_flow.ar_solve.general_launches, ar_flow.ar_solve.general_backward_launches)
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.general_forward(x, ws, bs, sign, 8.0, tape=tape)
+    gx, gws, gbs = ar_flow.general_backward(x, y, gy, gld, tape, ws, sign, 8.0)
+    again = ar_flow.general_backward(x, y, gy, gld, tape, ws, sign, 8.0)
+    assert (ar_flow.ar_solve.general_launches,
+            ar_flow.ar_solve.general_backward_launches) == (before[0] + 1, before[1] + 2)
+    y_p, ld_p, tape_p = ar_flow.plain_tape(x, ws, bs, sign, 8.0)
+    inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
+    outs = ar_flow.unrolled_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):], sign,
+                                  8.0)
+    want = torch.autograd.grad(outs, inputs, (gy, gld))
+    for got, ref in zip([y, ld, tape.s, *tape.z, gx, *gws, *gbs],
+                        [y_p, ld_p, tape_p.s, *tape_p.z, *want]):
+        torch.testing.assert_close(got, ref.detach(), **TOL)
+    for a, b in zip([gx, *gws, *gbs], [again[0], *again[1], *again[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ar_solve_at_four_hidden_layers_of_128(card):
+    """A MADE of 4 x 128 under autograd: `ar_solve` routes its forward to the
+    128-wide kernel and its backward, which that kernel's shared memory
+    refuses, to the general kernel (no ValueError), and gives the plain
+    version's values and gradients."""
+    ws, bs = _made_weights(card, 62, D, (128,) * 4)
+    x = torch.randn(64, D, generator=torch.Generator().manual_seed(63)).to(card)
+    runs = {}
+    for name in ("fused", "plain"):
+        xi = x.clone().requires_grad_(True)
+        params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
+        solve = ar_flow.ar_solve if name == "fused" else ar_flow.unrolled_solve
+        a = ar_flow.ar_solve
+        before = (a.launches, a.general_launches, a.backward_launches, a.general_backward_launches)
+        y, ld = solve(xi, params[:len(ws)], params[len(ws):], 1, 0.0)
+        (y.square().sum() + ld.sum()).backward()
+        after = (a.launches, a.general_launches, a.backward_launches, a.general_backward_launches)
+        assert [b - c for b, c in zip(after, before)] == ([1, 0, 1, 1] if name == "fused"
+                                                          else [0, 0, 0, 0])
+        runs[name] = [y, ld, xi.grad, *(p.grad for p in params)]
+    for a, b in zip(runs["fused"], runs["plain"]):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,d", [((128,) * 3, 20), ((128,) * 4, 64), ((128,) * 6, 2),
+                                      ((64,) * 4, 20), ((96, 160, 64), 30), ((32,), 2)])
+def test_shared_memory_copies_match_the_kernels(card, hidden, d):
+    """`route` decides from the Python copies of the kernels' shared-memory
+    sizes (`fast_smem_bytes`, `general_smem_bytes`): they equal what the
+    built libraries compute."""
+    import ctypes
+
+    widths = [d, *hidden, 2 * d]
+    arr = (ctypes.c_int * len(widths))(*widths)
+    for backward in (0, 1):
+        fast = ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, backward)
+        general = ar_flow._general_lib().ar_solve_general_smem_bytes(arr, len(widths) - 1,
+                                                                    backward)
+        assert fast == (ar_flow.fast_smem_bytes(widths, backward) or -1)
+        assert general == ar_flow.general_smem_bytes(widths, backward)
 
 
 @pytest.mark.cuda

@@ -273,24 +273,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 45. ar_solve_shapes (in the `kernels` group): the general pair
    (csrc/ar_flow_general.cu), which `ar_solve` routes every MADE to that
-   the 128-wide pair refuses, at hidden widths 64 x 4 and 64 x 3 (D = 20,
-   N = 128), 128 x 4 and 128 x 6 (the backward, then the forward, the
-   128-wide pair refuses), 256 x 2 (D = 64, N = 256), 100 x 3 (D = 16,
-   N = 37: ragged width and rows), 96-160-64 (D = 30, N = 256), 32 x 1 (D =
-   2) and 64 x 4 at D = 64, N = 7,680: the C libraries' shared-memory sizes
-   against their Python copies, the routes, the forward against
-   `unrolled_solve` and the backward against autograd through it on the
-   kernel's ReLU branches, a second backward bitwise equal, both signs,
-   s_bound 0 and 8 (rtol/atol 1e-4); one call through `ar_solve` launching
-   the routed kernels as predicted with their direct entries' bits; the
-   times beside the plain versions and bounds, and at 128 x 3 (D = 20, N =
-   128) the general pair forced and timed beside the 128-wide pair. Then
-   the backward at zero MADE biases with ties past step 0 (64 x 4, D = 64,
-   7,680 rows) and its slope-0 control, which must miss; and the flow path:
-   MAF's sampling and IAF's density direction built with hidden_size 64,
-   n_hidden_in_made 4 (D = 20, B = 128), forward and backward on the card,
-   2 general launches each way, against the float64 modules on the CPU on
-   the card's ReLU branches.
+   the 128-wide pair refuses and a cluster of at most 8 CTAs holds, at
+   hidden widths 64 x 4 and 64 x 3 (D = 20, N = 128), 128 x 4 and 128 x 6
+   (the backward, then the forward, the 128-wide pair refuses), 256 x 2
+   (D = 64, N = 256), 100 x 3 (D = 16, N = 37: ragged width and rows),
+   96-160-64 (D = 30, N = 256), 32 x 1 (D = 2) and 64 x 4 at D = 64, N =
+   7,680; and the streamed pair (csrc/ar_flow_streamed.cu), the third
+   route, at 1,024 x 2 (D = 16, N = 128), past what 8 CTAs hold: the C
+   libraries' plan (cluster, rows a tile, shared bytes) and shared-memory
+   sizes against their Python copies, each shape's plan and grid, the
+   routes, the forward against `unrolled_solve` and the backward against
+   autograd through it on the kernel's ReLU branches, a second backward
+   bitwise equal, both signs, s_bound 0 and 8 (rtol/atol 1e-4); one call
+   through `ar_solve` launching the routed kernels as predicted with their
+   direct entries' bits; the times beside the plain versions and bounds,
+   and at 128 x 3 (D = 20, N = 128) the general pair forced and timed
+   beside the 128-wide pair. Then the backward at zero MADE biases with
+   ties past step 0 (64 x 4, D = 64, 7,680 rows) and its slope-0 control,
+   which must miss; and the flow paths: MAF's sampling and IAF's density
+   direction built with hidden_size 64, n_hidden_in_made 4 (D = 20, B =
+   128), 2 general launches each way, and MAF's sampling with hidden_size
+   1,024, n_hidden_in_made 2 (D = 16, B = 128), 2 streamed launches each
+   way, forward and backward on the card, against the float64 modules on
+   the CPU on the card's ReLU branches.
 """
 
 from __future__ import annotations
@@ -543,7 +548,7 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
 
 
 def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
-                    general=False):
+                    kind="fast"):
     """The backward (both launches) against autograd through
     `unrolled_solve`, for x, every weight and every bias; the
     reference takes the forward kernel's hidden ReLU branches
@@ -560,15 +565,15 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
     `tie_control`, the reference is replayed once more with slope 0 at the
     ties (torch.relu's), and the kernel must miss that one past
     KERNEL_RTOL/KERNEL_ATOL: the ties carry gradient, and the kernel takes
-    them at 1/2. With `general`, the general pair's direct entries
-    (`general_forward`, `general_backward`) in place of the 128-wide pair's.
-    Returns the max abs error."""
+    them at 1/2. `kind` names the pair whose direct entries run: "fast"
+    (`kernel_forward`, `kernel_backward`), "general" or "streamed"
+    (`general_forward`/`general_backward`, and the streamed ones). Returns
+    the max abs error."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
-    forward, backward = ((ar_flow.general_forward, ar_flow.general_backward) if general
-                         else (ar_flow.kernel_forward, ar_flow.kernel_backward))
+    forward, backward = _entries(kind)
     tape = ar_flow.new_tape(x, ws)
     y, _ = forward(x, ws, bs, sign, s_bound, tape=tape)
     gx, gws, gbs = backward(x, y, gy, gld, tape, ws, sign, s_bound)
@@ -594,7 +599,7 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
                for a, b in zip(got, slope0)):
             raise AssertionError(f"ar_solve backward at {what}: slope 0 at the ties gives the "
                                  f"same gradients; no tie carries gradient")
-    return _check_close(dict(kernel="general_backward" if general else "backward", **what,
+    return _check_close(dict(kernel="backward" if kind == "fast" else f"{kind}_backward", **what,
                              relu_flips=rb.flips,
                              relu_flip_max_abs=rb.flip_max_abs,
                              ties_past_step_0=sum(int((z[1:] == 0).sum()) for z in tape.z),
@@ -605,7 +610,17 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
 
 
 BACKWARD_KERNELS = (("chain", "ar_solve_backward_kernel"), ("sum", "ar_solve_sum_kernel"))
-GENERAL_BACKWARD_KERNELS = (("chain", "general_backward_kernel"),)
+GENERAL_BACKWARD_KERNELS = (("chain", "general_backward_kernel"), ("sum", "general_sum_kernel"))
+STREAMED_BACKWARD_KERNELS = (("chain", "streamed_backward_kernel"),)
+
+
+def _entries(kind):
+    """The direct entries (forward, backward) of the pair `kind` names."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    return {"fast": (ar_flow.kernel_forward, ar_flow.kernel_backward),
+            "general": (ar_flow.general_forward, ar_flow.general_backward),
+            "streamed": (ar_flow.streamed_forward, ar_flow.streamed_backward)}[kind]
 
 
 def backward_kernel_ms(fn, reps=20, kernels=BACKWARD_KERNELS):
@@ -1485,8 +1500,8 @@ class _SolveBranches:
     A float64 CPU run replaying the recording then takes the kernels'
     branches as well."""
 
-    _FORWARDS = ("kernel_forward", "general_forward")
-    _BACKWARDS = ("_backward", "_general_backward")
+    _FORWARDS = ("kernel_forward", "general_forward", "streamed_forward")
+    _BACKWARDS = ("_backward", "_general_backward", "_streamed_backward")
 
     def __init__(self, relu):
         self.relu = relu
@@ -3256,11 +3271,15 @@ SHAPES = (((64,) * 4, 20, 128), ((64,) * 3, 20, 128), ((128,) * 4, 20, 128),
 # the general pair forced at the main path's shape, timed beside the
 # 128-wide pair on the same inputs
 SHAPES_FORCED = ((128,) * 3, 20, 128)
+# the third route: past what 8 CTAs' shared memory holds, the streamed pair
+SHAPES_STREAMED = ((1024,) * 2, 16, 128)
 # MADE's zero initial biases at inputs whose ties carry gradient past step 0
 SHAPES_TIES = ((64,) * 4, 64, 7_680)
 # the flow path: MAF's sampling and IAF's density direction through the
-# flows' own constructor arguments, D = 20, B = 128
+# flows' own constructor arguments, D = 20, B = 128; and MAF's sampling at
+# widths past 8 CTAs (the streamed pair), D = 16, B = 128
 SHAPES_FLOW = dict(features=20, hidden_size=64, n_hidden_in_made=4, rows=128)
+SHAPES_FLOW_STREAMED = dict(features=16, hidden_size=1024, n_hidden_in_made=2, rows=128)
 
 
 def shape_name(hidden, d, n):
@@ -3275,40 +3294,46 @@ def _counts():
     return dict(launches=a.launches, general_launches=a.general_launches,
                 backward_launches=a.backward_launches,
                 general_backward_launches=a.general_backward_launches,
+                streamed_launches=a.streamed_launches,
+                streamed_backward_launches=a.streamed_backward_launches,
                 sign_minus_launches=a.sign_minus_launches,
                 sign_minus_backward_launches=a.sign_minus_backward_launches)
 
 
 def _zero_counts():
-    """Every ar_solve count, the general kernels' too, set to 0."""
+    """Every ar_solve count, the general and streamed kernels' too, set to 0."""
     from mmvae_tpu_torch.ops import ar_flow
 
     _reset_counts()
-    ar_flow.ar_solve.general_launches = ar_flow.ar_solve.general_backward_launches = 0
+    a = ar_flow.ar_solve
+    a.general_launches = a.general_backward_launches = 0
+    a.streamed_launches = a.streamed_backward_launches = 0
 
 
 def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
     """One forward and backward through `ar_solve`: the kernels `route`
-    picked launched as predicted (one forward and one backward, general
-    where the route says so), with the bits of those kernels' direct
-    entries on the same inputs."""
+    picked launched as predicted (one forward and one backward, counted as
+    general off the 128-wide pair and as streamed on the third route), with
+    the bits of those kernels' direct entries on the same inputs."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
-    general = {k: routes[k] == "general" for k in routes}
     inputs = [t.clone().requires_grad_(True) for t in (x, *ws, *bs)]
     before = _counts()
     y, ld = ar_flow.ar_solve(inputs[0], inputs[1:1 + len(ws)], inputs[1 + len(ws):], sign,
                              s_bound)
     grads = torch.autograd.grad((y, ld), inputs, (gy, gld))
     after = _counts()
-    got = {k: after[k] - before[k] for k in ("launches", "general_launches",
-                                             "backward_launches", "general_backward_launches")}
-    expected = dict(launches=1, general_launches=int(general["forward"]), backward_launches=1,
-                    general_backward_launches=int(general["backward"]))
-    forward = ar_flow.general_forward if general["forward"] else ar_flow.kernel_forward
-    backward = ar_flow.general_backward if general["backward"] else ar_flow.kernel_backward
+    keys = ("launches", "general_launches", "streamed_launches", "backward_launches",
+            "general_backward_launches", "streamed_backward_launches")
+    got = {k: after[k] - before[k] for k in keys}
+    expected = dict(launches=1, general_launches=int(routes["forward"] != "fast"),
+                    streamed_launches=int(routes["forward"] == "streamed"), backward_launches=1,
+                    general_backward_launches=int(routes["backward"] != "fast"),
+                    streamed_backward_launches=int(routes["backward"] == "streamed"))
+    forward = _entries(routes["forward"])[0]
+    backward = _entries(routes["backward"])[1]
     tape = ar_flow.new_tape(x, ws)
     y2, ld2 = forward(x, ws, bs, sign, s_bound, tape=tape)
     gx, gws, gbs = backward(x, y2, gy, gld, tape, ws, sign, s_bound)
@@ -3322,10 +3347,11 @@ def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
                              f"{expected}), bitwise as the direct entries: {same}")
 
 
-def _time_general(what, x, ws, bs, gy, gld, fast=False):
-    """Device times of the general pair at sign +1, s_bound 0 (the backward
-    whole, its chain kernel alone beside it), their plain versions' and
-    bounds; with `fast`, the 128-wide pair's on the same inputs too."""
+def _time_general(what, x, ws, bs, gy, gld, kind="general", fast=False):
+    """Device times of the pair `kind` names (the general or the streamed)
+    at sign +1, s_bound 0 (the backward whole, its chain kernel alone beside
+    it), their plain versions' and bounds; with `fast`, the 128-wide pair's
+    on the same inputs too."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
@@ -3333,10 +3359,10 @@ def _time_general(what, x, ws, bs, gy, gld, fast=False):
     n, d = x.shape
     widths = made_widths(d, [w.shape[1] for w in ws[:-1]])
     n_w, n_b = sum(w.numel() for w in ws), sum(b.numel() for b in bs)
-    pairs = [("general", ar_flow.general_forward, ar_flow.general_backward,
-              GENERAL_BACKWARD_KERNELS)]
+    chains = {"general": GENERAL_BACKWARD_KERNELS, "streamed": STREAMED_BACKWARD_KERNELS}
+    pairs = [(kind, *_entries(kind), chains[kind])]
     if fast:
-        pairs.append(("fast", ar_flow.kernel_forward, ar_flow.kernel_backward, BACKWARD_KERNELS))
+        pairs.append(("fast", *_entries("fast"), BACKWARD_KERNELS))
     res = {}
     for name, forward, backward, kernels in pairs:
         with torch.no_grad():
@@ -3354,14 +3380,14 @@ def _time_general(what, x, ws, bs, gy, gld, fast=False):
     pb_ms = cuda_time_ms(_plain_vjp(x, ws, bs, 1, 0.0, gy, gld), rounds=5)
     f_bound = bound(solve_flops(n, widths), 4 * (2 * n * d + n + n_w + n_b))
     b_bound = bound(vjp_flops(n, widths), vjp_bytes(n, d, n_w, n_b))
-    g = res["general"]
+    g = res[kind]
     out = dict(forward=dict(ms=g["forward_ms"], plain_ms=p_ms, bound_ms=f_bound[0],
                             bound_by=f_bound[1]),
                backward=dict(ms=g["backward_ms"], kernel_ms=g["backward_kernel_ms"],
                              plain_ms=pb_ms, bound_ms=b_bound[0], bound_by=b_bound[1]))
     if fast:
         out["fast"] = res["fast"]
-    emit({"phase": "ar_solve_shapes_time", **what, **out,
+    emit({"phase": "ar_solve_shapes_time", **what, "pair": kind, **out,
           "forward_roofline_share": f_bound[0] / g["forward_ms"],
           "backward_roofline_share": b_bound[0] / g["backward_ms"]})
     return out
@@ -3369,14 +3395,16 @@ def _time_general(what, x, ws, bs, gy, gld, fast=False):
 
 def _shapes_flow():
     """MAF's sampling direction (sign +1) and IAF's density direction (sign
-    -1) at SHAPES_FLOW's widths, which the 128-wide pair refuses, forward
-    and backward on the card in float32 with every count set to 0 just
-    before and read just after (2 MADE blocks: 2 forward and 2 backward
-    launches, all general), against the same module in float64 on the CPU
-    on the card's hidden ReLU branches (`_ReluBranches`, `_SolveBranches`):
-    y and the log-det within KERNEL_RTOL/KERNEL_ATOL, the gradient of
-    sum(y * r) + sum(logdet * r') for z and every parameter within
-    STEP_GRAD_TOL of each leaf's largest entry. Returns each path's counts."""
+    -1) at SHAPES_FLOW's widths, which the 128-wide pair refuses (the general
+    pair), and MAF's sampling at SHAPES_FLOW_STREAMED's, which 8 CTAs cannot
+    hold (the streamed pair), forward and backward on the card in float32
+    with every count set to 0 just before and read just after (2 MADE
+    blocks: 2 forward and 2 backward launches, all general, and streamed on
+    the third route), against the same module in float64 on the CPU on the
+    card's hidden ReLU branches (`_ReluBranches`, `_SolveBranches`): y and
+    the log-det within KERNEL_RTOL/KERNEL_ATOL, the gradient of sum(y * r) +
+    sum(logdet * r') for z and every parameter within STEP_GRAD_TOL of each
+    leaf's largest entry. Returns each path's counts."""
     import copy
 
     import torch
@@ -3384,16 +3412,21 @@ def _shapes_flow():
     from mmvae_tpu_torch.flows import IAF, MAF
     from mmvae_tpu_torch.nets import init_parameters
 
-    f = SHAPES_FLOW
-    d, n = f["features"], f["rows"]
     paths = {}
-    for name, cls, method, sign in (("maf_64x4", MAF, "inverse", 1),
-                                    ("iaf_64x4", IAF, "forward", -1)):
-        gen = torch.Generator().manual_seed(sign + 3)
+    for name, cls, method, sign, f in (("maf_64x4", MAF, "inverse", 1, SHAPES_FLOW),
+                                       ("iaf_64x4", IAF, "forward", -1, SHAPES_FLOW),
+                                       ("maf_1024x2", MAF, "inverse", 1, SHAPES_FLOW_STREAMED)):
+        d, n = f["features"], f["rows"]
+        streamed = f is SHAPES_FLOW_STREAMED
+        gen = torch.Generator().manual_seed(sign + 3 + 10 * streamed)
         flow = cls(d, hidden_size=f["hidden_size"], n_hidden_in_made=f["n_hidden_in_made"])
         init_parameters(flow, gen)
         with torch.no_grad():  # MADE's biases off their zero start
             for p in flow.parameters():
+                # at 1,024 units a random MADE's log-scales compound over
+                # the D steps past float32's range: its weights a quarter
+                if streamed:
+                    p.mul_(0.25)
                 p.add_(torch.empty(p.shape).uniform_(-0.1, 0.1, generator=gen))
         z, r = (torch.randn(n, d, generator=gen) for _ in range(2))
         r_ld = torch.randn(n, generator=gen)
@@ -3418,7 +3451,9 @@ def _shapes_flow():
         grad_err = max(((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                        for a, b in zip(grads, want))
         expected = dict(launches=2, general_launches=2, backward_launches=2,
-                        general_backward_launches=2, sign_minus_launches=2 * (sign < 0),
+                        general_backward_launches=2, streamed_launches=2 * streamed,
+                        streamed_backward_launches=2 * streamed,
+                        sign_minus_launches=2 * (sign < 0),
                         sign_minus_backward_launches=2 * (sign < 0))
         ok = (value_ok and grad_err <= STEP_GRAD_TOL and counts == expected
               and len(rb.masks) == len(relu.masks) and rb.flip_max_abs <= RELU_KINK_ATOL)
@@ -3436,65 +3471,94 @@ def _shapes_flow():
     return paths
 
 
-def phase_ar_solve_shapes():
-    """The general pair (csrc/ar_flow_general.cu) at every shape of SHAPES
-    and SHAPES_FORCED: the C libraries' shared-memory sizes against
-    `fast_smem_bytes`/`general_smem_bytes`, the routes `route` picks; the
-    forward against `unrolled_solve` and the backward against autograd
-    through it on the forward kernel's ReLU branches, a second backward
-    bitwise equal (`_check_backward`), both signs, s_bound 0 and 8; one call
-    through `ar_solve` launching the routed kernels as predicted, with their
-    direct entries' bits (`_check_route`); the times beside the plain
-    versions and the bounds (`_time_general`), the 128-wide pair's too at
-    SHAPES_FORCED. Then the backward at MADE's zero biases with ties past
-    step 0 (SHAPES_TIES, `_tie_inputs`) and its slope-0 control, and the
-    flow path (`_shapes_flow`). Returns the times, the errors and the flow
-    paths' counts."""
+def _plans(widths, n, limit, sms):
+    """The C libraries' plan and shared-memory sizes at these widths and
+    rows against their Python copies (`general_plan`, `fast_smem_bytes`,
+    `streamed_smem_bytes`), and the general kernels' grid where there is a
+    plan: {"forward": {...}, "backward": {...}}."""
     import ctypes
 
+    from mmvae_tpu_torch.ops import ar_flow
+
+    arr = (ctypes.c_int * len(widths))(*widths)
+    out = {}
+    for k in ("forward", "backward"):
+        bwd = int(k == "backward")
+        c_fast = int(ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, bwd))
+        c_streamed = int(ar_flow._streamed_lib().ar_solve_streamed_smem_bytes(
+            arr, len(widths) - 1, bwd))
+        plan = (ctypes.c_int * 3)()
+        rc = ar_flow._general_lib().ar_solve_general_plan(arr, len(widths) - 1, bwd, n, sms,
+                                                          limit, plan)
+        c_plan = None if rc != 0 else tuple(plan)
+        py_fast = ar_flow.fast_smem_bytes(widths, bool(bwd))
+        py_plan = ar_flow.general_plan(widths, bool(bwd), n, sms, limit)
+        if ((c_fast, c_streamed, c_plan) != (-1 if py_fast is None else py_fast,
+                                             ar_flow.streamed_smem_bytes(widths, bool(bwd)),
+                                             py_plan)):
+            raise AssertionError(f"plans at {widths}, {n} rows ({k}): the C libraries say "
+                                 f"fast {c_fast}, streamed {c_streamed}, general {c_plan}; their "
+                                 f"Python copies {py_fast}, "
+                                 f"{ar_flow.streamed_smem_bytes(widths, bool(bwd))}, {py_plan}")
+        grid = (ar_flow._general_clusters(tuple(widths), bool(bwd), n, 0)
+                if c_plan is not None else None)
+        out[k] = dict(fast_smem_bytes=c_fast, streamed_smem_bytes=c_streamed,
+                      plan=None if c_plan is None else dict(cluster=c_plan[0], rows=c_plan[1],
+                                                            smem_bytes=c_plan[2]),
+                      clusters=grid)
+    return out
+
+
+def phase_ar_solve_shapes():
+    """The general pair (csrc/ar_flow_general.cu) at every shape of SHAPES
+    and SHAPES_FORCED, and the streamed pair (csrc/ar_flow_streamed.cu) at
+    SHAPES_STREAMED: the C libraries' plan and shared-memory sizes against
+    their Python copies, each shape's plan (cluster, rows a tile, shared
+    bytes) and grid, the routes `route` picks; the forward against
+    `unrolled_solve` and the backward against autograd through it on the
+    forward kernel's ReLU branches, a second backward bitwise equal
+    (`_check_backward`), both signs, s_bound 0 and 8; one call through
+    `ar_solve` launching the routed kernels as predicted, with their direct
+    entries' bits (`_check_route`); the times beside the plain versions and
+    the bounds (`_time_general`), the 128-wide pair's too at SHAPES_FORCED.
+    Then the general backward at MADE's zero biases with ties past step 0
+    (SHAPES_TIES, `_tie_inputs`) and its slope-0 control, and the flow paths
+    (`_shapes_flow`). Returns the times, the errors and the flow paths'
+    counts."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
-    limit = ar_flow._smem_limit(0)
-    results, routes_by_shape = {}, {}
-    errs = {"forward": 0.0, "backward": 0.0}
-    for hidden, d, n in SHAPES + (SHAPES_FORCED,):
+    limit, sms = ar_flow._smem_limit(0), ar_flow._sm_count(0)
+    results, routes_by_shape, plans_by_shape = {}, {}, {}
+    errs = {k: {"forward": 0.0, "backward": 0.0} for k in ("general", "streamed")}
+    for hidden, d, n in SHAPES + (SHAPES_FORCED, SHAPES_STREAMED):
         name = shape_name(hidden, d, n)
+        kind = "streamed" if (hidden, d, n) == SHAPES_STREAMED else "general"
         gen = torch.Generator().manual_seed(d + len(hidden))
         ws, bs = _made_params(d, hidden, gen)
         widths = made_widths(d, hidden)
-        arr = (ctypes.c_int * len(widths))(*widths)
-        smem = {}
-        for k in ("forward", "backward"):
-            c_fast = int(ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, k == "backward"))
-            c_general = int(ar_flow._general_lib().ar_solve_general_smem_bytes(
-                arr, len(widths) - 1, k == "backward"))
-            py_fast = ar_flow.fast_smem_bytes(widths, k == "backward")
-            smem[k] = dict(fast=c_fast, general=c_general)
-            if (c_fast, c_general) != (-1 if py_fast is None else py_fast,
-                                       ar_flow.general_smem_bytes(widths, k == "backward")):
-                raise AssertionError(f"shared memory at {widths} ({k}): the C libraries say "
-                                     f"{smem[k]}, their Python copies differ")
+        plans = _plans(widths, n, limit, sms)
         routes = {k: ar_flow.route(widths, k == "backward", limit) for k in ("forward", "backward")}
-        routes_by_shape[name] = routes
-        emit({"phase": "ar_solve_shapes", "shape": name, "widths": widths, "smem_bytes": smem,
-              "smem_limit": limit, "routes": routes})
+        routes_by_shape[name], plans_by_shape[name] = routes, plans
+        emit({"phase": "ar_solve_shapes", "shape": name, "widths": widths, "pair": kind,
+              "plans": plans, "smem_limit": limit, "sms": sms, "routes": routes})
         x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
         gld = torch.randn(n, generator=gen).cuda()
+        forward = _entries(kind)[0]
         for sign in (1, -1):
             for s_bound in (0.0, 8.0):
                 what = dict(shape=name, sign=sign, s_bound=s_bound)
                 with torch.no_grad():
-                    y_k, ld_k = ar_flow.general_forward(x, ws, bs, sign, s_bound)
+                    y_k, ld_k = forward(x, ws, bs, sign, s_bound)
                     y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
                 torch.cuda.synchronize()
-                errs["forward"] = max(errs["forward"], _check_close(
-                    dict(kernel="general_forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
-                errs["backward"] = max(errs["backward"], _check_backward(
-                    what, x, ws, bs, sign, s_bound, gy, gld, general=True))
+                errs[kind]["forward"] = max(errs[kind]["forward"], _check_close(
+                    dict(kernel=f"{kind}_forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
+                errs[kind]["backward"] = max(errs[kind]["backward"], _check_backward(
+                    what, x, ws, bs, sign, s_bound, gy, gld, kind=kind))
         _check_route(dict(shape=name, sign=1, s_bound=8.0), x, ws, bs, 1, 8.0, gy, gld, routes)
-        results[name] = _time_general(dict(shape=name), x, ws, bs, gy, gld,
+        results[name] = _time_general(dict(shape=name), x, ws, bs, gy, gld, kind=kind,
                                       fast=(hidden, d, n) == SHAPES_FORCED)
 
     hidden, d, n = SHAPES_TIES
@@ -3508,7 +3572,7 @@ def phase_ar_solve_shapes():
     for sign in (1, -1):
         tie_err = max(tie_err, _check_backward(
             dict(shape=shape_name(hidden, d, n), sign=sign, s_bound=0.0, zero_biases=True),
-            x, ws, bs, sign, 0.0, gy, gld, tie_control=True, general=True))
+            x, ws, bs, sign, 0.0, gy, gld, tie_control=True, kind="general"))
     tape = ar_flow.new_tape(x, ws)
     ar_flow.general_forward(x, ws, bs, 1, 0.0, tape=tape)
     ties = [int((z[1:] == 0).sum()) for z in tape.z]
@@ -3516,8 +3580,8 @@ def phase_ar_solve_shapes():
           "tied_units_past_step_0_by_layer": ties, "max_abs_err": tie_err, "ok": sum(ties) > 0})
     if sum(ties) == 0:
         raise AssertionError("ar_solve_shapes ties: no hidden unit tied past step 0")
-    return dict(results=results, routes=routes_by_shape, errs=errs, tie_err=tie_err,
-                flow=_shapes_flow())
+    return dict(results=results, routes=routes_by_shape, plans=plans_by_shape, errs=errs,
+                tie_err=tie_err, flow=_shapes_flow())
 
 
 def _check_run(name, info, expected_by_epoch):
@@ -5050,12 +5114,14 @@ def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                 **extra}
 
-    fast_src, general_src = ("mmvae_tpu_torch/csrc/ar_flow.cu",
-                             "mmvae_tpu_torch/csrc/ar_flow_general.cu")
+    fast_src, general_src, streamed_src = ("mmvae_tpu_torch/csrc/ar_flow.cu",
+                                           "mmvae_tpu_torch/csrc/ar_flow_general.cu",
+                                           "mmvae_tpu_torch/csrc/ar_flow_streamed.cu")
     # the TPU kernel's pallas_call, and its custom_vjp backward (jax.vjp of
     # the unrolled solve), which the backward kernels replace: the 128-wide
     # backward's `ms` is both its launches, the chain alone beside it; the
-    # general backward's the chain and `sum_grads`. The forward's times at
+    # general backward's the chain and the sum of its clusters' partial
+    # sums; the streamed backward's the chain and `sum_grads`. The forward's times at
     # eval's rows stand beside its main-path time.
     at_eval = {f"n{n}": solve["results"][n] for n in (500, EVAL_IS_ROWS)}
     # and at circles-squares' latent 2, MedMNIST's 16, the trimodal 30 and
@@ -5068,10 +5134,13 @@ def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
     def bwd_at(res):
         return {k[len("backward_"):]: v for k, v in res.items() if k.startswith("backward")}
 
-    # the general pair at the flow path's shape, and at every other
-    flow_shape = shape_name(*SHAPES[0])
-    general = {k: {name: r[k] for name, r in shapes["results"].items()}
+    # the general pair at the flow path's shape, and at every other; the
+    # streamed pair at its one
+    flow_shape, streamed_shape = shape_name(*SHAPES[0]), shape_name(*SHAPES_STREAMED)
+    general = {k: {name: r[k] for name, r in shapes["results"].items() if name != streamed_shape}
                for k in ("forward", "backward")}
+    streamed = shapes["results"][streamed_shape]
+    errs = shapes["errs"]
     return {
         "ar_solve_forward": entry(
             "ar_solve_forward", fast_src, "mmvae_tpu/ops/ar_flow.py:96", solve["results"][128],
@@ -5099,13 +5168,22 @@ def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
             max_abs_err_at_zero_biases_latent_64=ties_err),
         "ar_solve_general_forward": entry(
             "ar_solve_general_forward", general_src, "mmvae_tpu/ops/ar_flow.py:96",
-            general["forward"][flow_shape], shapes["errs"]["forward"], shape=flow_shape,
-            at_shapes=general["forward"], routes=shapes["routes"]),
+            general["forward"][flow_shape], errs["general"]["forward"], shape=flow_shape,
+            at_shapes=general["forward"], routes=shapes["routes"],
+            plans={k: v["forward"] for k, v in shapes["plans"].items()}),
         "ar_solve_general_backward": entry(
             "ar_solve_general_backward", general_src, "mmvae_tpu/ops/ar_flow.py:156",
-            general["backward"][flow_shape], shapes["errs"]["backward"], shape=flow_shape,
+            general["backward"][flow_shape], errs["general"]["backward"], shape=flow_shape,
             kernel_ms=general["backward"][flow_shape]["kernel_ms"],
-            at_shapes=general["backward"], max_abs_err_at_zero_biases=shapes["tie_err"]),
+            at_shapes=general["backward"], max_abs_err_at_zero_biases=shapes["tie_err"],
+            plans={k: v["backward"] for k, v in shapes["plans"].items()}),
+        "ar_solve_streamed_forward": entry(
+            "ar_solve_streamed_forward", streamed_src, "mmvae_tpu/ops/ar_flow.py:96",
+            streamed["forward"], errs["streamed"]["forward"], shape=streamed_shape),
+        "ar_solve_streamed_backward": entry(
+            "ar_solve_streamed_backward", streamed_src, "mmvae_tpu/ops/ar_flow.py:156",
+            streamed["backward"], errs["streamed"]["backward"], shape=streamed_shape,
+            kernel_ms=streamed["backward"]["kernel_ms"]),
     }
 
 
@@ -5118,12 +5196,19 @@ def group_kernels(timed, tmp):
     ties_err = timed("ar_solve_ties", phase_ar_solve_ties)
     shapes = timed("ar_solve_shapes", phase_ar_solve_shapes)
     flow = shapes["flow"]
+
+    def minus(c, streamed):  # a flow path's launches at sign -1, all of one pair
+        on = (c["streamed_launches"] > 0) == streamed
+        return (c["sign_minus_launches"], c["sign_minus_backward_launches"]) if on else (0, 0)
+
     return dict(kernels=_kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes),
                 by_path={p: (c["launches"], c["backward_launches"]) for p, c in flow.items()},
                 general_by_path={p: (c["general_launches"], c["general_backward_launches"])
                                  for p, c in flow.items()},
-                general_by_sign={p: (c["sign_minus_launches"], c["sign_minus_backward_launches"])
-                                 for p, c in flow.items()})
+                general_by_sign={p: minus(c, False) for p, c in flow.items()},
+                streamed_by_path={p: (c["streamed_launches"], c["streamed_backward_launches"])
+                                  for p, c in flow.items()},
+                streamed_by_sign={p: minus(c, True) for p, c in flow.items()})
 
 
 def group_mnist_svhn(timed, tmp):
@@ -5227,7 +5312,7 @@ def run_group(name):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out = {"group": name, "by_path": {}, "by_sign": {}, "general_by_path": {},
-           "general_by_sign": {}, **out,
+           "general_by_sign": {}, "streamed_by_path": {}, "streamed_by_sign": {}, **out,
            "seconds": time.perf_counter() - t0, "phase_seconds": timed.walls}
     emit({"phase": "group", **{k: v for k, v in out.items() if k != "kernels"}})
     return out
@@ -5283,13 +5368,17 @@ def main():
                 results[name] = json.load(f)
     by_path = {p: c for r in results.values() for p, c in r["by_path"].items()}
     by_sign = {p: c for r in results.values() for p, c in r["by_sign"].items()}
-    # every path off ar_solve_shapes launched neither general kernel (each
-    # group's phases are checked for it)
+    # every path off ar_solve_shapes launched neither general nor streamed
+    # kernel (each group's phases are checked for it)
     general_by_path = {p: (0, 0) for p in by_path}
     general_by_sign = {p: (0, 0) for p in by_sign}
+    streamed_by_path = {p: (0, 0) for p in by_path}
+    streamed_by_sign = {p: (0, 0) for p in by_sign}
     for r in results.values():
         general_by_path.update(r["general_by_path"])
         general_by_sign.update(r["general_by_sign"])
+        streamed_by_path.update(r["streamed_by_path"])
+        streamed_by_sign.update(r["streamed_by_sign"])
     emit({"phase": "smoke", "seconds": time.perf_counter() - t_start,
           "group_seconds": {k: r["seconds"] for k, r in results.items()},
           "phase_seconds": {p: s for r in results.values() for p, s in r["phase_seconds"].items()
@@ -5303,15 +5392,20 @@ def main():
         return {**body, "launches": sum(got.values()), "launches_by_path": got, **extra}
 
     # the 128-wide kernels' launches on each path: all of the path's but the
-    # general kernels'
+    # general and streamed kernels' (counted together as general); the
+    # general kernels': those but the streamed ones
     fast_by_path = {p: tuple(c[i] - general_by_path[p][i] for i in (0, 1))
                     for p, c in by_path.items()}
+    redesigned_by_path = {p: tuple(c[i] - streamed_by_path[p][i] for i in (0, 1))
+                          for p, c in general_by_path.items()}
     bodies = results["kernels"]["kernels"]
     emit({"kernels": [
         launches(bodies["ar_solve_forward"], 0, fast_by_path, by_sign),
         launches(bodies["ar_solve_backward"], 1, fast_by_path, by_sign),
-        launches(bodies["ar_solve_general_forward"], 0, general_by_path, general_by_sign),
-        launches(bodies["ar_solve_general_backward"], 1, general_by_path, general_by_sign)]})
+        launches(bodies["ar_solve_general_forward"], 0, redesigned_by_path, general_by_sign),
+        launches(bodies["ar_solve_general_backward"], 1, redesigned_by_path, general_by_sign),
+        launches(bodies["ar_solve_streamed_forward"], 0, streamed_by_path, streamed_by_sign),
+        launches(bodies["ar_solve_streamed_backward"], 1, streamed_by_path, streamed_by_sign)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

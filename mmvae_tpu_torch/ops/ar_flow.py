@@ -5,32 +5,40 @@ CUDA tensor it runs hand-written Hopper kernels, picked by `route` from the
 MADE's widths, the call's direction and the device's shared-memory limit
 before any launch:
 
-- the 128-wide pair in csrc/ar_flow.cu, for hidden layers of 128 (every
-  config's MADE): the forward (one launch), and the backward, which returns
-  the gradients of x, every weight and every bias in two launches: the
-  reverse chain, which sums each block's weight and bias gradients as it
-  goes, then the sum of those partial sums in block order;
-- the general pair in csrc/ar_flow_general.cu, for every other shape JAX's
-  Pallas solve takes (any hidden widths, any number of hidden layers): the
-  forward (one launch) and the backward's reverse chain (one launch), which
-  writes each hidden layer's per-step deltas; the weight and bias sums over
-  rows and steps are then plain matrix products (`sum_grads`).
+- "fast": the 128-wide pair in csrc/ar_flow.cu, for hidden layers of 128
+  (every config's MADE): the forward (one launch), and the backward, which
+  returns the gradients of x, every weight and every bias in two launches:
+  the reverse chain, which sums each block's weight and bias gradients as
+  it goes, then the sum of those partial sums in block order;
+- "general": the pair in csrc/ar_flow_general.cu, for every other shape
+  whose weights the shared memory of a thread-block cluster of at most 8
+  CTAs holds: the forward (one launch) and the backward (two: the reverse
+  chain, whose second warp group sums the weight and bias gradients on
+  chip, then the sum of the clusters' partial sums). `general_plan` picks
+  the cluster and the rows of a tile from numbers alone;
+- "streamed": the pair in csrc/ar_flow_streamed.cu, for the shapes past 8
+  CTAs (hidden widths near 1,000, dozens of hidden layers): the weights are
+  read through the cache at every step; the backward's chain writes each
+  hidden layer's per-step deltas and the weight and bias sums over rows and
+  steps are then plain matrix products (`sum_grads`).
 
-Both pairs read and write the same tape, so a call's forward and backward
-may take different pairs. On a CPU tensor the forward is the plain PyTorch
-version `unrolled_solve` and the backward is the JAX package's own design
-(`_ar_solve_bwd`): autograd through `unrolled_solve`, re-run from the saved
-inputs.
+All three pairs read and write the same tape, so a call's forward and
+backward may take different pairs. On a CPU tensor the forward is the
+plain PyTorch version `unrolled_solve` and the backward is the JAX
+package's own design (`_ar_solve_bwd`): autograd through `unrolled_solve`,
+re-run from the saved inputs.
 
 The hidden ReLUs are `hidden_relu`, JAX's `jnp.maximum(z, 0.0)`, whose
 gradient at an exact tie is one half. The kernels take the same three
 slopes (1, 1/2, 0) from the pre-activations that the forward records.
 
-The backward kernels' algorithms have plain versions too: `plain_tape` and
-`plain_backward` (the 128-wide chain, with the weight and bias sums taken
-inside) and `plain_chain` with `sum_grads` (the general chain and the sums
-taken after it), in explicit PyTorch, so that the CPU tests can hold the
-algorithms against JAX.
+The backward kernels' algorithms have plain versions too, in explicit
+PyTorch, so that the CPU tests can hold the algorithms against JAX:
+`plain_tape` and `plain_backward` (the 128-wide chain, with the weight and
+bias sums taken inside), `plain_general_backward` (the same chain over the
+general pair's row tiles, summed per cluster and then over the clusters in
+order) and `plain_chain` with `sum_grads` (the streamed chain and the sums
+taken after it).
 
 The masked weights arrive with the mask already applied, as in JAX: the
 mask multiply stays outside the autograd Function, so gradients reach the
@@ -47,14 +55,21 @@ import torch
 
 _SOURCE = "ar_flow.cu"
 _GENERAL_SOURCE = "ar_flow_general.cu"
+_STREAMED_SOURCE = "ar_flow_streamed.cu"
 KERNEL_HIDDEN = 128  # the one hidden width the 128-wide kernels take
 KERNEL_TILE_ROWS = 4  # the rows a block of the kernels owns at a time (kTile)
 # csrc/ar_flow.cu: the layers its kernels take (kMaxLayers, hidden + head)
 # and the hidden layers its backward takes (kMaxBackwardHidden)
 FAST_MAX_LAYERS, FAST_MAX_BACKWARD_HIDDEN = 8, 3
-# csrc/ar_flow_general.cu: the layers its kernels take (kMaxLayers), and
-# the bytes it counts for its kernels' static shared memory (kStaticSmem)
-GENERAL_MAX_LAYERS, GENERAL_STATIC_SMEM = 64, 2560
+# csrc/ar_flow_general.cu: the layers its kernels take (kMaxLayers), the
+# bytes it counts for their static shared memory (kStaticSmem), the largest
+# cluster, the chain's threads, the least input features a K slice sums
+# (kMinChunk)
+GENERAL_MAX_LAYERS, GENERAL_STATIC_SMEM, GENERAL_MAX_CLUSTER = 64, 9216, 8
+GENERAL_CHAIN_THREADS, GENERAL_MIN_CHUNK = 256, 8
+GENERAL_CHAIN_WARPS = GENERAL_CHAIN_THREADS // 32
+# csrc/ar_flow_streamed.cu: the same for its kernels
+STREAMED_MAX_LAYERS, STREAMED_STATIC_SMEM = 64, 2560
 
 
 def hidden_relu(z):
@@ -168,18 +183,28 @@ def plain_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound
     rank-1 form dW0[i, :] = sum over rows of y_i * dsum, read before step
     i's delta joins dsum. Step i reaches only head columns i and i+D."""
     ws = list(masked_weights)
-    n, d = x.shape
-    gx = torch.empty_like(x)
     gws = [torch.zeros_like(w) for w in ws]
     gbs = [x.new_zeros(w.shape[1]) for w in ws]
+    gx = _reverse_chain(x, y, gy, gld, tape, ws, sign, s_bound, gws, gbs)
+    return gx, gws, gbs
+
+
+def _reverse_chain(x, y, gy, gld, tape: Tape, ws, sign: int, s_bound: float, gws, gbs):
+    """`plain_backward`'s reverse chain over the rows of x, adding each
+    step's weight and bias gradients into gws and gbs in place, in step
+    order. Returns gx."""
+    n, d = x.shape
+    gx = torch.empty_like(x)
     dsum = x.new_zeros(n, ws[0].shape[1])
     for i in reversed(range(d)):
-        gws[0][i] = y[:, i] @ dsum
+        gws[0][i] += y[:, i] @ dsum
         gx[:, i], g_mu, g_s = _head_grads(gy[:, i] + dsum @ ws[0][i], tape.s[i], x[:, i],
                                           y[:, i], gld, sign, s_bound)
         h = hidden_relu(tape.z[-1][i])
-        gws[-1][:, i], gws[-1][:, i + d] = g_mu @ h, g_s @ h
-        gbs[-1][i], gbs[-1][i + d] = g_mu.sum(), g_s.sum()
+        gws[-1][:, i] += g_mu @ h
+        gws[-1][:, i + d] += g_s @ h
+        gbs[-1][i] += g_mu.sum()
+        gbs[-1][i + d] += g_s.sum()
         g_in = g_mu[:, None] * ws[-1][:, i] + g_s[:, None] * ws[-1][:, i + d]
         for li in range(len(ws) - 2, -1, -1):
             delta = g_in * _relu_slope(tape.z[li][i])
@@ -188,11 +213,37 @@ def plain_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound
                 gws[li] += hidden_relu(tape.z[li - 1][i]).T @ delta
                 g_in = delta @ ws[li].T
         dsum += delta
-    return gx, gws, gbs
+    return gx
+
+
+def plain_general_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int,
+                           s_bound: float = 0.0, clusters: int = 1,
+                           rows: int = KERNEL_TILE_ROWS):
+    """Plain version of the general backward kernel on (N, D) tensors, with
+    its partial sums in its order: the rows cut into tiles of `rows`;
+    cluster b of `clusters` (at most the tiles) walks tiles b, b + clusters,
+    ..., adding each step's weight and bias gradients to its own partial
+    sums, step by step (the reverse chain of `plain_backward`); then the
+    clusters' partial sums are added in cluster order, as the second launch
+    does. Returns (gx, gws, gbs)."""
+    ws = list(masked_weights)
+    n, _ = x.shape
+    gx = torch.empty_like(x)
+    n_tiles = -(-n // rows)
+    total = [torch.zeros_like(w) for w in ws] + [x.new_zeros(w.shape[1]) for w in ws]
+    for b in range(min(clusters, n_tiles)):
+        gws = [torch.zeros_like(w) for w in ws]
+        gbs = [x.new_zeros(w.shape[1]) for w in ws]
+        for tile in range(b, n_tiles, clusters):
+            r = slice(tile * rows, min(n, (tile + 1) * rows))
+            sub = Tape([z[:, r] for z in tape.z], tape.s[:, r])
+            gx[r] = _reverse_chain(x[r], y[r], gy[r], gld[r], sub, ws, sign, s_bound, gws, gbs)
+        total = [t + p for t, p in zip(total, gws + gbs)] if b else gws + gbs
+    return gx, total[:len(ws)], total[len(ws):]
 
 
 def plain_chain(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
-    """Plain version of the general backward kernel on (N, D) tensors: the
+    """Plain version of the streamed backward kernel on (N, D) tensors: the
     same reverse chain as `plain_backward`, which keeps each step's deltas
     instead of summing them. Returns (gx, deltas, head): deltas[l] (D, N,
     width of hidden layer l), the gradient at layer l's pre-activation at
@@ -218,7 +269,7 @@ def plain_chain(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: f
 
 
 def sum_grads(y, tape: Tape, deltas: Sequence[torch.Tensor], head: torch.Tensor):
-    """The weight and bias gradients from the general chain's per-step
+    """The weight and bias gradients from the streamed chain's per-step
     deltas: sums over rows and steps, one matrix product and one sum per
     layer, as JAX's autodiff of `unrolled_solve` leaves them to XLA. The
     first layer's input at step i is y with the features from i on zeroed;
@@ -320,15 +371,36 @@ def _general_lib():
     lib = load(_GENERAL_SOURCE)
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        pp = ctypes.POINTER(vp)
-        lib.ar_solve_general_smem_bytes.argtypes = [ctypes.POINTER(ci), ci, ci]
-        lib.ar_solve_general_smem_bytes.restype = ctypes.c_longlong
+        pp, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
+        lib.ar_solve_general_plan.argtypes = [pi, ci, ci, ci, ci, ci, pi]
+        lib.ar_solve_general_plan.restype = ci
+        lib.ar_solve_general_clusters.argtypes = [pi, ci, ci, ci]
+        lib.ar_solve_general_clusters.restype = ci
         lib.ar_solve_general_forward.argtypes = [
-            vp, pp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, vp, vp, pp, vp, vp]
+            vp, pp, pp, pi, ci, ci, ci, cf, vp, vp, pp, vp, ci, vp]
         lib.ar_solve_general_forward.restype = ci
         lib.ar_solve_general_backward.argtypes = [
-            vp, vp, vp, vp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, pp, vp, pp, vp, vp, vp]
+            vp, vp, vp, vp, pp, pi, ci, ci, ci, cf, pp, vp, vp, vp, vp, ci, vp]
         lib.ar_solve_general_backward.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _streamed_lib():
+    from .build import load
+
+    lib = load(_STREAMED_SOURCE)
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        pp = ctypes.POINTER(vp)
+        lib.ar_solve_streamed_smem_bytes.argtypes = [ctypes.POINTER(ci), ci, ci]
+        lib.ar_solve_streamed_smem_bytes.restype = ctypes.c_longlong
+        lib.ar_solve_streamed_forward.argtypes = [
+            vp, pp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, vp, vp, pp, vp, vp]
+        lib.ar_solve_streamed_forward.restype = ci
+        lib.ar_solve_streamed_backward.argtypes = [
+            vp, vp, vp, vp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, pp, vp, pp, vp, vp, vp]
+        lib.ar_solve_streamed_backward.restype = ci
         lib._typed = True
     return lib
 
@@ -358,18 +430,86 @@ def fast_smem_bytes(widths: Sequence[int], backward: bool):
     return 4 * floats
 
 
-def general_smem_bytes(widths: Sequence[int], backward: bool):
+def streamed_smem_bytes(widths: Sequence[int], backward: bool):
     """The shared memory, dynamic and static, in bytes, one block of the
-    general forward or backward kernel needs at these layer widths; None
-    where its kernels do not take them. A copy of csrc/ar_flow_general.cu's
-    ar_solve_general_smem_bytes."""
+    streamed forward or backward kernel needs at these layer widths; None
+    where its kernels do not take them. A copy of
+    csrc/ar_flow_streamed.cu's ar_solve_streamed_smem_bytes."""
     n, d = len(widths) - 1, widths[0]
-    if (n < 2 or n > GENERAL_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
+    if (n < 2 or n > STREAMED_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
             or min(widths[1:-1]) < 1):
         return None
     w1, wmax, warps = widths[1], max(widths[1:-1]), 8
     floats = 5 * d + w1 + 2 * wmax + warps + 3 if backward else 2 * d + w1 + 2 * wmax + 2 * warps
-    return 4 * floats * KERNEL_TILE_ROWS + GENERAL_STATIC_SMEM
+    return 4 * floats * KERNEL_TILE_ROWS + STREAMED_STATIC_SMEM
+
+
+def _ksplit(p: int, k: int, rv: int) -> int:
+    """csrc/ar_flow_general.cu's ksplit: the K slices of a product of p
+    columns, k inputs and rv quads of rows."""
+    groups = 1 << max(p // 4 - 1, 0).bit_length()  # p / 4, rounded up to a power of two
+    ks = 1
+    while 2 * ks * groups * rv <= GENERAL_CHAIN_THREADS and 2 * ks * GENERAL_MIN_CHUNK <= k:
+        ks *= 2
+    return ks
+
+
+def general_layout_floats(widths: Sequence[int], cluster: int, rows: int, backward: bool) -> int:
+    """The floats of dynamic shared memory one CTA of the general forward or
+    backward kernel needs at these layer widths, `cluster` CTAs sharing a
+    tile of `rows` rows. A copy of csrc/ar_flow_general.cu's layout()."""
+    d, hidden = widths[0], list(widths[1:-1])
+    n_hidden = len(hidden)
+    p = [_round4(-(-h // cluster)) for h in hidden]  # each CTA's slice, padded to 4
+    rv = rows // 4
+    if not backward:
+        floats = d * p[0] + sum(hidden[l - 1] * p[l] for l in range(1, n_hidden))
+        floats += 2 * d * p[-1] + sum(p) + _round4(2 * d)
+        floats += sum(_round4(h) * rows for h in hidden[:-1]) + p[0] * rows
+        floats += max([_ksplit(p[l], hidden[l - 1], rv) * p[l] * rows
+                       for l in range(1, n_hidden)], default=0)
+        return floats + 2 * d * rows + 2 * cluster * GENERAL_CHAIN_WARPS * 2 * rows
+    floats = d * p[0] + 2 * sum(hidden[l] * p[l - 1] for l in range(1, n_hidden))
+    floats += 2 * d * p[-1] + sum(p) + _round4(2 * d) + 3 * sum(p) * rows
+    floats += 2 * sum(_round4(h) * rows for h in hidden[1:]) + 2 * p[0] * rows + 6 * rows
+    floats += 2 * p[0] * rows + 2 * d * rows
+    floats += max([_ksplit(p[l - 1], hidden[l], rv) * p[l - 1] * rows
+                   for l in range(1, n_hidden)], default=0)
+    return floats + 2 * cluster * GENERAL_CHAIN_WARPS * rows
+
+
+def general_plan(widths: Sequence[int], backward: bool, n_rows: int, n_sms: int, limit: int):
+    """The general kernels' plan at these layer widths for `n_rows` rows on
+    a card of `n_sms` SMs that allows `limit` bytes of shared memory a
+    block: (cluster, rows, bytes), the least cluster of 1, 2, 4 or 8 CTAs
+    whose shared memory holds the MADE at 4-row tiles; of the tiles of 4, 8
+    and 16 rows that shared memory holds, the one with the least rounds of
+    tiles over the clusters the card runs at once (SMs / cluster, seven
+    eighths of it for clusters past one CTA) times a step's cost, 12 + rows,
+    the fewer rows on a tie; and the bytes of shared memory a CTA takes.
+    None where the kernels do not take the widths or no cluster of at most
+    8 holds them. A copy of csrc/ar_flow_general.cu's
+    ar_solve_general_plan."""
+    n, d = len(widths) - 1, widths[0]
+    if (n < 2 or n > GENERAL_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
+            or min(widths[1:-1]) < 1 or n_rows <= 0):
+        return None
+    cluster = 1
+    while cluster <= GENERAL_MAX_CLUSTER:
+        slots = n_sms if cluster == 1 else 7 * n_sms // (8 * cluster)
+        best = None
+        for rows in (4, 8, 16):
+            need = 4 * general_layout_floats(widths, cluster, rows, backward) + GENERAL_STATIC_SMEM
+            if need > limit:
+                break
+            rounds = -(-(-(-n_rows // rows)) // max(slots, 1))
+            cost = rounds * (12 + rows)
+            if best is None or cost < best[0]:
+                best = (cost, (cluster, rows, need))
+        if best is not None:
+            return best[1]
+        cluster *= 2
+    return None
 
 
 def route(widths: Sequence[int], backward: bool, limit: int) -> str:
@@ -377,8 +517,10 @@ def route(widths: Sequence[int], backward: bool, limit: int) -> str:
     ([D, hidden..., 2D]) on a device that allows `limit` bytes of shared
     memory a block: "fast", the 128-wide kernel of csrc/ar_flow.cu, wherever
     it takes them (hidden layers of 128; a backward of at most three); else
-    "general", the kernel of csrc/ar_flow_general.cu. Raises ValueError
-    where neither does. Decided from numbers alone, before any launch. Both
+    "general", the kernel of csrc/ar_flow_general.cu, wherever a cluster of
+    at most 8 CTAs holds the MADE (`general_plan` at 4-row tiles); else
+    "streamed", the kernel of csrc/ar_flow_streamed.cu. Raises ValueError
+    where none does. Decided from numbers alone, before any launch. The
     pairs read and write the same tape, so the two directions of one call
     may take different kernels (a 4-hidden-layer MADE of 128: the fast
     forward, the general backward)."""
@@ -386,11 +528,14 @@ def route(widths: Sequence[int], backward: bool, limit: int) -> str:
     if (fast is not None and fast <= limit
             and not (backward and len(widths) - 2 > FAST_MAX_BACKWARD_HIDDEN)):
         return "fast"
-    general = general_smem_bytes(widths, backward)
-    if general is not None and general <= limit:
+    # one row: 4-row tiles, the least shared memory a cluster can take
+    if general_plan(widths, backward, 1, GENERAL_MAX_CLUSTER, limit) is not None:
         return "general"
+    streamed = streamed_smem_bytes(widths, backward)
+    if streamed is not None and streamed <= limit:
+        return "streamed"
     raise ValueError(f"ar_solve has no kernel for the {'backward' if backward else 'forward'} "
-                     f"at widths {list(widths)}: the general kernel needs {general} bytes of "
+                     f"at widths {list(widths)}: the streamed kernel needs {streamed} bytes of "
                      f"shared memory per block; the device allows {limit}")
 
 
@@ -413,15 +558,38 @@ def _check_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> i
 
 
 @functools.lru_cache(maxsize=None)
-def _check_general_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> int:
-    """As `_check_smem`, for the general kernels."""
+def _check_streamed_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> int:
+    """As `_check_smem`, for the streamed kernels."""
     arr = (ctypes.c_int * len(widths))(*widths)
-    need = int(_general_lib().ar_solve_general_smem_bytes(arr, len(widths) - 1, int(backward)))
+    need = int(_streamed_lib().ar_solve_streamed_smem_bytes(arr, len(widths) - 1, int(backward)))
     limit = _smem_limit(device_index)
     if need < 0 or need > limit:
-        raise ValueError(f"ar_solve's general kernel needs {need} bytes of shared memory per "
+        raise ValueError(f"ar_solve's streamed kernel needs {need} bytes of shared memory per "
                          f"block at widths {list(widths)}; the device allows {limit}")
     return need
+
+
+@functools.lru_cache(maxsize=None)
+def _general_clusters(widths: Tuple[int, ...], backward: bool, n_rows: int,
+                      device_index: int) -> int:
+    """The general kernels' persistent grid at these widths and rows on the
+    device: the clusters of the plan's size that it runs at once
+    (cudaOccupancyMaxActiveClusters), at most the row tiles. Raises where
+    there is no plan, and where the card runs no such cluster: a cluster
+    launch that the plan promised and the card refuses."""
+    if general_plan(widths, backward, n_rows, _sm_count(device_index),
+                    _smem_limit(device_index)) is None:
+        raise ValueError(f"ar_solve's general kernel takes no plan at widths {list(widths)} "
+                         f"(no cluster of at most {GENERAL_MAX_CLUSTER} CTAs holds them)")
+    arr = (ctypes.c_int * len(widths))(*widths)
+    with torch.cuda.device(device_index):
+        got = int(_general_lib().ar_solve_general_clusters(arr, len(widths) - 1, int(backward),
+                                                           n_rows))
+    if got <= 0:
+        raise RuntimeError(f"ar_solve's general {'backward' if backward else 'forward'} at "
+                           f"widths {list(widths)}: the card runs no cluster of its plan "
+                           f"({got})")
+    return got
 
 
 @functools.lru_cache(maxsize=None)
@@ -448,9 +616,11 @@ def _check_tape(x, tape: Tape, widths: List[int]) -> None:
     _check_like(x, [*tape.z, tape.s])
 
 
-def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, general: bool):
-    """One forward launch (`launch`: the C entry of either kernel, whose
-    arguments are the same) on tensors already checked; counts it."""
+def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, kind: str):
+    """One forward launch (`launch`: the C entry of a kernel, whose
+    arguments are the same but for the general kernel's grid, which
+    `launch` binds) on tensors already checked; counts it by its route
+    `kind`."""
     n, d = x.shape
     if tape is not None:
         _check_tape(x, tape, widths)
@@ -465,9 +635,10 @@ def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, general
             n, int(sign), float(s_bound), y.data_ptr(), ld.data_ptr(),
             None if tape is None else _ptrs(tape.z),
             None if tape is None else tape.s.data_ptr(), stream)
-    _raise_on(err, "general forward" if general else "forward")
+    _raise_on(err, "forward" if kind == "fast" else f"{kind} forward")
     ar_solve.launches += 1
-    ar_solve.general_launches += int(general)
+    ar_solve.general_launches += int(kind != "fast")
+    ar_solve.streamed_launches += int(kind == "streamed")
     ar_solve.sign_minus_launches += int(sign < 0)
     return y, ld
 
@@ -484,20 +655,42 @@ def kernel_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
     widths = _check(x, ws, bs)
     lib = _lib()
     _check_smem(tuple(widths), x.device.index, False)
-    return _forward(lib.ar_solve_forward, x, ws, bs, widths, sign, s_bound, tape, False)
+    return _forward(lib.ar_solve_forward, x, ws, bs, widths, sign, s_bound, tape, "fast")
 
 
 def general_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
                     tape: Tape | None = None):
     """Launch the general Hopper forward kernel on (N, D) CUDA tensors, at
-    any MADE widths (128-wide included): as `kernel_forward`."""
+    any MADE widths a cluster of at most 8 CTAs holds (128-wide included):
+    as `kernel_forward`, on `general_plan`'s cluster and tiles."""
     ws, bs = list(masked_weights), list(biases)
     if not x.is_cuda:
         raise ValueError("general_forward takes CUDA tensors")
     widths = _check_params(x, ws, bs)
+    n = x.shape[0]
+    if n == 0:
+        return _forward(None, x, ws, bs, widths, sign, s_bound, tape, "general")
     lib = _general_lib()
-    _check_general_smem(tuple(widths), x.device.index, False)
-    return _forward(lib.ar_solve_general_forward, x, ws, bs, widths, sign, s_bound, tape, True)
+    clusters = _general_clusters(tuple(widths), False, n, x.device.index)
+
+    def launch(*args):
+        return lib.ar_solve_general_forward(*args[:-1], clusters, args[-1])
+
+    return _forward(launch, x, ws, bs, widths, sign, s_bound, tape, "general")
+
+
+def streamed_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
+                     tape: Tape | None = None):
+    """Launch the streamed Hopper forward kernel on (N, D) CUDA tensors, at
+    any MADE widths its shared memory takes: as `kernel_forward`."""
+    ws, bs = list(masked_weights), list(biases)
+    if not x.is_cuda:
+        raise ValueError("streamed_forward takes CUDA tensors")
+    widths = _check_params(x, ws, bs)
+    lib = _streamed_lib()
+    _check_streamed_smem(tuple(widths), x.device.index, False)
+    return _forward(lib.ar_solve_streamed_forward, x, ws, bs, widths, sign, s_bound, tape,
+                    "streamed")
 
 
 def _check_backward_args(x, y, gy, gld, tape: Tape, ws) -> List[int]:
@@ -523,14 +716,26 @@ def kernel_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_boun
 
 
 def general_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bound: float = 0.0):
-    """Launch the general Hopper backward kernel on (N, D) CUDA tensors, at
-    any MADE widths, and sum its deltas: the same result as
-    `plain_backward`, (gx, gws, gbs)."""
+    """Launch the general Hopper backward kernels on (N, D) CUDA tensors, at
+    any MADE widths a cluster of at most 8 CTAs holds: the same result as
+    `plain_general_backward` on the launch's grid, (gx, gws, gbs)."""
     ws = list(masked_weights)
     if not x.is_cuda:
         raise ValueError("general_backward takes CUDA tensors")
     widths = _check_backward_args(x, y, gy, gld, tape, ws)
     return _general_backward(x, y, gy, gld, tape, ws, widths, sign, s_bound)
+
+
+def streamed_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int,
+                      s_bound: float = 0.0):
+    """Launch the streamed Hopper backward kernel on (N, D) CUDA tensors, at
+    any MADE widths its shared memory takes, and sum its deltas: the same
+    result as `plain_backward`, (gx, gws, gbs)."""
+    ws = list(masked_weights)
+    if not x.is_cuda:
+        raise ValueError("streamed_backward takes CUDA tensors")
+    widths = _check_backward_args(x, y, gy, gld, tape, ws)
+    return _streamed_backward(x, y, gy, gld, tape, ws, widths, sign, s_bound)
 
 
 def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
@@ -564,11 +769,40 @@ def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
 
 
 def _general_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
-    """The general backward on tensors already checked: one launch of the
+    """The general backward on tensors already checked: the reverse chain,
+    whose clusters each leave their partial weight and bias gradients in
+    their row of `work`, in the parameters' order, then the sum of those
+    rows in cluster order into one flat buffer, which the gradients view."""
+    n, d = x.shape
+    gx = torch.empty_like(x)
+    shapes = [(a, b) for a, b in zip(widths[:-1], widths[1:])] + [(b,) for b in widths[1:]]
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    flat = x.new_zeros(sum(sizes)) if n == 0 else x.new_empty(sum(sizes))
+    if n > 0:
+        lib = _general_lib()
+        clusters = _general_clusters(tuple(widths), True, n, x.device.index)
+        work = x.new_empty(clusters, flat.numel())
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with torch.cuda.device(x.device):
+            err = lib.ar_solve_general_backward(
+                x.data_ptr(), y.data_ptr(), gy.data_ptr(), gld.data_ptr(), _ptrs(ws),
+                (ctypes.c_int * len(widths))(*widths), len(ws), n, int(sign), float(s_bound),
+                _ptrs(tape.z), tape.s.data_ptr(), gx.data_ptr(), flat.data_ptr(),
+                work.data_ptr(), clusters, stream)
+        _raise_on(err, "general backward")
+        ar_solve.backward_launches += 1
+        ar_solve.general_backward_launches += 1
+        ar_solve.sign_minus_backward_launches += int(sign < 0)
+    grads = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
+    return gx, grads[:len(ws)], grads[len(ws):]
+
+
+def _streamed_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
+    """The streamed backward on tensors already checked: one launch of the
     reverse chain, which writes gx and every step's deltas, then
     `sum_grads` over them."""
-    lib = _general_lib()
-    _check_general_smem(tuple(widths), x.device.index, True)
+    lib = _streamed_lib()
+    _check_streamed_smem(tuple(widths), x.device.index, True)
     n, d = x.shape
     gx = torch.empty_like(x)
     deltas = [x.new_empty(d, n, w) for w in widths[1:-1]]
@@ -576,17 +810,19 @@ def _general_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound:
     if n > 0:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with torch.cuda.device(x.device):
-            err = lib.ar_solve_general_backward(
+            err = lib.ar_solve_streamed_backward(
                 x.data_ptr(), y.data_ptr(), gy.data_ptr(), gld.data_ptr(), _ptrs(ws),
                 (ctypes.c_int * len(widths))(*widths), len(ws), n, int(sign), float(s_bound),
                 _ptrs(tape.z), tape.s.data_ptr(), _ptrs(deltas), head.data_ptr(),
                 gx.data_ptr(), stream)
-        _raise_on(err, "general backward")
+        _raise_on(err, "streamed backward")
         ar_solve.backward_launches += 1
         ar_solve.general_backward_launches += 1
+        ar_solve.streamed_backward_launches += 1
         ar_solve.sign_minus_backward_launches += int(sign < 0)
     gws, gbs = sum_grads(y, tape, deltas, head)
     return gx, gws, gbs
+
 
 
 class _ARSolve(torch.autograd.Function):
@@ -605,7 +841,9 @@ class _ARSolve(torch.autograd.Function):
         widths = _check_params(x, ws, bs)
         limit = _smem_limit(x.device.index)
         # both directions are routed before any launch
-        forward = kernel_forward if route(widths, False, limit) == "fast" else general_forward
+        # (looked up at each call, by name, so that a caller may wrap them)
+        forward = {"fast": kernel_forward, "general": general_forward,
+                   "streamed": streamed_forward}[route(widths, False, limit)]
         ctx.route = route(widths, True, limit) if record else None
         tape = new_tape(x, ws) if record else None
         y, ld = forward(x, ws, bs, sign, s_bound, tape=tape)
@@ -620,7 +858,8 @@ class _ARSolve(torch.autograd.Function):
         if ctx.on_card:
             x, y, s, *rest = ctx.saved_tensors
             tape, ws = Tape(rest[:n - 1], s), rest[n - 1:]
-            backward = _backward if ctx.route == "fast" else _general_backward
+            backward = {"fast": _backward, "general": _general_backward,
+                        "streamed": _streamed_backward}[ctx.route]
             # the saved tensors were checked by the forward; gy and gld come
             # from autograd with the outputs' shapes
             gx, gws, gbs = backward(x, y, gy.contiguous(), gld.contiguous(), tape, ws,
@@ -656,10 +895,13 @@ def ar_solve(x, masked_weights: Sequence[torch.Tensor], biases: Sequence[torch.T
 
 # kernel launches since the last reset (plain integers; reset by assigning
 # 0), a backward call (its launches) counted once, and among them those at
-# sign -1, IAF's density direction, and those of the general kernels
+# sign -1, IAF's density direction, those off the 128-wide pair (the general
+# and the streamed kernels), and among those the streamed kernels'
 ar_solve.launches = 0
 ar_solve.backward_launches = 0
 ar_solve.sign_minus_launches = 0
 ar_solve.sign_minus_backward_launches = 0
 ar_solve.general_launches = 0
 ar_solve.general_backward_launches = 0
+ar_solve.streamed_launches = 0
+ar_solve.streamed_backward_launches = 0

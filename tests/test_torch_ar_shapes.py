@@ -2,9 +2,11 @@
 the JAX package on the CPU.
 
 On a CUDA tensor `ar_solve` runs the 128-wide Hopper kernels where they take
-the MADE's widths and the general kernels (csrc/ar_flow_general.cu)
-everywhere else, as `ops.ar_flow.route` decides from the widths, the
-direction and the device's shared-memory limit. Here, without a card:
+the MADE's widths, the general kernels (csrc/ar_flow_general.cu) wherever a
+cluster of at most 8 CTAs holds the MADE, and the streamed kernels
+(csrc/ar_flow_streamed.cu) past that, as `ops.ar_flow.route` decides from
+the widths, the direction and the device's shared-memory limit. Here,
+without a card:
 
 - the port's MAF and IAF built with other widths than every config's
   (`hidden_size` 64 with `n_hidden_in_made` 4, 100 with 2), and a MADE of
@@ -14,8 +16,8 @@ direction and the device's shared-memory limit. Here, without a card:
   of each leaf's largest entry (float64 round-off over a few hundred
   operations is far below it). JAX's flows run their sequential direction
   unrolled (`use_fused=False`); the port's, on CPU tensors, the plain solve;
-- the general backward's algorithm, `plain_chain` with `sum_grads` after the
-  recording forward `plain_tape`, against `jax.vjp` of JAX's
+- the streamed backward's algorithm, `plain_chain` with `sum_grads` after
+  the recording forward `plain_tape`, against `jax.vjp` of JAX's
   `unrolled_solve` in float64 at hidden widths 32, 100 and 256 and 1, 4
   and 6 hidden layers, both signs, s_bound 0 and 8 (1e-10), and at MADE's
   zero biases with ReLU ties past step 0, where JAX's jnp.maximum passes half
@@ -23,7 +25,8 @@ direction and the device's shared-memory limit. Here, without a card:
 - `route` at the H100's 232,448 bytes a block: every MADE the repo's 96
   configs build stays on the 128-wide pair in both directions, the shapes
   it refuses go to the general pair, and a wide grid of the shapes JAX
-  takes gets a kernel in both directions.
+  takes gets a kernel in both directions (tests/test_torch_ar_plan.py holds
+  the general pair's plan and the streamed route).
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py's `ar_solve_shapes` phase).
@@ -202,7 +205,7 @@ def _jax_vjp(x, ws, bs, sign, s_bound, ry, rld):
 
 
 def _general_chain(x, ws, bs, sign, s_bound, ry, rld):
-    """The general kernels' algorithm in plain PyTorch: the recording
+    """The streamed kernels' algorithm in plain PyTorch: the recording
     forward, the reverse chain that keeps every step's deltas, the sums."""
     xt = torch.tensor(x)
     y, ld, tape = ar_flow.plain_tape(xt, _t(ws), _t(bs), sign, s_bound)
@@ -237,7 +240,7 @@ def test_general_chain_matches_jax(h, n_hidden, sign, s_bound):
 def test_general_chain_matches_jax_at_ties(sign):
     """At MADE's zero biases, with y_0 > 0 and the first layer's degree-0
     units on negative weights, the later layers' degree-0 units sit exactly
-    at the ReLU's tie past step 0, where the head reads them: the general
+    at the ReLU's tie past step 0, where the head reads them: the streamed
     chain takes JAX's slope 1/2 there (JAX's `_ar_solve_bwd`, 1e-12), and
     the same chain at slope 0 (the tied pre-activations moved just below 0)
     misses JAX."""
@@ -315,8 +318,9 @@ def test_route_sends_the_refused_shapes_to_the_general_pair(hidden, d, expected)
 def test_route_takes_every_shape_jax_takes():
     """A grid of the shapes JAX's Pallas solve builds for: D from 2 to 256,
     1 to 16 hidden layers of 1 to 2,048 units, ragged and mixed widths; each
-    direction gets a kernel. Past what a block's shared memory holds (a
-    hidden layer of 16,384 units) the route refuses, before any launch."""
+    direction gets a kernel (the streamed one past what 8 CTAs hold). Past
+    what a block's shared memory holds (a hidden layer of 16,384 units) the
+    route refuses, before any launch."""
     rng = np.random.default_rng(40)
     shapes = [(d, (h,) * n) for d in (2, 3, 20, 64, 256) for n in (1, 2, 3, 4, 5, 8, 16)
               for h in (1, 7, 32, 100, 128, 256, 1024, 2048)]
@@ -324,7 +328,8 @@ def test_route_takes_every_shape_jax_takes():
                for n in rng.integers(1, 9, size=50)]
     for d, hidden in shapes:
         for backward in (False, True):
-            assert ar_flow.route([d, *hidden, 2 * d], backward, H100_SMEM) in ("fast", "general")
+            assert ar_flow.route([d, *hidden, 2 * d], backward, H100_SMEM) in (
+                "fast", "general", "streamed")
     with pytest.raises(ValueError, match="shared memory"):
         ar_flow.route([20, 16_384, 40], False, H100_SMEM)
 

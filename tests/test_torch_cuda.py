@@ -360,6 +360,136 @@ def test_general_kernels_match_plain(card, hidden, d, sign):
         assert torch.equal(a, b)
 
 
+# chip_smoke.py's ar_solve_shapes: the general pair's shapes (hidden widths,
+# D, rows), the last the general pair forced at every config's MADE
+GENERAL_SHAPES = [((64,) * 4, 20, 128), ((64,) * 3, 20, 128), ((128,) * 4, 20, 128),
+                  ((128,) * 6, 20, 128), ((256,) * 2, 64, 256), ((100,) * 3, 16, 37),
+                  ((96, 160, 64), 30, 256), ((32,), 2, 128), ((64,) * 4, 64, 7_680),
+                  ((128,) * 3, 20, 128)]
+
+
+def _general_reference(x, ws, y, gy, gld, tape, sign, s_bound):
+    """The general backward's plain version on its tape: `plain_general_backward`
+    on the kernel's grid and tiles, or past 1,024 rows (where its Python loop
+    over tiles takes minutes on a card) `plain_backward`, the same chain over
+    all rows at once, whose sums differ only in order."""
+    n, d = x.shape
+    if n > 1024:
+        return ar_flow.plain_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    widths = (d, *[w.shape[1] for w in ws])
+    plan = ar_flow.general_plan(widths, True, n, ar_flow._sm_count(0), ar_flow._smem_limit(0))
+    grid = ar_flow._general_clusters(widths, True, n, 0)
+    return ar_flow.plain_general_backward(x, y, gy, gld, tape, ws, sign, s_bound, grid, plan[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GENERAL_SHAPES,
+                         ids=["-".join(map(str, h)) + f"_d{d}_n{n}" for h, d, n in GENERAL_SHAPES])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_general_pair_at_every_shape(card, shape, sign, s_bound):
+    """The general pair at every shape of chip_smoke.py's ar_solve_shapes:
+    the forward against `unrolled_solve` and its tape against `plain_tape`;
+    the whole backward (the chain and the sum of the clusters' partial sums)
+    against its plain version on the forward kernel's own tape (its ReLU
+    branches; `_general_reference`), rtol/atol 1e-4; a second backward
+    bitwise equal; one launch counted each way."""
+    hidden, d, n = shape
+    ws, bs = _made_weights(card, 90 + d + len(hidden), d, hidden)
+    gen = torch.Generator().manual_seed(91)
+    x, gy = (torch.randn(n, d, generator=gen).to(card) for _ in range(2))
+    gld = torch.randn(n, generator=gen).to(card)
+    a = ar_flow.ar_solve
+    before = (a.general_launches, a.general_backward_launches, a.streamed_launches)
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.general_forward(x, ws, bs, sign, s_bound, tape=tape)
+    got = ar_flow.general_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    again = ar_flow.general_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    assert (a.general_launches, a.general_backward_launches, a.streamed_launches) == (
+        before[0] + 1, before[1] + 2, before[2])
+    y_p, ld_p, tape_p = ar_flow.plain_tape(x, ws, bs, sign, s_bound)
+    for g, want in zip([y, ld, tape.s, *tape.z], [y_p, ld_p, tape_p.s, *tape_p.z]):
+        torch.testing.assert_close(g, want, **TOL)
+    want = _general_reference(x, ws, y, gy, gld, tape, sign, s_bound)
+    flat = [got[0], *got[1], *got[2]]
+    for g, w in zip(flat, [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(g, w, **TOL)
+    assert all(torch.equal(g, h) for g, h in zip(flat, [again[0], *again[1], *again[2]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_general_backward_at_ties_past_step_0(card, sign):
+    """MADE's zero biases with y_0 > 0 and the first layer's degree-0 units
+    on negative weights: the later layers' degree-0 units sit exactly at the
+    ReLU's tie past step 0, where the head reads them (64 x 4, D = 64). The
+    general backward takes JAX's slope 1/2 there: it meets
+    `plain_general_backward` on its tape (rtol/atol 1e-4), and misses the
+    same with the tied pre-activations moved just below 0 (slope 0)."""
+    d, hidden, n = 64, (64,) * 4, 512
+    ws, bs = _made_weights(card, 95, d, hidden)
+    bs = [torch.zeros_like(b) for b in bs]
+    w0 = ws[0].clone()
+    deg0 = ((w0 != 0).sum(0) == 1).nonzero().flatten()
+    assert len(deg0) and bool((w0[1:, deg0] == 0).all())
+    w0[0, deg0] = -w0[0, deg0].abs()
+    ws = [w0, *ws[1:]]
+    gen = torch.Generator().manual_seed(96)
+    x, gy = (torch.randn(n, d, generator=gen).to(card) for _ in range(2))
+    x[:, 0] = x[:, 0].abs()
+    gld = torch.randn(n, generator=gen).to(card)
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.general_forward(x, ws, bs, sign, 0.0, tape=tape)
+    assert sum(int((z[1:] == 0).sum()) for z in tape.z) > 0
+    got = ar_flow.general_backward(x, y, gy, gld, tape, ws, sign, 0.0)
+    flat = [got[0], *got[1], *got[2]]
+    want = _general_reference(x, ws, y, gy, gld, tape, sign, 0.0)
+    for g, w in zip(flat, [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(g, w, **TOL)
+    below = ar_flow.Tape([torch.where(z == 0, torch.full_like(z, -1e-30), z) for z in tape.z],
+                         tape.s)
+    slope0 = _general_reference(x, ws, y, gy, gld, below, sign, 0.0)
+    assert not all(torch.allclose(g, w, **TOL)
+                   for g, w in zip(flat, [slope0[0], *slope0[1], *slope0[2]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,d,routes", [((128,) * 6, 20, ("general", "general")),
+                                             ((1024,) * 2, 16, ("streamed", "streamed"))])
+def test_cluster_and_third_routes_launch_and_count(card, hidden, d, routes):
+    """Through `ar_solve` under autograd: 6 hidden layers of 128 take the
+    general pair on clusters (2 CTAs forward, 4 backward); two of 1,024 the
+    streamed pair (no cluster of 8 holds them). Each launches once each way,
+    counted as general and, on the third route, as streamed, with the plain
+    version's values and gradients."""
+    widths = [d, *hidden, 2 * d]
+    limit = ar_flow._smem_limit(0)
+    assert tuple(ar_flow.route(widths, b, limit) for b in (False, True)) == routes
+    if routes[0] == "general":
+        plans = [ar_flow.general_plan(widths, b, 64, ar_flow._sm_count(0), limit)
+                 for b in (False, True)]
+        assert [p[0] for p in plans] == [2, 4]
+    ws, bs = _made_weights(card, 97, d, hidden)
+    x = torch.randn(64, d, generator=torch.Generator().manual_seed(98)).to(card)
+    a = ar_flow.ar_solve
+    keys = ("launches", "general_launches", "streamed_launches", "backward_launches",
+            "general_backward_launches", "streamed_backward_launches")
+    runs = {}
+    for name in ("fused", "plain"):
+        xi = x.clone().requires_grad_(True)
+        params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
+        solve = ar_flow.ar_solve if name == "fused" else ar_flow.unrolled_solve
+        before = [getattr(a, k) for k in keys]
+        y, ld = solve(xi, params[:len(ws)], params[len(ws):], 1, 0.0)
+        (y.square().sum() + ld.sum()).backward()
+        got = [getattr(a, k) - b for k, b in zip(keys, before)]
+        streamed = int(routes[0] == "streamed")
+        assert got == ([1, 1, streamed, 1, 1, streamed] if name == "fused" else [0] * 6)
+        runs[name] = [y, ld, xi.grad, *(p.grad for p in params)]
+    for g, w in zip(runs["fused"], runs["plain"]):
+        torch.testing.assert_close(g, w, **TOL)
+
+
 @pytest.mark.cuda
 def test_ar_solve_at_four_hidden_layers_of_128(card):
     """A MADE of 4 x 128 under autograd: `ar_solve` routes its forward to the
@@ -387,21 +517,30 @@ def test_ar_solve_at_four_hidden_layers_of_128(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden,d", [((128,) * 3, 20), ((128,) * 4, 64), ((128,) * 6, 2),
-                                      ((64,) * 4, 20), ((96, 160, 64), 30), ((32,), 2)])
+                                      ((64,) * 4, 20), ((96, 160, 64), 30), ((32,), 2),
+                                      ((1024,) * 2, 16)])
 def test_shared_memory_copies_match_the_kernels(card, hidden, d):
     """`route` decides from the Python copies of the kernels' shared-memory
-    sizes (`fast_smem_bytes`, `general_smem_bytes`): they equal what the
-    built libraries compute."""
+    sizes and plan (`fast_smem_bytes`, `general_plan`,
+    `streamed_smem_bytes`): they equal what the built libraries compute, at
+    several row counts on this card's SM count and limit."""
     import ctypes
 
     widths = [d, *hidden, 2 * d]
     arr = (ctypes.c_int * len(widths))(*widths)
+    limit, sms = ar_flow._smem_limit(0), ar_flow._sm_count(0)
     for backward in (0, 1):
         fast = ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, backward)
-        general = ar_flow._general_lib().ar_solve_general_smem_bytes(arr, len(widths) - 1,
-                                                                    backward)
+        streamed = ar_flow._streamed_lib().ar_solve_streamed_smem_bytes(arr, len(widths) - 1,
+                                                                       backward)
         assert fast == (ar_flow.fast_smem_bytes(widths, backward) or -1)
-        assert general == ar_flow.general_smem_bytes(widths, backward)
+        assert streamed == ar_flow.streamed_smem_bytes(widths, backward)
+        for n in (1, 37, 128, 256, 7_680, 10_000):
+            out = (ctypes.c_int * 3)()
+            rc = ar_flow._general_lib().ar_solve_general_plan(arr, len(widths) - 1, backward, n,
+                                                              sms, limit, out)
+            assert (None if rc else tuple(out)) == ar_flow.general_plan(widths, backward, n, sms,
+                                                                        limit)
 
 
 @pytest.mark.cuda

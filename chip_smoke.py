@@ -276,17 +276,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the 128-wide pair refuses and a cluster of at most 8 CTAs holds, at
    hidden widths 64 x 4 and 64 x 3 (D = 20, N = 128), 128 x 4 and 128 x 6
    (the backward, then the forward, the 128-wide pair refuses), 256 x 2
-   (D = 64, N = 256), 100 x 3 (D = 16, N = 37: ragged width and rows),
-   96-160-64 (D = 30, N = 256), 32 x 1 (D = 2) and 64 x 4 at D = 64, N =
-   7,680; and the streamed pair (csrc/ar_flow_streamed.cu), the third
-   route, at 1,024 x 2 (D = 16, N = 128), past what 8 CTAs hold: the C
+   (D = 64, N = 256), 100 x 3 (D = 16, N = 37: a ragged row tile),
+   96-160-64 (D = 30, N = 256), 32 x 1 (D = 2), 64 x 4 at D = 64, N =
+   7,680, and four shapes that take the kernels' other paths: 50 x 3
+   (widths not a multiple of 4), 100 x 6 (slices of unequal width over 2
+   and 4 CTAs), 202 x 4 (D = 20, N = 37: 8 CTAs backward) and 510-22-510
+   (D = 64: a CTA that holds none of a layer); at 512 x 2 (D = 64, N =
+   128) the general forward on clusters of 8 beside the streamed backward;
+   and the streamed pair (csrc/ar_flow_streamed.cu), the third route, at
+   1,024 x 2 (D = 16, N = 128), past what 8 CTAs hold: the C
    libraries' plan (cluster, rows a tile, shared bytes) and shared-memory
    sizes against their Python copies, each shape's plan and grid, the
    routes, the forward against `unrolled_solve` and the backward against
    autograd through it on the kernel's ReLU branches, a second backward
-   bitwise equal, both signs, s_bound 0 and 8 (rtol/atol 1e-4); one call
-   through `ar_solve` launching the routed kernels as predicted with their
-   direct entries' bits; the times beside the plain versions and bounds,
+   bitwise equal, both signs, s_bound 0 and 8 (rtol/atol 1e-4); a call
+   at each sign through `ar_solve` launching the routed kernels as
+   predicted, each counted as its own pair's, with their direct entries'
+   bits; the times beside the plain versions and bounds,
    and at 128 x 3 (D = 20, N = 128) the general pair forced and timed
    beside the 128-wide pair. Then the backward at zero MADE biases with
    ties past step 0 (64 x 4, D = 64, 7,680 rows) and its slope-0 control,
@@ -548,7 +554,7 @@ def _plain_vjp(x, ws, bs, sign, s_bound, gy, gld):
 
 
 def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
-                    kind="fast"):
+                    kind="fast", forward_kind=None):
     """The backward (both launches) against autograd through
     `unrolled_solve`, for x, every weight and every bias; the
     reference takes the forward kernel's hidden ReLU branches
@@ -567,13 +573,14 @@ def _check_backward(what, x, ws, bs, sign, s_bound, gy, gld, tie_control=False,
     KERNEL_RTOL/KERNEL_ATOL: the ties carry gradient, and the kernel takes
     them at 1/2. `kind` names the pair whose direct entries run: "fast"
     (`kernel_forward`, `kernel_backward`), "general" or "streamed"
-    (`general_forward`/`general_backward`, and the streamed ones). Returns
-    the max abs error."""
+    (`general_forward`/`general_backward`, and the streamed ones);
+    `forward_kind`, where given, the pair whose forward records the tape.
+    Returns the max abs error."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
 
-    forward, backward = _entries(kind)
+    forward, backward = _entries(forward_kind or kind)[0], _entries(kind)[1]
     tape = ar_flow.new_tape(x, ws)
     y, _ = forward(x, ws, bs, sign, s_bound, tape=tape)
     gx, gws, gbs = backward(x, y, gy, gld, tape, ws, sign, s_bound)
@@ -3261,13 +3268,21 @@ def _ar_solve_at(widths):
 
 # ar_solve_shapes: MADE shapes that JAX's Pallas solve takes and the 128-wide
 # kernels refuse, or that no config has, (hidden widths, D, rows), each
-# through the general pair at sign +-1 and s_bound 0 and 8. The first is the
-# flow path's (SHAPES_FLOW); the 4 x 128 backward and the 6 x 128 forward are
-# the ones the 128-wide pair refuses; 100 x 3 at 37 rows is a ragged width
-# and a ragged row tile.
+# through the general pair (the streamed pair in a direction that 8 CTAs
+# cannot hold) at sign +-1 and s_bound 0 and 8. The first is the flow path's
+# (SHAPES_FLOW); the 4 x 128 backward and the 6 x 128 forward are the ones
+# the 128-wide pair refuses; 37 rows make a ragged row tile. The next four
+# take the general kernels' other paths on an H100: 50 x 3, widths not a
+# multiple of 4 (4-byte staging and tape copies); 100 x 6, slices of 52 and
+# 48 over 2 CTAs forward, 28 and 16 over 4 backward; 202 x 4, 8 CTAs
+# backward, the last CTA's slice 6 wide; 510, 22, 510, a 4-CTA cluster in
+# which one CTA holds none of the 22-wide layer. 512 x 2 at D 64 takes the
+# general forward on clusters of 8 and the streamed backward.
 SHAPES = (((64,) * 4, 20, 128), ((64,) * 3, 20, 128), ((128,) * 4, 20, 128),
           ((128,) * 6, 20, 128), ((256,) * 2, 64, 256), ((100,) * 3, 16, 37),
-          ((96, 160, 64), 30, 256), ((32,), 2, 128), ((64,) * 4, 64, 7_680))
+          ((96, 160, 64), 30, 256), ((32,), 2, 128), ((64,) * 4, 64, 7_680),
+          ((50,) * 3, 20, 128), ((100,) * 6, 20, 128), ((202,) * 4, 20, 37),
+          ((510, 22, 510), 64, 128), ((512,) * 2, 64, 128))
 # the general pair forced at the main path's shape, timed beside the
 # 128-wide pair on the same inputs
 SHAPES_FORCED = ((128,) * 3, 20, 128)
@@ -3288,33 +3303,50 @@ def shape_name(hidden, d, n):
 
 
 def _counts():
+    """Every ar_solve count: each pair's own and the totals, at sign -1 too."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    return {k: getattr(ar_flow.ar_solve, k) for k in ar_flow.COUNTS}
+
+
+def _zero_counts(prefixes=("",)):
+    """Every ar_solve count whose name starts with one of `prefixes` set to 0
+    (the default: all)."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    for k in ar_flow.COUNTS:
+        if k.startswith(prefixes):
+            setattr(ar_flow.ar_solve, k, 0)
+
+
+def _expected_counts(routes, calls=1, sign=1):
+    """The counts of `calls` forward and backward calls whose directions take
+    the pairs `routes` names ({"forward": ..., "backward": ...})."""
+    from mmvae_tpu_torch.ops import ar_flow
+
+    want = dict.fromkeys(ar_flow.COUNTS, 0)
+    for what, pair in (("launches", routes["forward"]), ("backward_launches", routes["backward"])):
+        for key in (what, f"{pair}_{what}"):
+            want[key] += calls
+            want[key.replace(what, f"sign_minus_{what}")] += calls * (sign < 0)
+    return want
+
+
+def _off_fast_counts():
+    """The launches of the general and the streamed pair, (forward, backward),
+    since they were last set to 0: none on a config path."""
     from mmvae_tpu_torch.ops import ar_flow
 
     a = ar_flow.ar_solve
-    return dict(launches=a.launches, general_launches=a.general_launches,
-                backward_launches=a.backward_launches,
-                general_backward_launches=a.general_backward_launches,
-                streamed_launches=a.streamed_launches,
-                streamed_backward_launches=a.streamed_backward_launches,
-                sign_minus_launches=a.sign_minus_launches,
-                sign_minus_backward_launches=a.sign_minus_backward_launches)
-
-
-def _zero_counts():
-    """Every ar_solve count, the general and streamed kernels' too, set to 0."""
-    from mmvae_tpu_torch.ops import ar_flow
-
-    _reset_counts()
-    a = ar_flow.ar_solve
-    a.general_launches = a.general_backward_launches = 0
-    a.streamed_launches = a.streamed_backward_launches = 0
+    return (a.general_launches + a.streamed_launches,
+            a.general_backward_launches + a.streamed_backward_launches)
 
 
 def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
     """One forward and backward through `ar_solve`: the kernels `route`
-    picked launched as predicted (one forward and one backward, counted as
-    general off the 128-wide pair and as streamed on the third route), with
-    the bits of those kernels' direct entries on the same inputs."""
+    picked launched as predicted (one forward and one backward, each
+    counted as its pair's), with the bits of those kernels' direct entries
+    on the same inputs."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
@@ -3325,13 +3357,8 @@ def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
                              s_bound)
     grads = torch.autograd.grad((y, ld), inputs, (gy, gld))
     after = _counts()
-    keys = ("launches", "general_launches", "streamed_launches", "backward_launches",
-            "general_backward_launches", "streamed_backward_launches")
-    got = {k: after[k] - before[k] for k in keys}
-    expected = dict(launches=1, general_launches=int(routes["forward"] != "fast"),
-                    streamed_launches=int(routes["forward"] == "streamed"), backward_launches=1,
-                    general_backward_launches=int(routes["backward"] != "fast"),
-                    streamed_backward_launches=int(routes["backward"] == "streamed"))
+    got = {k: after[k] - before[k] for k in after}
+    expected = _expected_counts(routes, sign=sign)
     forward = _entries(routes["forward"])[0]
     backward = _entries(routes["backward"])[1]
     tape = ar_flow.new_tape(x, ws)
@@ -3347,11 +3374,12 @@ def _check_route(what, x, ws, bs, sign, s_bound, gy, gld, routes):
                              f"{expected}), bitwise as the direct entries: {same}")
 
 
-def _time_general(what, x, ws, bs, gy, gld, kind="general", fast=False):
+def _time_general(what, x, ws, bs, gy, gld, kind="general", fast=False, forward_kind=None):
     """Device times of the pair `kind` names (the general or the streamed)
     at sign +1, s_bound 0 (the backward whole, its chain kernel alone beside
     it), their plain versions' and bounds; with `fast`, the 128-wide pair's
-    on the same inputs too."""
+    on the same inputs too. `forward_kind`, where given, names the pair
+    whose forward is timed and records the backward's tape."""
     import torch
 
     from mmvae_tpu_torch.ops import ar_flow
@@ -3360,7 +3388,7 @@ def _time_general(what, x, ws, bs, gy, gld, kind="general", fast=False):
     widths = made_widths(d, [w.shape[1] for w in ws[:-1]])
     n_w, n_b = sum(w.numel() for w in ws), sum(b.numel() for b in bs)
     chains = {"general": GENERAL_BACKWARD_KERNELS, "streamed": STREAMED_BACKWARD_KERNELS}
-    pairs = [(kind, *_entries(kind), chains[kind])]
+    pairs = [(kind, _entries(forward_kind or kind)[0], _entries(kind)[1], chains[kind])]
     if fast:
         pairs.append(("fast", *_entries("fast"), BACKWARD_KERNELS))
     res = {}
@@ -3387,7 +3415,8 @@ def _time_general(what, x, ws, bs, gy, gld, kind="general", fast=False):
                              plain_ms=pb_ms, bound_ms=b_bound[0], bound_by=b_bound[1]))
     if fast:
         out["fast"] = res["fast"]
-    emit({"phase": "ar_solve_shapes_time", **what, "pair": kind, **out,
+    emit({"phase": "ar_solve_shapes_time", **what,
+          "pairs": {"forward": forward_kind or kind, "backward": kind}, **out,
           "forward_roofline_share": f_bound[0] / g["forward_ms"],
           "backward_roofline_share": b_bound[0] / g["backward_ms"]})
     return out
@@ -3399,8 +3428,8 @@ def _shapes_flow():
     pair), and MAF's sampling at SHAPES_FLOW_STREAMED's, which 8 CTAs cannot
     hold (the streamed pair), forward and backward on the card in float32
     with every count set to 0 just before and read just after (2 MADE
-    blocks: 2 forward and 2 backward launches, all general, and streamed on
-    the third route), against the same module in float64 on the CPU on the
+    blocks: 2 forward and 2 backward launches, all of the general pair, or
+    of the streamed pair on the third route), against the same module in float64 on the CPU on the
     card's hidden ReLU branches (`_ReluBranches`, `_SolveBranches`): y and
     the log-det within KERNEL_RTOL/KERNEL_ATOL, the gradient of sum(y * r) +
     sum(logdet * r') for z and every parameter within STEP_GRAD_TOL of each
@@ -3450,11 +3479,8 @@ def _shapes_flow():
                                       atol=KERNEL_ATOL) for a, b in ((y, y64), (ld, ld64)))
         grad_err = max(((a.cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                        for a, b in zip(grads, want))
-        expected = dict(launches=2, general_launches=2, backward_launches=2,
-                        general_backward_launches=2, streamed_launches=2 * streamed,
-                        streamed_backward_launches=2 * streamed,
-                        sign_minus_launches=2 * (sign < 0),
-                        sign_minus_backward_launches=2 * (sign < 0))
+        pair = "streamed" if streamed else "general"
+        expected = _expected_counts(dict(forward=pair, backward=pair), calls=2, sign=sign)
         ok = (value_ok and grad_err <= STEP_GRAD_TOL and counts == expected
               and len(rb.masks) == len(relu.masks) and rb.flip_max_abs <= RELU_KINK_ATOL)
         emit({"phase": "ar_solve_shapes_flow", "path": name, "method": method, "sign": sign,
@@ -3512,14 +3538,15 @@ def _plans(widths, n, limit, sms):
 def phase_ar_solve_shapes():
     """The general pair (csrc/ar_flow_general.cu) at every shape of SHAPES
     and SHAPES_FORCED, and the streamed pair (csrc/ar_flow_streamed.cu) at
-    SHAPES_STREAMED: the C libraries' plan and shared-memory sizes against
+    SHAPES_STREAMED and in each direction that `route` sends to it (each
+    shape's "pairs"): the C libraries' plan and shared-memory sizes against
     their Python copies, each shape's plan (cluster, rows a tile, shared
     bytes) and grid, the routes `route` picks; the forward against
     `unrolled_solve` and the backward against autograd through it on the
     forward kernel's ReLU branches, a second backward bitwise equal
-    (`_check_backward`), both signs, s_bound 0 and 8; one call through
-    `ar_solve` launching the routed kernels as predicted, with their direct
-    entries' bits (`_check_route`); the times beside the plain versions and
+    (`_check_backward`), both signs, s_bound 0 and 8; a call at each sign
+    through `ar_solve` launching the routed kernels as predicted, with their
+    direct entries' bits (`_check_route`); the times beside the plain versions and
     the bounds (`_time_general`), the 128-wide pair's too at SHAPES_FORCED.
     Then the general backward at MADE's zero biases with ties past step 0
     (SHAPES_TIES, `_tie_inputs`) and its slope-0 control, and the flow paths
@@ -3534,18 +3561,19 @@ def phase_ar_solve_shapes():
     errs = {k: {"forward": 0.0, "backward": 0.0} for k in ("general", "streamed")}
     for hidden, d, n in SHAPES + (SHAPES_FORCED, SHAPES_STREAMED):
         name = shape_name(hidden, d, n)
-        kind = "streamed" if (hidden, d, n) == SHAPES_STREAMED else "general"
         gen = torch.Generator().manual_seed(d + len(hidden))
         ws, bs = _made_params(d, hidden, gen)
         widths = made_widths(d, hidden)
         plans = _plans(widths, n, limit, sms)
         routes = {k: ar_flow.route(widths, k == "backward", limit) for k in ("forward", "backward")}
+        # the general pair where the 128-wide one would take a direction
+        pairs = {k: "streamed" if r == "streamed" else "general" for k, r in routes.items()}
         routes_by_shape[name], plans_by_shape[name] = routes, plans
-        emit({"phase": "ar_solve_shapes", "shape": name, "widths": widths, "pair": kind,
+        emit({"phase": "ar_solve_shapes", "shape": name, "widths": widths, "pairs": pairs,
               "plans": plans, "smem_limit": limit, "sms": sms, "routes": routes})
         x, gy = (torch.randn(n, d, generator=gen).cuda() for _ in range(2))
         gld = torch.randn(n, generator=gen).cuda()
-        forward = _entries(kind)[0]
+        forward = _entries(pairs["forward"])[0]
         for sign in (1, -1):
             for s_bound in (0.0, 8.0):
                 what = dict(shape=name, sign=sign, s_bound=s_bound)
@@ -3553,13 +3581,19 @@ def phase_ar_solve_shapes():
                     y_k, ld_k = forward(x, ws, bs, sign, s_bound)
                     y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, s_bound)
                 torch.cuda.synchronize()
-                errs[kind]["forward"] = max(errs[kind]["forward"], _check_close(
-                    dict(kernel=f"{kind}_forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
-                errs[kind]["backward"] = max(errs[kind]["backward"], _check_backward(
-                    what, x, ws, bs, sign, s_bound, gy, gld, kind=kind))
-        _check_route(dict(shape=name, sign=1, s_bound=8.0), x, ws, bs, 1, 8.0, gy, gld, routes)
-        results[name] = _time_general(dict(shape=name), x, ws, bs, gy, gld, kind=kind,
-                                      fast=(hidden, d, n) == SHAPES_FORCED)
+                err = errs[pairs["forward"]]
+                err["forward"] = max(err["forward"], _check_close(
+                    dict(kernel=f"{pairs['forward']}_forward", **what), [(y_k, y_p), (ld_k, ld_p)]))
+                err = errs[pairs["backward"]]
+                err["backward"] = max(err["backward"], _check_backward(
+                    what, x, ws, bs, sign, s_bound, gy, gld, kind=pairs["backward"],
+                    forward_kind=pairs["forward"]))
+        for sign in (1, -1):
+            _check_route(dict(shape=name, sign=sign, s_bound=8.0), x, ws, bs, sign, 8.0, gy, gld,
+                         routes)
+        results[name] = dict(pairs=pairs, **_time_general(
+            dict(shape=name), x, ws, bs, gy, gld, kind=pairs["backward"],
+            fast=(hidden, d, n) == SHAPES_FORCED, forward_kind=pairs["forward"]))
 
     hidden, d, n = SHAPES_TIES
     gen = torch.Generator().manual_seed(d + 1)
@@ -4268,8 +4302,7 @@ def _ddp_parity_rank(rank, store, world, job_path, out_dir, backend):
             loss=loss.item(), finite=bool(finite), grads=[g.cpu() for g in grads],
             masks=relu.masks, step_launches=step, device=str(mesh.device),
             launches=(ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches),
-            general_launches=(ar_flow.ar_solve.general_launches,
-                              ar_flow.ar_solve.general_backward_launches),
+            off_fast_launches=_off_fast_counts(),
             params=[p.detach().cpu() for p in trainer.model.parameters()],
             skipped=trainer.opt.count.item() != DDP_TRAIN_STEPS)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -4384,7 +4417,7 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
               and all(r["finite"] and not r["skipped"] for r in per_rank)
               and [tuple(r["step_launches"]) for r in per_rank] == [expected_step] * n_ranks
               and got == [expected] * n_ranks and one_launches == expected_step
-              and all(tuple(r["general_launches"]) == (0, 0) for r in per_rank)
+              and all(tuple(r["off_fast_launches"]) == (0, 0) for r in per_rank)
               and [r["device"] for r in per_rank] == [
                   f"cuda:{0 if backend == 'gloo' else i}" for i in range(n_ranks)])
         emit({"phase": "ddp_parity", "case": name, "ranks": n_ranks, "backend": backend,
@@ -4399,7 +4432,7 @@ def phase_ddp_parity(tmp, specs=DDP_PARITY, ranks=DDP_RANKS, backend="gloo"):
               "relu_other_branch_max_abs_preact": [rb.flip_max_abs for rb in rbs],
               "step_launches_by_rank": [r["step_launches"] for r in per_rank],
               "launches_by_rank": got, "expected_launches_by_rank": [expected] * n_ranks,
-              "general_launches_by_rank": [r["general_launches"] for r in per_rank],
+              "off_fast_launches_by_rank": [r["off_fast_launches"] for r in per_rank],
               "one_process_step_launches": one_launches, "ranks_wall_s": ranks_s,
               "objective_rtol": STEP_OBJ_RTOL, "grad_tol": STEP_GRAD_TOL, "ok": ok})
         if not ok:
@@ -4483,7 +4516,7 @@ def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
         Trainer.fit, Trainer.run_epoch_device = fit, run_epoch
         Trainer.run_epoch_device_eval = run_val
     total = (ar_flow.ar_solve.launches, ar_flow.ar_solve.backward_launches)
-    general = (ar_flow.ar_solve.general_launches, ar_flow.ar_solve.general_backward_launches)
+    off_fast = _off_fast_counts()
     # the steady train step on this rank's blocks, after the epoch
     trainer, pipeline = trainers[0], pipelines[0]
     block = trainer.mesh.block(pipeline.batch_size)
@@ -4512,7 +4545,7 @@ def _ddp_rank_cli(cfg_path, exp_dir, out_json, backend):
     with open(f"{out_json}.rank{rank}", "w") as f:
         json.dump({"rank": rank, "run_path": run_path, "epoch_launches": counts["epoch"],
                    "launches": total, "analytics_launches": total[0] - counts["epoch"][0],
-                   "general_launches": general,
+                   "off_fast_launches": off_fast,
                    "train_steps": steps, "val_batches": val_batches[0],
                    "epoch_ms_per_step": train_s / steps * 1e3, "steady_step_ms": steady_ms,
                    "wall_s_incl_setup": wall, "allreduce_ms": allreduce_ms,
@@ -4563,7 +4596,7 @@ def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
         expected = [(4 * (steps + val_b) + (4 if r == 0 else 0), 4 * steps) for r in range(ranks)]
         got = [tuple(p["launches"]) for p in per_rank]
         ok = (got == expected and (steps, val_b) == (68, 7) and runs_made == [run]
-              and all(tuple(p["general_launches"]) == (0, 0) for p in per_rank)
+              and all(tuple(p["off_fast_launches"]) == (0, 0) for p in per_rank)
               and all(p["run_path"] == run for p in per_rank)
               and {"args.json", "losses.json", "metrics.jsonl", "model.pt",
                    "generate_001.png"} <= set(files)
@@ -4575,7 +4608,7 @@ def phase_ddp_slice(tmp, runs=DDP_SLICE_RUNS):
               "expected_launches_by_rank": expected, "launches_by_rank": got,
               "run_files": files, "losses": losses,
               **{k: [p[k] for p in per_rank] for k in
-                 ("analytics_launches", "general_launches", "epoch_ms_per_step",
+                 ("analytics_launches", "off_fast_launches", "epoch_ms_per_step",
                   "steady_step_ms",
                   "wall_s_incl_setup", "allreduce_ms",
                   "allreduce_floats", "device")},
@@ -5083,25 +5116,23 @@ GENERAL_PHASES = ("ar_solve_shapes",)
 
 class _Walls:
     """Runs a group's phases: each one's wall seconds, and each one's
-    launches of the general ar_solve kernels, which must be none off
-    GENERAL_PHASES (those counts are set to 0 just before the phase and read
-    just after)."""
+    launches of the general and the streamed ar_solve kernels, which must be
+    none off GENERAL_PHASES (those counts are set to 0 just before the phase
+    and read just after). So every ar_solve launch of the other phases, and
+    of the paths they drive, is the 128-wide pair's."""
 
     def __init__(self):
         self.walls = {}
 
     def __call__(self, name, fn, *args):
-        from mmvae_tpu_torch.ops import ar_flow
-
-        a = ar_flow.ar_solve
-        a.general_launches = a.general_backward_launches = 0
+        _zero_counts(("general_", "streamed_"))
         t0 = time.perf_counter()
         out = fn(*args)
         self.walls[name] = self.walls.get(name, 0.0) + time.perf_counter() - t0
-        general = (a.general_launches, a.general_backward_launches)
-        if name not in GENERAL_PHASES and general != (0, 0):
-            raise AssertionError(f"phase {name} launched the general ar_solve kernels "
-                                 f"{general} times (expected none)")
+        off = _off_fast_counts()
+        if name not in GENERAL_PHASES and off != (0, 0):
+            raise AssertionError(f"phase {name} launched the general or the streamed ar_solve "
+                                 f"kernels {off} times (expected none)")
         return out
 
 
@@ -5134,11 +5165,13 @@ def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
     def bwd_at(res):
         return {k[len("backward_"):]: v for k, v in res.items() if k.startswith("backward")}
 
-    # the general pair at the flow path's shape, and at every other; the
-    # streamed pair at its one
+    # the general pair at the flow path's shape, and at every other shape
+    # where it took the direction; the streamed pair at its one, and at
+    # every other where it took the direction
     flow_shape, streamed_shape = shape_name(*SHAPES[0]), shape_name(*SHAPES_STREAMED)
-    general = {k: {name: r[k] for name, r in shapes["results"].items() if name != streamed_shape}
-               for k in ("forward", "backward")}
+    by_pair = {(p, k): {name: r[k] for name, r in shapes["results"].items() if r["pairs"][k] == p}
+               for p in ("general", "streamed") for k in ("forward", "backward")}
+    general = {k: by_pair["general", k] for k in ("forward", "backward")}
     streamed = shapes["results"][streamed_shape]
     errs = shapes["errs"]
     return {
@@ -5179,11 +5212,12 @@ def _kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes):
             plans={k: v["backward"] for k, v in shapes["plans"].items()}),
         "ar_solve_streamed_forward": entry(
             "ar_solve_streamed_forward", streamed_src, "mmvae_tpu/ops/ar_flow.py:96",
-            streamed["forward"], errs["streamed"]["forward"], shape=streamed_shape),
+            streamed["forward"], errs["streamed"]["forward"], shape=streamed_shape,
+            at_shapes=by_pair["streamed", "forward"]),
         "ar_solve_streamed_backward": entry(
             "ar_solve_streamed_backward", streamed_src, "mmvae_tpu/ops/ar_flow.py:156",
             streamed["backward"], errs["streamed"]["backward"], shape=streamed_shape,
-            kernel_ms=streamed["backward"]["kernel_ms"]),
+            kernel_ms=streamed["backward"]["kernel_ms"], at_shapes=by_pair["streamed", "backward"]),
     }
 
 
@@ -5197,18 +5231,17 @@ def group_kernels(timed, tmp):
     shapes = timed("ar_solve_shapes", phase_ar_solve_shapes)
     flow = shapes["flow"]
 
-    def minus(c, streamed):  # a flow path's launches at sign -1, all of one pair
-        on = (c["streamed_launches"] > 0) == streamed
-        return (c["sign_minus_launches"], c["sign_minus_backward_launches"]) if on else (0, 0)
+    def read(prefix):  # each flow path's counts of one pair, all and at sign -1
+        return ({p: (c[f"{prefix}launches"], c[f"{prefix}backward_launches"])
+                 for p, c in flow.items()},
+                {p: (c[f"{prefix}sign_minus_launches"], c[f"{prefix}sign_minus_backward_launches"])
+                 for p, c in flow.items()})
 
-    return dict(kernels=_kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes),
-                by_path={p: (c["launches"], c["backward_launches"]) for p, c in flow.items()},
-                general_by_path={p: (c["general_launches"], c["general_backward_launches"])
-                                 for p, c in flow.items()},
-                general_by_sign={p: minus(c, False) for p, c in flow.items()},
-                streamed_by_path={p: (c["streamed_launches"], c["streamed_backward_launches"])
-                                  for p, c in flow.items()},
-                streamed_by_sign={p: minus(c, True) for p, c in flow.items()})
+    out = dict(kernels=_kernel_bodies(solve, solve2, solve64, solve30, ties_err, shapes),
+               by_path=read("")[0])
+    for pair in ("fast", "general", "streamed"):
+        out[f"{pair}_by_path"], out[f"{pair}_by_sign"] = read(f"{pair}_")
+    return out
 
 
 def group_mnist_svhn(timed, tmp):
@@ -5311,11 +5344,41 @@ def run_group(name):
         out = globals()[f"group_{name}"](timed, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = {"group": name, "by_path": {}, "by_sign": {}, "general_by_path": {},
-           "general_by_sign": {}, "streamed_by_path": {}, "streamed_by_sign": {}, **out,
+    out = {"group": name, "by_path": {}, "by_sign": {},
+           **{f"{p}_by_{k}": {} for p in ("fast", "general", "streamed") for k in ("path", "sign")},
+           **out,
            "seconds": time.perf_counter() - t0, "phase_seconds": timed.walls}
     emit({"phase": "group", **{k: v for k, v in out.items() if k != "kernels"}})
     return out
+
+
+def kernels_line(results):
+    """The kernels line from the groups' results: each kernel's entry with
+    its launches on every path, summed and by path, read from its own pair's
+    counts, and at sign -1 by path."""
+    by_path = {p: c for r in results.values() for p, c in r["by_path"].items()}
+    by_sign = {p: c for r in results.values() for p, c in r["by_sign"].items()}
+    # each pair's own counts, (by path, at sign -1 by path): on a path off
+    # ar_solve_shapes every launch is the 128-wide pair's and none the
+    # others' (`_Walls` checks each phase for it); the flow paths of
+    # ar_solve_shapes read every pair's own counts
+    pair_counts = {"fast": (dict(by_path), dict(by_sign))}
+    pair_counts.update({pair: ({p: (0, 0) for p in by_path}, {p: (0, 0) for p in by_sign})
+                        for pair in ("general", "streamed")})
+    for r in results.values():
+        for pair, (on_path, on_sign) in pair_counts.items():
+            on_path.update(r[f"{pair}_by_path"])
+            on_sign.update(r[f"{pair}_by_sign"])
+
+    def launches(body, which, on_path, on_sign):
+        got = {path: c[which] for path, c in on_path.items()}
+        return {**body, "launches": sum(got.values()), "launches_by_path": got,
+                "launches_at_sign_minus_by_path": {path: c[which] for path, c in on_sign.items()}}
+
+    bodies = results["kernels"]["kernels"]
+    return [launches(bodies[f"ar_solve{name}_{way}"], which, *pair_counts[pair])
+            for pair, name in (("fast", ""), ("general", "_general"), ("streamed", "_streamed"))
+            for which, way in ((0, "forward"), (1, "backward"))]
 
 
 def main():
@@ -5366,46 +5429,12 @@ def main():
                 return 1
             with open(path) as f:
                 results[name] = json.load(f)
-    by_path = {p: c for r in results.values() for p, c in r["by_path"].items()}
-    by_sign = {p: c for r in results.values() for p, c in r["by_sign"].items()}
-    # every path off ar_solve_shapes launched neither general nor streamed
-    # kernel (each group's phases are checked for it)
-    general_by_path = {p: (0, 0) for p in by_path}
-    general_by_sign = {p: (0, 0) for p in by_sign}
-    streamed_by_path = {p: (0, 0) for p in by_path}
-    streamed_by_sign = {p: (0, 0) for p in by_sign}
-    for r in results.values():
-        general_by_path.update(r["general_by_path"])
-        general_by_sign.update(r["general_by_sign"])
-        streamed_by_path.update(r["streamed_by_path"])
-        streamed_by_sign.update(r["streamed_by_sign"])
     emit({"phase": "smoke", "seconds": time.perf_counter() - t_start,
           "group_seconds": {k: r["seconds"] for k, r in results.items()},
           "phase_seconds": {p: s for r in results.values() for p, s in r["phase_seconds"].items()
                             if p != "build"},
           "build_seconds": {k: r["phase_seconds"]["build"] for k, r in results.items()}})
-
-    def launches(body, which, counts_by_path, minus=None):
-        got = {path: counts[which] for path, counts in counts_by_path.items()}
-        extra = {} if minus is None else {"launches_at_sign_minus_by_path": {
-            path: counts[which] for path, counts in minus.items()}}
-        return {**body, "launches": sum(got.values()), "launches_by_path": got, **extra}
-
-    # the 128-wide kernels' launches on each path: all of the path's but the
-    # general and streamed kernels' (counted together as general); the
-    # general kernels': those but the streamed ones
-    fast_by_path = {p: tuple(c[i] - general_by_path[p][i] for i in (0, 1))
-                    for p, c in by_path.items()}
-    redesigned_by_path = {p: tuple(c[i] - streamed_by_path[p][i] for i in (0, 1))
-                          for p, c in general_by_path.items()}
-    bodies = results["kernels"]["kernels"]
-    emit({"kernels": [
-        launches(bodies["ar_solve_forward"], 0, fast_by_path, by_sign),
-        launches(bodies["ar_solve_backward"], 1, fast_by_path, by_sign),
-        launches(bodies["ar_solve_general_forward"], 0, redesigned_by_path, general_by_sign),
-        launches(bodies["ar_solve_general_backward"], 1, redesigned_by_path, general_by_sign),
-        launches(bodies["ar_solve_streamed_forward"], 0, streamed_by_path, streamed_by_sign),
-        launches(bodies["ar_solve_streamed_backward"], 1, streamed_by_path, streamed_by_sign)]})
+    emit({"kernels": kernels_line(results)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

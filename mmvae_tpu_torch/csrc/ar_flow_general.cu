@@ -24,8 +24,8 @@
 // keeps a copy): C, the CTAs of a thread-block cluster that share one row
 // tile's weights, the least of 1, 2, 4 and 8 whose shared memory holds them;
 // R, the rows of a tile, 4, 8 or 16: of those shared memory holds, the one
-// with the least rounds of tiles over the clusters the card runs at once
-// times a step's cost (make_plan).
+// with the fewest rounds of tiles over the clusters the card runs at once,
+// the fewer rows on a tie (make_plan).
 //
 // Design, both kernels:
 // - Weights on chip. Each CTA stages its share of every layer once, by
@@ -238,26 +238,30 @@ struct Plan {
 
 // The plan at these widths: the least cluster of 1, 2, 4, 8 CTAs whose
 // shared memory holds the MADE at 4-row tiles; and of the tiles of 4, 8 and
-// 16 rows that shared memory holds, the one with the least rounds of tiles
-// over the clusters the card runs at once (SMs / cluster, seven eighths of
-// it for clusters past one CTA: they do not fill every SM) times a step's
-// cost, 12 + rows (a step's latency grows slowly with its rows); the fewer
-// rows on a tie. cluster = 0 where no cluster of at most 8 holds the MADE.
+// 16 rows that shared memory holds, the one with the fewest rounds of tiles
+// over the clusters the card runs at once, the fewer rows on a tie (a step
+// takes longer at more rows). The clusters the card runs at once are taken
+// as SMs / cluster, seven eighths of it past one CTA: clusters are placed
+// within a GPC and do not fill every SM. That is a floor of what
+// cudaOccupancyMaxActiveClusters, which gives the launch its grid, reads on
+// an H100 SXM (132 SMs) at the plans' shared memory: 66 clusters of 2 where
+// 7/8 gives 57, 30 of 4 where it gives 28, 15 of 8 where it gives 14 (and
+// 264 single CTAs, two an SM, at 112,288 bytes a CTA). cluster = 0
+// where no cluster of at most 8 holds the MADE.
 Plan make_plan(const int* width, int n, bool backward, int n_rows, int n_sms, int limit) {
   Offsets o;
   for (int c = 1; c <= kMaxCluster; c *= 2) {
     const int slots = c == 1 ? n_sms : (7 * n_sms) / (8 * c);
     Plan best{0, 0, 0};
-    long long best_cost = 0;
+    long long best_rounds = 0;
     for (int r = 4; r <= 16; r *= 2) {
       const int bytes = layout(width, n, c, r, backward, &o) * 4 + kStaticSmem;
       if (bytes > limit) break;
       const long long tiles = (n_rows + r - 1) / r;
       const long long rounds = (tiles + slots - 1) / (slots > 0 ? slots : 1);
-      const long long cost = rounds * (12 + r);
-      if (best.cluster == 0 || cost < best_cost) {
+      if (best.cluster == 0 || rounds < best_rounds) {
         best = Plan{c, r, bytes};
-        best_cost = cost;
+        best_rounds = rounds;
       }
     }
     if (best.cluster != 0) return best;

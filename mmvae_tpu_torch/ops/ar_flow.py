@@ -483,13 +483,13 @@ def general_plan(widths: Sequence[int], backward: bool, n_rows: int, n_sms: int,
     a card of `n_sms` SMs that allows `limit` bytes of shared memory a
     block: (cluster, rows, bytes), the least cluster of 1, 2, 4 or 8 CTAs
     whose shared memory holds the MADE at 4-row tiles; of the tiles of 4, 8
-    and 16 rows that shared memory holds, the one with the least rounds of
+    and 16 rows that shared memory holds, the one with the fewest rounds of
     tiles over the clusters the card runs at once (SMs / cluster, seven
-    eighths of it for clusters past one CTA) times a step's cost, 12 + rows,
-    the fewer rows on a tie; and the bytes of shared memory a CTA takes.
-    None where the kernels do not take the widths or no cluster of at most
-    8 holds them. A copy of csrc/ar_flow_general.cu's
-    ar_solve_general_plan."""
+    eighths of it for clusters past one CTA: a floor of what the card's
+    occupancy query reads, make_plan says which), the fewer rows on a tie;
+    and the bytes of shared memory a CTA takes. None where the kernels do
+    not take the widths or no cluster of at most 8 holds them. A copy of
+    csrc/ar_flow_general.cu's ar_solve_general_plan."""
     n, d = len(widths) - 1, widths[0]
     if (n < 2 or n > GENERAL_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
             or min(widths[1:-1]) < 1 or n_rows <= 0):
@@ -503,9 +503,8 @@ def general_plan(widths: Sequence[int], backward: bool, n_rows: int, n_sms: int,
             if need > limit:
                 break
             rounds = -(-(-(-n_rows // rows)) // max(slots, 1))
-            cost = rounds * (12 + rows)
-            if best is None or cost < best[0]:
-                best = (cost, (cluster, rows, need))
+            if best is None or rounds < best[0]:
+                best = (rounds, (cluster, rows, need))
         if best is not None:
             return best[1]
         cluster *= 2
@@ -616,6 +615,18 @@ def _check_tape(x, tape: Tape, widths: List[int]) -> None:
     _check_like(x, [*tape.z, tape.s])
 
 
+def _count(kind: str, what: str, sign: int) -> None:
+    """Counts one forward launch (`what` "launches") or one backward call
+    ("backward_launches") of the pair `kind` ("fast", "general" or
+    "streamed") in that pair's own counts and in the totals, and at sign -1
+    in both sign -1 counts too."""
+    for key in (what, f"{kind}_{what}"):
+        setattr(ar_solve, key, getattr(ar_solve, key) + 1)
+        if sign < 0:
+            key = key.replace(what, f"sign_minus_{what}")
+            setattr(ar_solve, key, getattr(ar_solve, key) + 1)
+
+
 def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, kind: str):
     """One forward launch (`launch`: the C entry of a kernel, whose
     arguments are the same but for the general kernel's grid, which
@@ -636,10 +647,7 @@ def _forward(launch, x, ws, bs, widths, sign: int, s_bound: float, tape, kind: s
             None if tape is None else _ptrs(tape.z),
             None if tape is None else tape.s.data_ptr(), stream)
     _raise_on(err, "forward" if kind == "fast" else f"{kind} forward")
-    ar_solve.launches += 1
-    ar_solve.general_launches += int(kind != "fast")
-    ar_solve.streamed_launches += int(kind == "streamed")
-    ar_solve.sign_minus_launches += int(sign < 0)
+    _count(kind, "launches", sign)
     return y, ld
 
 
@@ -762,8 +770,7 @@ def _backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
                 _ptrs(tape.z), tape.s.data_ptr(), gx.data_ptr(), flat.data_ptr(),
                 work.data_ptr(), blocks, stream)
         _raise_on(err, "backward")
-        ar_solve.backward_launches += 1
-        ar_solve.sign_minus_backward_launches += int(sign < 0)
+        _count("fast", "backward_launches", sign)
     grads = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
     return gx, grads[:len(ws)], grads[len(ws):]
 
@@ -790,9 +797,7 @@ def _general_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound:
                 _ptrs(tape.z), tape.s.data_ptr(), gx.data_ptr(), flat.data_ptr(),
                 work.data_ptr(), clusters, stream)
         _raise_on(err, "general backward")
-        ar_solve.backward_launches += 1
-        ar_solve.general_backward_launches += 1
-        ar_solve.sign_minus_backward_launches += int(sign < 0)
+        _count("general", "backward_launches", sign)
     grads = [g.view(s) for g, s in zip(flat.split(sizes), shapes)]
     return gx, grads[:len(ws)], grads[len(ws):]
 
@@ -816,10 +821,7 @@ def _streamed_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound
                 _ptrs(tape.z), tape.s.data_ptr(), _ptrs(deltas), head.data_ptr(),
                 gx.data_ptr(), stream)
         _raise_on(err, "streamed backward")
-        ar_solve.backward_launches += 1
-        ar_solve.general_backward_launches += 1
-        ar_solve.streamed_backward_launches += 1
-        ar_solve.sign_minus_backward_launches += int(sign < 0)
+        _count("streamed", "backward_launches", sign)
     gws, gbs = sum_grads(y, tape, deltas, head)
     return gx, gws, gbs
 
@@ -894,14 +896,11 @@ def ar_solve(x, masked_weights: Sequence[torch.Tensor], biases: Sequence[torch.T
 
 
 # kernel launches since the last reset (plain integers; reset by assigning
-# 0), a backward call (its launches) counted once, and among them those at
-# sign -1, IAF's density direction, those off the 128-wide pair (the general
-# and the streamed kernels), and among those the streamed kernels'
-ar_solve.launches = 0
-ar_solve.backward_launches = 0
-ar_solve.sign_minus_launches = 0
-ar_solve.sign_minus_backward_launches = 0
-ar_solve.general_launches = 0
-ar_solve.general_backward_launches = 0
-ar_solve.streamed_launches = 0
-ar_solve.streamed_backward_launches = 0
+# 0), a backward call (its launches) counted once: each pair's own ("fast_",
+# the 128-wide pair; "general_"; "streamed_", the third route), and with no
+# prefix their sum; each of them also at sign -1, IAF's density direction
+# ("sign_minus_" after the pair's prefix)
+COUNTS = tuple(f"{pair}{sign}{what}" for pair in ("", "fast_", "general_", "streamed_")
+               for sign in ("", "sign_minus_") for what in ("launches", "backward_launches"))
+for _key in COUNTS:
+    setattr(ar_solve, _key, 0)

@@ -56,6 +56,10 @@ PLANS = [
     (((96, 160, 64), 30, 256), (1, 4), (2, 8)),
     (((32,), 2, 128), (1, 4), (1, 4)),
     (((64,) * 4, 64, 7_680), (1, 16), (1, 8)),
+    (((50,) * 3, 20, 128), (1, 4), (1, 4)),
+    (((100,) * 6, 20, 128), (2, 4), (4, 8)),
+    (((202,) * 4, 20, 37), (4, 4), (8, 4)),
+    (((510, 22, 510), 64, 128), (4, 8), (4, 4)),
     (((128,) * 3, 20, 128), (1, 4), (2, 4)),  # the general pair forced at every config's MADE
 ]
 
@@ -111,6 +115,22 @@ def test_plan_bounds_over_a_grid():
                         assert need <= H100_SMEM
 
 
+def test_plan_rows_take_the_fewest_rounds():
+    """Of the tiles of 4, 8 and 16 rows that shared memory holds, the plan
+    takes the one with the fewest rounds of tiles over the clusters the card
+    runs at once, the fewer rows on a tie."""
+    for hidden, d in (((64,) * 4, 20), ((128,) * 6, 20), ((256,) * 2, 64), ((64,) * 4, 64)):
+        widths = [d, *hidden, 2 * d]
+        for backward in (False, True):
+            for n in (1, 37, 128, 500, 529, 1_056, 2_112, 7_680, 10_000):
+                cluster, rows, _ = ar_flow.general_plan(widths, backward, n, H100_SMS, H100_SMEM)
+                slots = H100_SMS if cluster == 1 else 7 * H100_SMS // (8 * cluster)
+                fits = [r for r in (4, 8, 16) if 4 * ar_flow.general_layout_floats(
+                    widths, cluster, r, backward) + ar_flow.GENERAL_STATIC_SMEM <= H100_SMEM]
+                rounds = {r: -(-(-(-n // r)) // slots) for r in fits}
+                assert rows == min(fits, key=lambda r: (rounds[r], r))
+
+
 def _took_before_the_redesign(widths, backward):
     """Whether the route took these widths before the general pair was
     redesigned: the 128-wide kernel's sizes, or the streamed kernels' (that
@@ -149,6 +169,35 @@ def test_third_route_past_eight_ctas():
         assert ar_flow.general_plan(widths, backward, 128, H100_SMS, H100_SMEM) is None
         assert ar_flow.route(widths, backward, H100_SMEM) == "streamed"
         assert ar_flow.streamed_smem_bytes(widths, backward) <= H100_SMEM
+
+
+def test_general_forward_beside_the_streamed_backward():
+    """Two hidden layers of 512 at D = 64: eight CTAs hold the forward's
+    weights (one copy of each layer) but not the backward's (the weights
+    and their gradients' sums), so `ar_solve` runs the general forward on
+    clusters of 8 and the streamed backward, on one tape."""
+    widths = [64, 512, 512, 128]
+    assert ar_flow.general_plan(widths, False, 128, H100_SMS, H100_SMEM)[:2] == (8, 4)
+    assert ar_flow.general_plan(widths, True, 128, H100_SMS, H100_SMEM) is None
+    assert [ar_flow.route(widths, b, H100_SMEM) for b in (False, True)] == ["general", "streamed"]
+
+
+@pytest.mark.parametrize("kind", ["fast", "general", "streamed"])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_each_pair_counts_its_own_launches(kind, sign):
+    """A launch of one pair adds one to that pair's count and to the total,
+    at sign -1 to both sign -1 counts too, and to no other pair's count."""
+    a = ar_flow.ar_solve
+    for what in ("launches", "backward_launches"):
+        before = {k: getattr(a, k) for k in ar_flow.COUNTS}
+        ar_flow._count(kind, what, sign)
+        got = {k: getattr(a, k) - before[k] for k in ar_flow.COUNTS}
+        minus = f"sign_minus_{what}"
+        want = {what: 1, f"{kind}_{what}": 1, minus: int(sign < 0),
+                f"{kind}_{minus}": int(sign < 0)}
+        assert got == {k: want.get(k, 0) for k in ar_flow.COUNTS}
+        for k, v in before.items():
+            setattr(a, k, v)
 
 
 def test_streamed_entries_take_cuda_tensors_only():

@@ -361,11 +361,17 @@ def test_general_kernels_match_plain(card, hidden, d, sign):
 
 
 # chip_smoke.py's ar_solve_shapes: the general pair's shapes (hidden widths,
-# D, rows), the last the general pair forced at every config's MADE
+# D, rows), then those that take its kernels' other paths on an H100 (50 x 3:
+# widths not a multiple of 4, so 4-byte staging and tape copies; 100 x 6:
+# slices of 52 and 48 over 2 CTAs forward, 28 and 16 over 4 backward; 202 x
+# 4: 8 CTAs backward, the last CTA's slice 6 wide, at a ragged row tile; 510,
+# 22, 510: a 4-CTA cluster where one CTA holds none of the 22-wide layer),
+# the last the general pair forced at every config's MADE
 GENERAL_SHAPES = [((64,) * 4, 20, 128), ((64,) * 3, 20, 128), ((128,) * 4, 20, 128),
                   ((128,) * 6, 20, 128), ((256,) * 2, 64, 256), ((100,) * 3, 16, 37),
                   ((96, 160, 64), 30, 256), ((32,), 2, 128), ((64,) * 4, 64, 7_680),
-                  ((128,) * 3, 20, 128)]
+                  ((50,) * 3, 20, 128), ((100,) * 6, 20, 128), ((202,) * 4, 20, 37),
+                  ((510, 22, 510), 64, 128), ((128,) * 3, 20, 128)]
 
 
 def _general_reference(x, ws, y, gy, gld, tape, sign, s_bound):
@@ -454,37 +460,44 @@ def test_general_backward_at_ties_past_step_0(card, sign):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden,d,routes", [((128,) * 6, 20, ("general", "general")),
-                                             ((1024,) * 2, 16, ("streamed", "streamed"))])
-def test_cluster_and_third_routes_launch_and_count(card, hidden, d, routes):
+@pytest.mark.parametrize("hidden,d,routes,clusters", [
+    ((128,) * 6, 20, ("general", "general"), (2, 4)),
+    ((1024,) * 2, 16, ("streamed", "streamed"), (None, None)),
+    ((512,) * 2, 64, ("general", "streamed"), (8, None))])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_cluster_and_third_routes_launch_and_count(card, hidden, d, routes, clusters, sign):
     """Through `ar_solve` under autograd: 6 hidden layers of 128 take the
     general pair on clusters (2 CTAs forward, 4 backward); two of 1,024 the
-    streamed pair (no cluster of 8 holds them). Each launches once each way,
-    counted as general and, on the third route, as streamed, with the plain
-    version's values and gradients."""
+    streamed pair (no cluster of 8 holds them); two of 512 at D = 64 the
+    general forward on clusters of 8 and the streamed backward, on one tape.
+    Each direction launches once, counted as its pair's (and at sign -1 as
+    its pair's sign -1 launch) and in the totals, with the plain version's
+    values and gradients."""
     widths = [d, *hidden, 2 * d]
     limit = ar_flow._smem_limit(0)
     assert tuple(ar_flow.route(widths, b, limit) for b in (False, True)) == routes
-    if routes[0] == "general":
-        plans = [ar_flow.general_plan(widths, b, 64, ar_flow._sm_count(0), limit)
-                 for b in (False, True)]
-        assert [p[0] for p in plans] == [2, 4]
+    plans = [ar_flow.general_plan(widths, b, 64, ar_flow._sm_count(0), limit)
+             for b in (False, True)]
+    assert tuple(None if p is None else p[0] for p in plans) == clusters
     ws, bs = _made_weights(card, 97, d, hidden)
     x = torch.randn(64, d, generator=torch.Generator().manual_seed(98)).to(card)
     a = ar_flow.ar_solve
-    keys = ("launches", "general_launches", "streamed_launches", "backward_launches",
-            "general_backward_launches", "streamed_backward_launches")
     runs = {}
     for name in ("fused", "plain"):
         xi = x.clone().requires_grad_(True)
         params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
         solve = ar_flow.ar_solve if name == "fused" else ar_flow.unrolled_solve
-        before = [getattr(a, k) for k in keys]
-        y, ld = solve(xi, params[:len(ws)], params[len(ws):], 1, 0.0)
+        before = {k: getattr(a, k) for k in ar_flow.COUNTS}
+        y, ld = solve(xi, params[:len(ws)], params[len(ws):], sign, 0.0)
         (y.square().sum() + ld.sum()).backward()
-        got = [getattr(a, k) - b for k, b in zip(keys, before)]
-        streamed = int(routes[0] == "streamed")
-        assert got == ([1, 1, streamed, 1, 1, streamed] if name == "fused" else [0] * 6)
+        got = {k: getattr(a, k) - before[k] for k in ar_flow.COUNTS}
+        want = dict.fromkeys(ar_flow.COUNTS, 0)
+        if name == "fused":
+            for pair, what in zip(routes, ("launches", "backward_launches")):
+                for key in (what, f"{pair}_{what}"):
+                    want[key] = 1
+                    want[key.replace(what, f"sign_minus_{what}")] = int(sign < 0)
+        assert got == want
         runs[name] = [y, ld, xi.grad, *(p.grad for p in params)]
     for g, w in zip(runs["fused"], runs["plain"]):
         torch.testing.assert_close(g, w, **TOL)

@@ -17,10 +17,14 @@ before any launch:
   chip, then the sum of the clusters' partial sums). `general_plan` picks
   the cluster and the rows of a tile from numbers alone;
 - "streamed": the pair in csrc/ar_flow_streamed.cu, for the shapes past 8
-  CTAs (hidden widths near 1,000, dozens of hidden layers): the weights are
-  read through the cache at every step; the backward's chain writes each
-  hidden layer's per-step deltas and the weight and bias sums over rows and
-  steps are then plain matrix products (`sum_grads`).
+  CTAs (hidden widths near 1,000, dozens of hidden layers): one cooperative
+  launch over the whole card, whose row groups of CTAs each hold one copy
+  of the MADE's weights spread over their shared memory (or, past the
+  card's shared memory, stream them through a ring of it) and trade each
+  link's activations through L2. `streamed_plan` picks the groups, the
+  slices and the rows of a tile from numbers alone. The backward's chain
+  writes each hidden layer's per-step deltas and the weight and bias sums
+  over rows and steps are then plain matrix products (`sum_grads`).
 
 All three pairs read and write the same tape, so a call's forward and
 backward may take different pairs. On a CPU tensor the forward is the
@@ -68,8 +72,19 @@ FAST_MAX_LAYERS, FAST_MAX_BACKWARD_HIDDEN = 8, 3
 GENERAL_MAX_LAYERS, GENERAL_STATIC_SMEM, GENERAL_MAX_CLUSTER = 64, 9216, 8
 GENERAL_CHAIN_THREADS, GENERAL_MIN_CHUNK = 256, 8
 GENERAL_CHAIN_WARPS = GENERAL_CHAIN_THREADS // 32
-# csrc/ar_flow_streamed.cu: the same for its kernels
-STREAMED_MAX_LAYERS, STREAMED_STATIC_SMEM = 64, 2560
+# csrc/ar_flow_streamed.cu: the layers its kernels take, the bytes it counts
+# for their static shared memory, its consumer threads, the rows of a tile at
+# most, the ring's slots and a slot's floats at most, the least
+# input features a K slice sums, the CTAs' partial sums staged at a time
+# (forward, backward), the row quads a thread keeps, the K slices a link
+# takes at most, and the plan's cost model (a group barrier's cycles, a
+# chunk's, FMAs, staged and streamed floats a cycle)
+STREAMED_MAX_LAYERS, STREAMED_STATIC_SMEM, STREAMED_THREADS = 64, 6144, 256
+STREAMED_MAX_ROWS, STREAMED_SLOTS, STREAMED_SLOT_FLOATS = 64, 2, 8192
+STREAMED_MIN_CHUNK, STREAMED_HEAD_PASS, STREAMED_GRAD_PASS = 8, 64, 128
+STREAMED_ITEMS, STREAMED_MAX_SLICES = 4, 16
+STREAMED_SYNC_CYCLES, STREAMED_CHUNK_CYCLES, STREAMED_FMA_PER_CYCLE = 8000, 100, 64
+STREAMED_STAGE_PER_CYCLE, STREAMED_STREAM_PER_CYCLE = 8, 3
 
 
 def hidden_relu(z):
@@ -393,13 +408,19 @@ def _streamed_lib():
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         pp = ctypes.POINTER(vp)
-        lib.ar_solve_streamed_smem_bytes.argtypes = [ctypes.POINTER(ci), ci, ci]
-        lib.ar_solve_streamed_smem_bytes.restype = ctypes.c_longlong
+        ll = ctypes.c_longlong
+        lib.ar_solve_streamed_ctas.argtypes = [ci]
+        lib.ar_solve_streamed_ctas.restype = ci
+        lib.ar_solve_streamed_plan.argtypes = [
+            ctypes.POINTER(ci), ci, ci, ci, ci, ci, ctypes.POINTER(ll)]
+        lib.ar_solve_streamed_plan.restype = ci
         lib.ar_solve_streamed_forward.argtypes = [
-            vp, pp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, vp, vp, pp, vp, vp]
+            vp, pp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, vp, vp, pp, vp, ctypes.POINTER(ll),
+            vp, vp]
         lib.ar_solve_streamed_forward.restype = ci
         lib.ar_solve_streamed_backward.argtypes = [
-            vp, vp, vp, vp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, pp, vp, pp, vp, vp, vp]
+            vp, vp, vp, vp, pp, ctypes.POINTER(ci), ci, ci, ci, cf, pp, vp, pp, vp, vp,
+            ctypes.POINTER(ll), vp, vp]
         lib.ar_solve_streamed_backward.restype = ci
         lib._typed = True
     return lib
@@ -430,18 +451,205 @@ def fast_smem_bytes(widths: Sequence[int], backward: bool):
     return 4 * floats
 
 
-def streamed_smem_bytes(widths: Sequence[int], backward: bool):
-    """The shared memory, dynamic and static, in bytes, one block of the
-    streamed forward or backward kernel needs at these layer widths; None
-    where its kernels do not take them. A copy of
-    csrc/ar_flow_streamed.cu's ar_solve_streamed_smem_bytes."""
-    n, d = len(widths) - 1, widths[0]
-    if (n < 2 or n > STREAMED_MAX_LAYERS or d < 2 or widths[-1] != 2 * d
-            or min(widths[1:-1]) < 1):
+def _streamed_kslices(p: int, r: int, kc: int) -> int:
+    """csrc/ar_flow_streamed.cu's kslices: the K slices of a link of p
+    columns over r rows, chunks of kc inputs."""
+    tg, rv, ks = STREAMED_THREADS // (p // 4), r // 4, 1
+    while (2 * ks <= STREAMED_MAX_SLICES and 2 * ks * rv <= tg
+           and 2 * ks * STREAMED_MIN_CHUNK <= kc):
+        ks *= 2
+    return ks
+
+
+class StreamedLayout(NamedTuple):
+    """One CTA of the streamed kernels: each hidden layer's slice width
+    (`P`), each link's chunk of inputs and K slices (index l - 1 for link
+    l), the most floats a ring slot may take (`cap`, 0 where the weights
+    are resident) and the floats of its dynamic shared memory."""
+    P: Tuple[int, ...]
+    kc: Tuple[int, ...]
+    ks: Tuple[int, ...]
+    cap: int
+    floats: int
+
+
+def _link_kp(widths, p, l: int, backward: bool):
+    """Link l's inputs and slice width: the forward's product that gives
+    hidden layer l, the backward's that gives layer l - 1's delta."""
+    return (widths[l + 1], p[l - 1]) if backward else (widths[l], p[l])
+
+
+def streamed_layout(widths: Sequence[int], ctas: int, rows: int, backward: bool,
+                    cap: int, pass_ctas: int | None = None):
+    """The layout of one CTA of the streamed forward or backward kernel at
+    these layer widths, `ctas` CTAs a row group sharing each layer's columns,
+    tiles of `rows` rows, the weights resident (`cap` 0) or streamed through
+    a ring of two slots of at most `cap` floats (each link a chunk of
+    cap / P of its inputs at a time, at least one); None where a link's
+    slice is too wide for its threads. A copy of csrc/ar_flow_streamed.cu's
+    layout(); `pass_ctas` (default `ctas`) sets the CTAs whose partial sums
+    the stage holds at once."""
+    pass_ctas = ctas if pass_ctas is None else pass_ctas
+    d, L = widths[0], len(widths) - 2
+    p = [_round4(-(-w // ctas)) for w in widths[1:-1]]
+    floats, ring, part, kcs, kss = 0, 0, 0, [], []  # ring: a slot's floats
+    for l in range(1, L):
+        k, pl = _link_kp(widths, p, l, backward)
+        tg = STREAMED_THREADS // (pl // 4) if pl <= 4 * STREAMED_THREADS else 0
+        if tg == 0 or -(-(rows // 4) // tg) > STREAMED_ITEMS:
+            return None
+        if cap:
+            kc = min(k, max(cap // pl, 1))
+            ring = max(ring, kc * pl)
+        else:
+            kc, floats = k, floats + k * pl
+        ks = _streamed_kslices(pl, rows, kc)
+        if ks > 1:
+            part = max(part, ks * pl * rows)
+        kcs.append(kc)
+        kss.append(ks)
+    floats += STREAMED_SLOTS * ring
+    if not backward:
+        stage = max([2 * min(pass_ctas, STREAMED_HEAD_PASS)] + list(widths[2:L]))
+        floats += 2 * p[-1] + sum(p[1:]) + _round4(2 * d) + widths[1] * rows
+        floats += _round4(widths[1]) + stage * rows + part
+        floats += (p[-1] // 4 * 2 * rows if L > 1 else 0) + 2 * d * rows
+    else:
+        stage = max([min(pass_ctas, STREAMED_GRAD_PASS)] + list(widths[2:L + 1]))
+        floats += stage * rows + part + p[0] + p[0] * rows + 5 * d * rows + 3 * rows
+    return StreamedLayout(tuple(p), tuple(kcs), tuple(kss), cap, floats)
+
+
+def _streamed_ring_layout(widths: Sequence[int], ctas: int, rows: int, backward: bool,
+                          limit: int):
+    """The streamed layout at these CTAs and rows with the widest ring that
+    fits `limit`: slots of at most STREAMED_SLOT_FLOATS where they fit, else
+    of at most the floats that the other buffers leave (a multiple of 4, at
+    least every link's slice: three or more hidden layers of ~4,500 units);
+    None where none fits. A copy of csrc/ar_flow_streamed.cu's
+    ring_layout()."""
+    lay = streamed_layout(widths, ctas, rows, backward, STREAMED_SLOT_FLOATS)
+    if lay is None or 4 * lay.floats + STREAMED_STATIC_SMEM <= limit:
+        return lay
+    links = [(kc, _link_kp(widths, lay.P, l, backward)[1])
+             for l, kc in zip(range(1, len(widths) - 2), lay.kc)]
+    if not links:  # one hidden layer: no ring to narrow
         return None
-    w1, wmax, warps = widths[1], max(widths[1:-1]), 8
-    floats = 5 * d + w1 + 2 * wmax + warps + 3 if backward else 2 * d + w1 + 2 * wmax + 2 * warps
-    return 4 * floats * KERNEL_TILE_ROWS + STREAMED_STATIC_SMEM
+    ring = max(kc * p for kc, p in links)
+    room = (limit - STREAMED_STATIC_SMEM) // 4 - (lay.floats - STREAMED_SLOTS * ring)
+    cap = (room // STREAMED_SLOTS) & ~3
+    if cap < max(p for _, p in links):
+        return None
+    return streamed_layout(widths, ctas, rows, backward, cap)
+
+
+def _streamed_step_cost(widths, lay: StreamedLayout, ctas: int, rows: int, backward: bool) -> int:
+    """csrc/ar_flow_streamed.cu's step_cost: a step's estimated cycles on one
+    SM."""
+    L, p = len(widths) - 2, lay.P
+    weights = fma = chunks = 0
+    for l, kc, ks in zip(range(1, L), lay.kc, lay.ks):
+        k, pl = _link_kp(widths, p, l, backward)
+        items = -(-(rows // 4) // (STREAMED_THREADS // (pl // 4)))  # the slowest thread's quads
+        busy = min(STREAMED_THREADS, (pl // 4) * (rows // 4) * ks // items)
+        weights, fma = weights + k * pl, fma + k * pl * STREAMED_THREADS // busy
+        chunks -= -k // kc
+    staged = sum(widths[2:L])
+    if backward:
+        fma, staged = fma + 2 * widths[L] + p[0], staged + ctas
+    else:
+        fma, staged = fma + widths[1] + 2 * p[-1], staged + 2 * ctas
+    syncs = L - 1 if L > 1 else 1
+    work = rows * fma // STREAMED_FMA_PER_CYCLE
+    if lay.cap:
+        work = max(work, weights // STREAMED_STREAM_PER_CYCLE)
+    return (syncs * STREAMED_SYNC_CYCLES + chunks * STREAMED_CHUNK_CYCLES + work
+            + rows * staged // STREAMED_STAGE_PER_CYCLE)
+
+
+def _streamed_takes(widths: Sequence[int]) -> bool:
+    n, d = len(widths) - 1, widths[0]
+    return (2 <= n <= STREAMED_MAX_LAYERS and d >= 2 and widths[-1] == 2 * d
+            and min(widths[1:-1]) >= 1)
+
+
+class StreamedPlan(NamedTuple):
+    """The streamed kernels' plan: a ring slot's floats at most (`cap`, 0:
+    the weights resident), the CTAs of a row group, the rows of a tile, the
+    groups, the bytes of shared memory a CTA takes (dynamic and static) and
+    the floats of the workspace (the packed weights, each group's exchange
+    and its barrier counter). The launch takes it as it is."""
+    cap: int
+    ctas: int
+    rows: int
+    groups: int
+    bytes: int
+    work: int
+
+
+@functools.lru_cache(maxsize=4096)
+def streamed_plan(widths: Sequence[int], backward: bool, n_rows: int, ctas: int, limit: int):
+    """The streamed kernels' plan at these layer widths for `n_rows` rows on
+    a card that runs `ctas` CTAs at once (the occupancy reading,
+    `_streamed_ctas`) and allows `limit` bytes of shared memory a CTA: of
+    every layout that fits (the weights resident or streamed through a ring
+    of full slots; a ring narrowed to fit, `_streamed_ring_layout`, only
+    where none of those fits; C from 1 to `ctas` CTAs a row group; tiles of
+    4 to 64 rows, step 4), the least rounds of tiles
+    over the groups times a step's estimated cost, the fewer CTAs on a tie,
+    then the first found. None where the kernels do not take the widths or
+    no layout fits. A copy of csrc/ar_flow_streamed.cu's
+    ar_solve_streamed_plan. (`widths` a tuple: the plan is cached.)"""
+    widths = tuple(widths)
+    if not _streamed_takes(widths) or n_rows <= 0 or ctas <= 0:
+        return None
+    L, d = len(widths) - 2, widths[0]
+    best, best_cost = None, None
+    # the weights resident, streamed through a ring of full slots, then
+    # through a ring narrowed to fit only where neither fits
+    for mode in range(3):
+        if mode == 2 and best is not None:
+            break
+        for c in range(1, ctas + 1):
+            for r in range(4, STREAMED_MAX_ROWS + 1, 4):
+                lay = (_streamed_ring_layout(widths, c, r, backward, limit) if mode == 2 else
+                       streamed_layout(widths, c, r, backward, mode * STREAMED_SLOT_FLOATS))
+                if lay is None or 4 * lay.floats + STREAMED_STATIC_SMEM > limit:
+                    break
+                tiles = -(-n_rows // r)
+                groups = min(ctas // c, tiles)
+                cost = -(-tiles // groups) * _streamed_step_cost(widths, lay, c, r, backward)
+                if best is None or cost < best_cost or (cost == best_cost
+                                                        and groups * c < best.groups * best.ctas):
+                    packed = _round4(2 * d * widths[-2]) + sum(
+                        c * k * pl for k, pl in (_link_kp(widths, lay.P, l, backward)
+                                                 for l in range(1, L)))
+                    exchange = (sum(widths[l + 1] * r for l in range(1, L - 1))
+                                + 2 * c * (1 if backward else 2) * r)
+                    best_cost = cost
+                    best = StreamedPlan(lay.cap, c, r, groups,
+                                        4 * lay.floats + STREAMED_STATIC_SMEM,
+                                        packed + groups * exchange + groups)
+    return best
+
+
+def streamed_scope_bytes(widths: Sequence[int], backward: bool):
+    """The number that bounds the streamed route: where the kernels take
+    the widths, 4 rows of the activations the route's first streamed
+    kernels held in shared memory (forward: the x and y rows, the first
+    layer's pre-activation and two rows of the widest hidden layer;
+    backward: five D-wide rows, the first layer's and two of the widest),
+    in bytes with their static shared memory; None where the kernels do not
+    take the widths. `route` sends a direction past 8 CTAs here where this
+    fits the device's limit, the scope the route has had since it was
+    added (hidden layers up to about 4,800 units at D = 16 on an H100);
+    tests/test_torch_ar_streamed.py checks that `streamed_plan` has a
+    layout at every shape within it."""
+    if not _streamed_takes(widths):
+        return None
+    d, w1, wmax = widths[0], widths[1], max(widths[1:-1])
+    floats = 5 * d + w1 + 2 * wmax + 11 if backward else 2 * d + w1 + 2 * wmax + 16
+    return 16 * floats + 2560
 
 
 def _ksplit(p: int, k: int, rv: int) -> int:
@@ -518,11 +726,12 @@ def route(widths: Sequence[int], backward: bool, limit: int) -> str:
     it takes them (hidden layers of 128; a backward of at most three); else
     "general", the kernel of csrc/ar_flow_general.cu, wherever a cluster of
     at most 8 CTAs holds the MADE (`general_plan` at 4-row tiles); else
-    "streamed", the kernel of csrc/ar_flow_streamed.cu. Raises ValueError
-    where none does. Decided from numbers alone, before any launch. The
-    pairs read and write the same tape, so the two directions of one call
-    may take different kernels (a 4-hidden-layer MADE of 128: the fast
-    forward, the general backward)."""
+    "streamed", the kernel of csrc/ar_flow_streamed.cu, within its scope
+    (`streamed_scope_bytes`). Raises ValueError where none does. Decided
+    from numbers alone, before any launch. The pairs read and write the
+    same tape, so the two directions of one call may take different kernels
+    (a 4-hidden-layer MADE of 128: the fast forward, the general
+    backward)."""
     fast = fast_smem_bytes(widths, backward)
     if (fast is not None and fast <= limit
             and not (backward and len(widths) - 2 > FAST_MAX_BACKWARD_HIDDEN)):
@@ -530,12 +739,12 @@ def route(widths: Sequence[int], backward: bool, limit: int) -> str:
     # one row: 4-row tiles, the least shared memory a cluster can take
     if general_plan(widths, backward, 1, GENERAL_MAX_CLUSTER, limit) is not None:
         return "general"
-    streamed = streamed_smem_bytes(widths, backward)
+    streamed = streamed_scope_bytes(widths, backward)
     if streamed is not None and streamed <= limit:
         return "streamed"
     raise ValueError(f"ar_solve has no kernel for the {'backward' if backward else 'forward'} "
-                     f"at widths {list(widths)}: the streamed kernel needs {streamed} bytes of "
-                     f"shared memory per block; the device allows {limit}")
+                     f"at widths {list(widths)}: the streamed route's scope needs {streamed} "
+                     f"bytes of shared memory per block; the device allows {limit}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,15 +766,34 @@ def _check_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> i
 
 
 @functools.lru_cache(maxsize=None)
-def _check_streamed_smem(widths: Tuple[int, ...], device_index: int, backward: bool) -> int:
-    """As `_check_smem`, for the streamed kernels."""
+def _streamed_ctas(device_index: int, backward: bool) -> int:
+    """The CTAs of the streamed forward or backward kernel the device runs at
+    once (the occupancy reading at the opt-in shared-memory limit, times the
+    SMs): the plan's `ctas`, read in this one place."""
+    with torch.cuda.device(device_index):
+        got = int(_streamed_lib().ar_solve_streamed_ctas(int(backward)))
+    if got <= 0:
+        raise RuntimeError(f"ar_solve's streamed {'backward' if backward else 'forward'}: the "
+                           f"card runs none of its CTAs at once ({got})")
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _streamed_plan_on(widths: Tuple[int, ...], backward: bool, n_rows: int,
+                      device_index: int) -> StreamedPlan:
+    """The streamed kernels' plan on the device, from its library, once for
+    each widths and rows: every launch takes it as it is. Raises where
+    there is none."""
+    ctas, limit = _streamed_ctas(device_index, backward), _smem_limit(device_index)
     arr = (ctypes.c_int * len(widths))(*widths)
-    need = int(_streamed_lib().ar_solve_streamed_smem_bytes(arr, len(widths) - 1, int(backward)))
-    limit = _smem_limit(device_index)
-    if need < 0 or need > limit:
-        raise ValueError(f"ar_solve's streamed kernel needs {need} bytes of shared memory per "
-                         f"block at widths {list(widths)}; the device allows {limit}")
-    return need
+    out = (ctypes.c_longlong * 6)()
+    rc = _streamed_lib().ar_solve_streamed_plan(arr, len(widths) - 1, int(backward), n_rows, ctas,
+                                                limit, out)
+    if rc != 0:
+        raise ValueError(f"ar_solve's streamed kernel takes no plan at widths {list(widths)} on "
+                         f"this device ({ctas} CTAs at once, {limit} bytes of shared memory a "
+                         f"block)")
+    return StreamedPlan(*map(int, out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -690,15 +918,24 @@ def general_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
 def streamed_forward(x, masked_weights, biases, sign: int, s_bound: float = 0.0,
                      tape: Tape | None = None):
     """Launch the streamed Hopper forward kernel on (N, D) CUDA tensors, at
-    any MADE widths its shared memory takes: as `kernel_forward`."""
+    any MADE widths a plan of `streamed_plan` takes: as `kernel_forward`,
+    on the plan's row groups."""
     ws, bs = list(masked_weights), list(biases)
     if not x.is_cuda:
         raise ValueError("streamed_forward takes CUDA tensors")
     widths = _check_params(x, ws, bs)
+    n = x.shape[0]
+    if n == 0:
+        return _forward(None, x, ws, bs, widths, sign, s_bound, tape, "streamed")
     lib = _streamed_lib()
-    _check_streamed_smem(tuple(widths), x.device.index, False)
-    return _forward(lib.ar_solve_streamed_forward, x, ws, bs, widths, sign, s_bound, tape,
-                    "streamed")
+    plan = _streamed_plan_on(tuple(widths), False, n, x.device.index)
+    work = x.new_empty(plan.work)
+
+    def launch(*args):
+        return lib.ar_solve_streamed_forward(*args[:-1], (ctypes.c_longlong * 6)(*plan),
+                                             work.data_ptr(), args[-1])
+
+    return _forward(launch, x, ws, bs, widths, sign, s_bound, tape, "streamed")
 
 
 def _check_backward_args(x, y, gy, gld, tape: Tape, ws) -> List[int]:
@@ -737,8 +974,8 @@ def general_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int, s_bou
 def streamed_backward(x, y, gy, gld, tape: Tape, masked_weights, sign: int,
                       s_bound: float = 0.0):
     """Launch the streamed Hopper backward kernel on (N, D) CUDA tensors, at
-    any MADE widths its shared memory takes, and sum its deltas: the same
-    result as `plain_backward`, (gx, gws, gbs)."""
+    any MADE widths a plan of `streamed_plan` takes, and sum its deltas: the
+    same result as `plain_backward`, (gx, gws, gbs)."""
     ws = list(masked_weights)
     if not x.is_cuda:
         raise ValueError("streamed_backward takes CUDA tensors")
@@ -803,23 +1040,24 @@ def _general_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound:
 
 
 def _streamed_backward(x, y, gy, gld, tape: Tape, ws, widths, sign: int, s_bound: float):
-    """The streamed backward on tensors already checked: one launch of the
-    reverse chain, which writes gx and every step's deltas, then
-    `sum_grads` over them."""
+    """The streamed backward on tensors already checked: the reverse chain
+    (the weights packed, then one cooperative launch), which writes gx and
+    every step's deltas, then `sum_grads` over them."""
     lib = _streamed_lib()
-    _check_streamed_smem(tuple(widths), x.device.index, True)
     n, d = x.shape
     gx = torch.empty_like(x)
     deltas = [x.new_empty(d, n, w) for w in widths[1:-1]]
     head = x.new_empty(d, n, 2)
     if n > 0:
+        plan = _streamed_plan_on(tuple(widths), True, n, x.device.index)
+        work = x.new_empty(plan.work)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with torch.cuda.device(x.device):
             err = lib.ar_solve_streamed_backward(
                 x.data_ptr(), y.data_ptr(), gy.data_ptr(), gld.data_ptr(), _ptrs(ws),
                 (ctypes.c_int * len(widths))(*widths), len(ws), n, int(sign), float(s_bound),
                 _ptrs(tape.z), tape.s.data_ptr(), _ptrs(deltas), head.data_ptr(),
-                gx.data_ptr(), stream)
+                gx.data_ptr(), (ctypes.c_longlong * 6)(*plan), work.data_ptr(), stream)
         _raise_on(err, "streamed backward")
         _count("streamed", "backward_launches", sign)
     gws, gbs = sum_grads(y, tape, deltas, head)

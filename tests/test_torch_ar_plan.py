@@ -133,13 +133,13 @@ def test_plan_rows_take_the_fewest_rounds():
 
 def _took_before_the_redesign(widths, backward):
     """Whether the route took these widths before the general pair was
-    redesigned: the 128-wide kernel's sizes, or the streamed kernels' (that
-    pair, as it was) within the limit."""
+    redesigned: the 128-wide kernel's sizes, or the streamed route's scope
+    (the same rule since that pair's first kernels) within the limit."""
     fast = ar_flow.fast_smem_bytes(widths, backward)
     if (fast is not None and fast <= H100_SMEM
             and not (backward and len(widths) - 2 > ar_flow.FAST_MAX_BACKWARD_HIDDEN)):
         return True
-    streamed = ar_flow.streamed_smem_bytes(widths, backward)
+    streamed = ar_flow.streamed_scope_bytes(widths, backward)
     return streamed is not None and streamed <= H100_SMEM
 
 
@@ -168,7 +168,7 @@ def test_third_route_past_eight_ctas():
     for backward in (False, True):
         assert ar_flow.general_plan(widths, backward, 128, H100_SMS, H100_SMEM) is None
         assert ar_flow.route(widths, backward, H100_SMEM) == "streamed"
-        assert ar_flow.streamed_smem_bytes(widths, backward) <= H100_SMEM
+        assert ar_flow.streamed_scope_bytes(widths, backward) <= H100_SMEM
 
 
 def test_general_forward_beside_the_streamed_backward():

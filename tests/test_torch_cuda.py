@@ -503,6 +503,116 @@ def test_cluster_and_third_routes_launch_and_count(card, hidden, d, routes, clus
         torch.testing.assert_close(g, w, **TOL)
 
 
+# the streamed pair's shapes: two hidden layers of 1,024 at 128, 37 (a
+# ragged tile) and 3 rows (one tile, fewer rows than row groups), two of 512
+# at D = 64, twelve of 1,024 (the weights streamed: past the card's shared
+# memory); one hidden layer of 4,000 at D = 64 (no hidden-to-hidden link: one
+# group barrier a step); two of 1,002 (widths not a multiple of 4, the
+# weights streamed, the last CTA's slices 42 and 10 wide); 2,048 then 1,024
+# (mixed widths, the forward on 15 CTAs a group)
+STREAMED_SHAPES = [((1024,) * 2, 16, 128), ((1024,) * 2, 16, 37), ((1024,) * 2, 16, 3),
+                   ((512,) * 2, 64, 128), ((1024,) * 12, 16, 64), ((4000,), 64, 128),
+                   ((1002,) * 2, 16, 128), ((2048, 1024), 16, 128)]
+
+
+def _streamed_reference(x, ws, y, gy, gld, tape, sign, s_bound):
+    """The streamed backward's plain version on its tape: `plain_chain`, then
+    `sum_grads`."""
+    gx, deltas, head = ar_flow.plain_chain(x, y, gy, gld, tape, ws, sign, s_bound)
+    gws, gbs = ar_flow.sum_grads(y, tape, deltas, head)
+    return [gx, *gws, *gbs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STREAMED_SHAPES)
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("s_bound", [0.0, 8.0])
+def test_streamed_pair_at_every_shape(card, shape, sign, s_bound):
+    """The streamed pair's direct entries on their plans (resident or
+    streamed weights, as `streamed_plan` decides on this card): the forward
+    with its tape against `plain_tape`, without one bitwise the same; the
+    whole backward (the chain, then `sum_grads`) against `plain_chain` and
+    `sum_grads` on the kernel's own tape, rtol/atol 1e-4; a second backward
+    bitwise equal; one launch counted each way."""
+    hidden, d, n = shape
+    ws, bs = _made_weights(card, 120 + d + len(hidden) + n, d, hidden)
+    gen = torch.Generator().manual_seed(121)
+    x, gy = (torch.randn(n, d, generator=gen).to(card) for _ in range(2))
+    gld = torch.randn(n, generator=gen).to(card)
+    a = ar_flow.ar_solve
+    before = (a.streamed_launches, a.streamed_backward_launches, a.general_launches)
+    tape = ar_flow.new_tape(x, ws)
+    y, ld = ar_flow.streamed_forward(x, ws, bs, sign, s_bound, tape=tape)
+    y2, ld2 = ar_flow.streamed_forward(x, ws, bs, sign, s_bound)
+    got = ar_flow.streamed_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    again = ar_flow.streamed_backward(x, y, gy, gld, tape, ws, sign, s_bound)
+    assert (a.streamed_launches, a.streamed_backward_launches, a.general_launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert torch.equal(y, y2) and torch.equal(ld, ld2)
+    y_p, ld_p, tape_p = ar_flow.plain_tape(x, ws, bs, sign, s_bound)
+    for g, want in zip([y, ld, tape.s, *tape.z], [y_p, ld_p, tape_p.s, *tape_p.z]):
+        torch.testing.assert_close(g, want, **TOL)
+    flat = [got[0], *got[1], *got[2]]
+    for g, w in zip(flat, _streamed_reference(x, ws, y, gy, gld, tape, sign, s_bound)):
+        torch.testing.assert_close(g, w, **TOL)
+    assert all(torch.equal(g, h) for g, h in zip(flat, [again[0], *again[1], *again[2]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_streamed_backward_at_ties_past_step_0(card, sign):
+    """MADE's zero biases with y_0 > 0 and the first layer's degree-0 units
+    on negative weights (two hidden layers of 1,024, D = 16): the last
+    layer's degree-0 units sit exactly at the ReLU's tie past step 0, where
+    the head reads them. The streamed backward takes JAX's slope 1/2 there:
+    it meets its plain version on its tape (rtol/atol 1e-4), and misses the
+    same with the tied pre-activations moved just below 0 (slope 0)."""
+    d, hidden, n = 16, (1024,) * 2, 128
+    ws, bs = _made_weights(card, 122, d, hidden)
+    bs = [torch.zeros_like(b) for b in bs]
+    w0 = ws[0].clone()
+    deg0 = ((w0 != 0).sum(0) == 1).nonzero().flatten()
+    assert len(deg0) and bool((w0[1:, deg0] == 0).all())
+    w0[0, deg0] = -w0[0, deg0].abs()
+    ws = [w0, *ws[1:]]
+    gen = torch.Generator().manual_seed(123)
+    x, gy = (torch.randn(n, d, generator=gen).to(card) for _ in range(2))
+    x[:, 0] = x[:, 0].abs()
+    gld = torch.randn(n, generator=gen).to(card)
+    tape = ar_flow.new_tape(x, ws)
+    y, _ = ar_flow.streamed_forward(x, ws, bs, sign, 0.0, tape=tape)
+    assert sum(int((z[1:] == 0).sum()) for z in tape.z) > 0
+    got = ar_flow.streamed_backward(x, y, gy, gld, tape, ws, sign, 0.0)
+    flat = [got[0], *got[1], *got[2]]
+    for g, w in zip(flat, _streamed_reference(x, ws, y, gy, gld, tape, sign, 0.0)):
+        torch.testing.assert_close(g, w, **TOL)
+    below = ar_flow.Tape([torch.where(z == 0, torch.full_like(z, -1e-30), z) for z in tape.z],
+                         tape.s)
+    slope0 = _streamed_reference(x, ws, y, gy, gld, below, sign, 0.0)
+    assert not all(torch.allclose(g, w, **TOL) for g, w in zip(flat, slope0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_streamed_forward_on_a_narrowed_ring(card, sign):
+    """Four hidden layers of 4,700 units (265 MB of weights): only streamed
+    plans whose ring slots are narrowed below 8,192 floats fit, and `route`
+    takes the widths as it did before the redesign. The forward on that
+    plan against `unrolled_solve`, rtol/atol 1e-4, and bitwise again."""
+    d, hidden, n = 16, (4700,) * 4, 8
+    widths = (d, *hidden, 2 * d)
+    assert ar_flow.route(widths, False, ar_flow._smem_limit(0)) == "streamed"
+    assert 0 < ar_flow._streamed_plan_on(widths, False, n, 0).cap < ar_flow.STREAMED_SLOT_FLOATS
+    ws, bs = _made_weights(card, 124, d, hidden)
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(125)).to(card)
+    y, ld = ar_flow.streamed_forward(x, ws, bs, sign, 0.0)
+    y2, ld2 = ar_flow.streamed_forward(x, ws, bs, sign, 0.0)
+    y_p, ld_p = ar_flow.unrolled_solve(x, ws, bs, sign, 0.0)
+    torch.testing.assert_close(y, y_p, **TOL)
+    torch.testing.assert_close(ld, ld_p, **TOL)
+    assert torch.equal(y, y2) and torch.equal(ld, ld2)
+
+
 @pytest.mark.cuda
 def test_ar_solve_at_four_hidden_layers_of_128(card):
     """A MADE of 4 x 128 under autograd: `ar_solve` routes its forward to the
@@ -531,12 +641,13 @@ def test_ar_solve_at_four_hidden_layers_of_128(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden,d", [((128,) * 3, 20), ((128,) * 4, 64), ((128,) * 6, 2),
                                       ((64,) * 4, 20), ((96, 160, 64), 30), ((32,), 2),
-                                      ((1024,) * 2, 16)])
+                                      ((1024,) * 2, 16), ((4000,), 64), ((1002,) * 2, 16),
+                                      ((2048, 1024), 16), ((4700,) * 4, 16)])
 def test_shared_memory_copies_match_the_kernels(card, hidden, d):
     """`route` decides from the Python copies of the kernels' shared-memory
-    sizes and plan (`fast_smem_bytes`, `general_plan`,
-    `streamed_smem_bytes`): they equal what the built libraries compute, at
-    several row counts on this card's SM count and limit."""
+    sizes and plans (`fast_smem_bytes`, `general_plan`, `streamed_plan`):
+    they equal what the built libraries compute, at several row counts on
+    this card's SM count, co-resident CTAs and limit."""
     import ctypes
 
     widths = [d, *hidden, 2 * d]
@@ -544,11 +655,11 @@ def test_shared_memory_copies_match_the_kernels(card, hidden, d):
     limit, sms = ar_flow._smem_limit(0), ar_flow._sm_count(0)
     for backward in (0, 1):
         fast = ar_flow._lib().ar_solve_smem_bytes(arr, len(widths) - 1, backward)
-        streamed = ar_flow._streamed_lib().ar_solve_streamed_smem_bytes(arr, len(widths) - 1,
-                                                                       backward)
         assert fast == (ar_flow.fast_smem_bytes(widths, backward) or -1)
-        assert streamed == ar_flow.streamed_smem_bytes(widths, backward)
+        ctas = ar_flow._streamed_ctas(0, bool(backward))
         for n in (1, 37, 128, 256, 7_680, 10_000):
+            assert tuple(ar_flow._streamed_plan_on(tuple(widths), bool(backward), n, 0)) == tuple(
+                ar_flow.streamed_plan(tuple(widths), bool(backward), n, ctas, limit))
             out = (ctypes.c_int * 3)()
             rc = ar_flow._general_lib().ar_solve_general_plan(arr, len(widths) - 1, backward, n,
                                                               sms, limit, out)

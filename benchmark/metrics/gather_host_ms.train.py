@@ -1,0 +1,10 @@
+"""gather_host_ms.train: the host's ms a train step in the device
+pipeline's gather of the batch, the program's span `pipeline.gather`, over
+the steps of the traced device-only sub-window (benchmark/program_spans.py).
+Nothing on a program without the spans."""
+
+from benchmark.program_spans import host_ms_per_unit
+
+
+def read(r):
+    return host_ms_per_unit(r, "trainer.step", ("pipeline.gather",))

@@ -24,6 +24,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 class DeviceDataPipeline:
     """Holds base modality arrays + pairing index tables on a device and
@@ -74,10 +76,11 @@ class DeviceDataPipeline:
     def gather(self, pair_rows: torch.Tensor) -> List[torch.Tensor]:
         """pair_rows (B,) int on the device -> [x_m (B, *event) float32]."""
         out = []
-        for arr, table, u8 in zip(self.device_arrays, self.pair_indices, self.is_uint8):
-            rows = table.index_select(0, pair_rows)
-            x = arr.index_select(0, rows).to(torch.float32)
-            out.append(x * (1.0 / 255.0) if u8 else x)
+        with trace.span("pipeline.gather"):
+            for arr, table, u8 in zip(self.device_arrays, self.pair_indices, self.is_uint8):
+                rows = table.index_select(0, pair_rows)
+                x = arr.index_select(0, rows).to(torch.float32)
+                out.append(x * (1.0 / 255.0) if u8 else x)
         return out
 
 

@@ -26,6 +26,7 @@ import torch
 from ..core import distributions as D
 from ..core.constants import LOG2PI
 from ..core.distributions import LocScale
+from ..utils import trace
 from .generation import Noise
 
 # Rows of one model call: P = ROWS_PER_CALL // batch_size_K datapoints (100
@@ -49,11 +50,15 @@ def _chunked_is(draw: Callable, log_w: Callable, n: int, K: int, bk: int) -> tor
     preserving the reference's chunk-then-combine reduction (JAX
     `_chunked_is`). draw() -> the chunk's noise tensors, (n, bk, ...) each;
     log_w(rows, *noise[rows]) -> (len(rows), bk) log-weights."""
+    def call(sl, noise):
+        with trace.span("likelihood.is_call", device=noise[0].is_cuda):
+            return log_w(sl, *(e[sl] for e in noise))
+
     per_chunk = []
     for _ in range(K // bk):
         noise = draw()
         per_chunk.append(torch.cat([
-            torch.logsumexp(log_w(sl, *(e[sl] for e in noise)), dim=-1) for sl in _groups(n, bk)]))
+            torch.logsumexp(call(sl, noise), dim=-1) for sl in _groups(n, bk)]))
     return torch.logsumexp(torch.stack(per_chunk), dim=0) - math.log(K)
 
 
@@ -298,13 +303,15 @@ def protocol_chunked(model, spec, batches: Sequence[Sequence[torch.Tensor]],
     conditional likelihoods, the family's joint likelihood (`joint_fn`) and
     with `bis` the bis protocol, in that order. Returns {name: S per-batch
     means}, the same as S calls of one batch each."""
-    sizes = [b[0].shape[0] for b in batches]
-    data = [torch.cat([b[m] for b in batches]) for m in range(len(batches[0]))]
-    noise = Noise(generators, sizes, dtype=data[0].dtype)
-    metrics = compute_conditional_likelihoods(model, data, spec, noise, K, batch_size_K)
-    if joint_fn is not None:
-        metrics.update(joint_fn(model, data, spec, noise, K, batch_size_K))
-    if bis:
-        metrics.update(compute_conditional_likelihoods_bis(model, data, spec, noise, K,
-                                                           batch_size_K))
-    return {k: torch.stack([c.mean() for c in v.split(sizes)]).tolist() for k, v in metrics.items()}
+    with trace.span("likelihood.protocol"):
+        sizes = [b[0].shape[0] for b in batches]
+        data = [torch.cat([b[m] for b in batches]) for m in range(len(batches[0]))]
+        noise = Noise(generators, sizes, dtype=data[0].dtype)
+        metrics = compute_conditional_likelihoods(model, data, spec, noise, K, batch_size_K)
+        if joint_fn is not None:
+            metrics.update(joint_fn(model, data, spec, noise, K, batch_size_K))
+        if bis:
+            metrics.update(compute_conditional_likelihoods_bis(model, data, spec, noise, K,
+                                                               batch_size_K))
+        return {k: torch.stack([c.mean() for c in v.split(sizes)]).tolist()
+                for k, v in metrics.items()}

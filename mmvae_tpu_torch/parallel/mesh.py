@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import trace
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -108,7 +110,8 @@ class Mesh:
     def all_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` over the world, in place, outside autograd."""
         if self.collective:
-            torch.distributed.all_reduce(t)
+            with trace.span("mesh.all_reduce"):
+                torch.distributed.all_reduce(t)
         return t
 
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:

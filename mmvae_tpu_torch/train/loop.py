@@ -43,6 +43,7 @@ from ..core.config import ExperimentConfig
 from ..nets.conv import batchnorm_stats, init_parameters
 from ..objectives import objectives as obj_mod
 from ..parallel import mesh as mesh_lib
+from ..utils import trace
 from . import checkpoints, freezing
 from .optim import Adam
 from .schedule import BetaKlSchedule, ReduceLROnPlateau
@@ -120,17 +121,23 @@ class Trainer:
         draw it from the trainer's generator. `block`: xs is this rank's
         block of a batch sharded over the mesh (None: all of the batch).
         Under a mesh the loss and details are this rank's."""
-        named = list(self.model.named_parameters())
-        bn_before = [t.clone() for t in self._bn_stats] if self.guard else []
-        loss, details, grads, finite = self.loss_and_grads(xs, beta_kl, epoch, noise, block)
-        if self.guard:
-            details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
-            # nor the BatchNorm statistics, as the JAX Trainer keeps its batch_stats
-            with torch.no_grad():
-                for t, old in zip(self._bn_stats, bn_before):
-                    t.copy_(torch.where(finite, t, old))
-        self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr, finite)
-        return loss, details
+        with trace.span("trainer.step"):
+            named = list(self.model.named_parameters())
+            bn_before = []
+            if self.guard:
+                with trace.span("trainer.guard"):
+                    bn_before = [t.clone() for t in self._bn_stats]
+            loss, details, grads, finite = self.loss_and_grads(xs, beta_kl, epoch, noise, block)
+            if self.guard:
+                with trace.span("trainer.guard"):
+                    details = {**details, "nan_skipped": 1.0 - finite.to(torch.float32)}
+                    # nor the BatchNorm statistics, as the JAX Trainer keeps its batch_stats
+                    with torch.no_grad():
+                        for t, old in zip(self._bn_stats, bn_before):
+                            t.copy_(torch.where(finite, t, old))
+            self.opt.step([g for (n, _), g in zip(named, grads) if n in self._trainable], lr,
+                          finite)
+            return loss, details
 
     def loss_and_grads(self, xs, beta_kl: float = 1.0, epoch: int = 1, noise=None,
                        block: Optional[mesh_lib.Block] = None):
@@ -143,18 +150,22 @@ class Trainer:
         self.model.train()
         params = list(self.model.parameters())
         with self._policy(), mesh_lib.batch_stats_over(self.model, block):
-            obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise, generator=self.gen,
-                                       block=block, **self._obj_kwargs(beta_kl, epoch))
-            loss = -obj
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            with trace.span("trainer.forward"):
+                obj, details = self.obj_fn(self.model, xs, self.spec, noise=noise,
+                                           generator=self.gen, block=block,
+                                           **self._obj_kwargs(beta_kl, epoch))
+                loss = -obj
+            with trace.span("trainer.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         finite = None
         if self.guard:
-            # a non-finite step (MAF exp overflow, ...) must not reach the
-            # params or the moments; all grads count, frozen ones included
-            finite = torch.isfinite(loss.detach())
-            for g in grads:
-                finite = finite & torch.isfinite(g).all()
+            with trace.span("trainer.guard"):
+                # a non-finite step (MAF exp overflow, ...) must not reach the
+                # params or the moments; all grads count, frozen ones included
+                finite = torch.isfinite(loss.detach())
+                for g in grads:
+                    finite = finite & torch.isfinite(g).all()
         if self.mesh.collective:
             grads, finite = self._reduce_grads(grads, finite, block)
         return loss.detach(), details, grads, finite

@@ -19,6 +19,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..utils import trace
+
 
 class Adam:
     def __init__(self, params: Sequence[torch.nn.Parameter], amsgrad: bool = True,
@@ -42,34 +44,35 @@ class Adam:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], lr: float,
              finite: Optional[torch.Tensor] = None) -> None:
-        grads = list(grads)
-        if finite is not None:
-            grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
-        if self.clip > 0.0:
-            grads = self._clip(grads)
-        count = self.count + 1
-        # the bias corrections in the parameters' precision, as optax takes
-        # them in JAX's default float type (float64 under x64)
-        t = count.to(self.params[0].dtype if self.params else torch.float32)
-        bc1 = 1.0 - self.b1 ** t
-        bc2 = 1.0 - self.b2 ** t
+        with trace.span("optimizer.step"):
+            grads = list(grads)
+            if finite is not None:
+                grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
+            if self.clip > 0.0:
+                grads = self._clip(grads)
+            count = self.count + 1
+            # the bias corrections in the parameters' precision, as optax takes
+            # them in JAX's default float type (float64 under x64)
+            t = count.to(self.params[0].dtype if self.params else torch.float32)
+            bc1 = 1.0 - self.b1 ** t
+            bc2 = 1.0 - self.b2 ** t
 
-        def keep(new, old):
-            return new if finite is None else torch.where(finite, new, old)
+            def keep(new, old):
+                return new if finite is None else torch.where(finite, new, old)
 
-        for k, (p, g) in enumerate(zip(self.params, grads)):
-            mu = (1.0 - self.b1) * g + self.b1 * self.mu[k]
-            nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu[k]
-            mu_hat, nu_hat = mu / bc1, nu / bc2
-            if self.amsgrad:
-                nu_max = torch.maximum(self.nu_max[k], nu_hat)
-                self.nu_max[k] = keep(nu_max, self.nu_max[k])
-                nu_hat = nu_max
-            update = -(mu_hat / (torch.sqrt(nu_hat) + self.eps)) * lr
-            p.copy_(keep(p + update, p))
-            self.mu[k] = keep(mu, self.mu[k])
-            self.nu[k] = keep(nu, self.nu[k])
-        self.count = keep(count, self.count)
+            for k, (p, g) in enumerate(zip(self.params, grads)):
+                mu = (1.0 - self.b1) * g + self.b1 * self.mu[k]
+                nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu[k]
+                mu_hat, nu_hat = mu / bc1, nu / bc2
+                if self.amsgrad:
+                    nu_max = torch.maximum(self.nu_max[k], nu_hat)
+                    self.nu_max[k] = keep(nu_max, self.nu_max[k])
+                    nu_hat = nu_max
+                update = -(mu_hat / (torch.sqrt(nu_hat) + self.eps)) * lr
+                p.copy_(keep(p + update, p))
+                self.mu[k] = keep(mu, self.mu[k])
+                self.nu[k] = keep(nu, self.nu[k])
+            self.count = keep(count, self.count)
 
 
 class RMSprop:
